@@ -6,9 +6,11 @@ every Pallas kernel of a ported slice is a CUDA kernel written by hand
 for Hopper (`csrc/`, built at first use by ops/cuda_build.py). Entry
 points run on the GPU unless the caller passes device="cpu".
 
-Ported so far: char-LSTM serving — the conf DSL and its JSON, layer
-forwards, `MultiLayerNetwork` inference, and the continuous-batching
-decode engine, with the fused LSTM step and sequence kernels.
+Ported so far: char-LSTM serving and training — the conf DSL and its
+JSON, layer forwards, `MultiLayerNetwork` inference and `fit` with
+truncated BPTT (losses, updaters, data iterators, listeners), and the
+continuous-batching decode engine, with the fused LSTM step, sequence
+and sequence-backward kernels.
 """
 
 __version__ = "0.1.0"

@@ -22,6 +22,22 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
 
 __device__ __forceinline__ float sigmoid(float x) { return 1.0f / (1.0f + expf(-x)); }
 
+// Grid-wide barrier of a cooperative launch: the block's writes,
+// __threadfence(), one atomic arrive on a zeroed counter, then a spin until
+// `target` arrivals (the n-th barrier waits for n * gridDim.x). Only safe
+// when every block is resident, which cudaLaunchCooperativeKernel ensures.
+__device__ __forceinline__ void grid_barrier(unsigned int* bar, unsigned int target) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence();
+    atomicAdd(bar, 1u);
+    while (*reinterpret_cast<volatile unsigned int*>(bar) < target) {
+    }
+    __threadfence();
+  }
+  __syncthreads();
+}
+
 }  // namespace dl4j
 
 // Message for an error code a C entry point returned.

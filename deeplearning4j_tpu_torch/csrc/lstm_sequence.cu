@@ -41,18 +41,6 @@ constexpr int BB = 8;           // batch rows per pass over the h rows
 constexpr int NC = 4 * U;       // gate columns per block
 constexpr int NT = BB * NC;     // threads: one per (row, gate column)
 
-__device__ __forceinline__ void grid_barrier(unsigned int* bar, unsigned int target) {
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    __threadfence();
-    atomicAdd(bar, 1u);
-    while (*reinterpret_cast<volatile unsigned int*>(bar) < target) {
-    }
-    __threadfence();
-  }
-  __syncthreads();
-}
-
 template <typename T>
 __global__ void __launch_bounds__(NT) lstm_sequence_kernel(
     const T* __restrict__ xg, const T* __restrict__ rw,
@@ -136,7 +124,7 @@ __global__ void __launch_bounds__(NT) lstm_sequence_kernel(
       }
       __syncthreads();
     }
-    if (t + 1 < steps) grid_barrier(bar, (unsigned int)(t + 1) * gridDim.x);
+    if (t + 1 < steps) dl4j::grid_barrier(bar, (unsigned int)(t + 1) * gridDim.x);
   }
 }
 

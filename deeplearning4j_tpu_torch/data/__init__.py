@@ -1,0 +1,9 @@
+"""Data: the DataSet container and the host iterators (the port of the
+JAX package's data/)."""
+
+from deeplearning4j_tpu_torch.data.dataset import DataSet
+from deeplearning4j_tpu_torch.data.iterators import (
+    DataSetIterator,
+    ExistingDataSetIterator,
+    ListDataSetIterator,
+)

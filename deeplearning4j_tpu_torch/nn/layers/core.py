@@ -32,6 +32,13 @@ def apply_dropout(x, retain_prob, ctx: LayerContext):
 
 # -- dense -------------------------------------------------------------------
 
+def affine(x, W, b):
+    """x @ W + b in the promoted dtype, as jnp promotes a bf16 activation
+    times f32 weights to f32 (torch's matmul does not promote)."""
+    dt = torch.promote_types(x.dtype, W.dtype)
+    return x.to(dt) @ W.to(dt) + b.to(dt)
+
+
 def dense_init(gen, conf: L.DenseLayer, dtype):
     W = init_weights(gen, (conf.n_in, conf.n_out), conf.n_in, conf.n_out,
                      conf.weight_init, conf.dist, dtype)
@@ -41,7 +48,7 @@ def dense_init(gen, conf: L.DenseLayer, dtype):
 
 def dense_forward(conf, params, x, ctx: LayerContext):
     x = apply_dropout(x, conf.dropout, ctx)
-    z = x @ params["W"] + params["b"]
+    z = affine(x, params["W"], params["b"])
     return apply_activation(conf.activation, z, key=ctx.rng, training=ctx.training), None
 
 
@@ -58,7 +65,7 @@ register_layer(L.OutputLayer, dense_init, dense_forward)
 
 def rnn_output_forward(conf, params, x, ctx: LayerContext):
     # x: [batch, time, nIn]: one [batch*time, nIn] x [nIn, nOut] product
-    z = x @ params["W"] + params["b"]
+    z = affine(x, params["W"], params["b"])
     return apply_activation(conf.activation, z, key=ctx.rng, training=ctx.training), None
 
 

@@ -110,8 +110,6 @@ def _scan_lstm(conf, params, x, ctx, peephole: bool, prefix: str = "", reverse: 
         "lstm_sequence", peephole=peephole, mask=ctx.mask,
         gate_act=conf.gate_activation, cell_act=conf.activation,
         reverse=reverse, device=x.device,
-        grad=torch.is_grad_enabled() and any(
-            t.requires_grad for t in (x, W, RW, b)),
     )
     if helper is not None:
         pv = _peepholes(params, prefix, peephole, H, x)

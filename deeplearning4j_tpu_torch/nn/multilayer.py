@@ -1,15 +1,24 @@
-"""MultiLayerNetwork — the sequential network, inference side.
+"""MultiLayerNetwork — the sequential network.
 
 Analog of the reference's nn/multilayer/MultiLayerNetwork.java and the
 port of the JAX package's nn/multilayer.py: init, the forward pass,
-`output`, `feed_forward`, streaming `rnn_time_step`, and the pure decode
-step the serving engine drives. fit, score and evaluate are not ported
-yet.
+`output`, `feed_forward`, streaming `rnn_time_step`, the pure decode step
+the serving engine drives, and training: the loss with its L1/L2 terms,
+the optimizer step, `fit` with truncated BPTT, and `score`.
+
+Where the JAX package compiles forward + loss + backward + updater into
+one jitted program, the port runs them eagerly: autograd gives the
+gradients (through the fused LSTM kernels' autograd Function on a Hopper
+GPU), and the updater adds its deltas to the parameters in place. The
+JAX package's single-dispatch programs (fused TBPTT, `set_fused_steps`)
+and the line-search solvers are not ported: they are XLA dispatch
+devices around the same math as the loop here. evaluate and pretraining
+are not ported yet.
 
 Parameters are a list of per-layer dicts of tensors on the network's
 device; the flattened view comes from nn/params.py. Mutable
-non-trainable state (LSTM h/c during rnnTimeStep streaming) is a
-parallel list threaded functionally through the forward.
+non-trainable state (LSTM h/c during TBPTT and rnnTimeStep streaming) is
+a parallel list threaded functionally through the forward.
 """
 
 from __future__ import annotations
@@ -23,8 +32,17 @@ import torch
 
 from deeplearning4j_tpu_torch.common.devices import resolve_device
 from deeplearning4j_tpu_torch.common.dtypes import policy_from_name
+from deeplearning4j_tpu_torch.data.dataset import DataSet
+from deeplearning4j_tpu_torch.data.iterators import (
+    DataSetIterator,
+    ListDataSetIterator,
+)
 from deeplearning4j_tpu_torch.nn.conf import layers as L
-from deeplearning4j_tpu_torch.nn.conf.network import MultiLayerConfiguration
+from deeplearning4j_tpu_torch.nn.conf.network import (
+    BackpropType,
+    MultiLayerConfiguration,
+)
+from deeplearning4j_tpu_torch.nn.layers.core import affine, apply_dropout
 from deeplearning4j_tpu_torch.nn.layers.registry import (
     LayerContext,
     forward_layer,
@@ -32,13 +50,47 @@ from deeplearning4j_tpu_torch.nn.layers.registry import (
     init_layer_state,
 )
 from deeplearning4j_tpu_torch.nn.netbase import NetworkBase
+from deeplearning4j_tpu_torch.ops.losses import loss_value, masked_example_mean
+from deeplearning4j_tpu_torch.train.updaters import (
+    normalize_gradients,
+    schedule_lr,
+    updater_from_conf,
+)
 
 logger = logging.getLogger("deeplearning4j_tpu_torch")
+
+# CenterLossOutputLayer has no layer implementation in the port yet
+_OUTPUT_LAYER_TYPES = (L.OutputLayer, L.RnnOutputLayer, L.LossLayer)
 
 
 def _is_recurrent(conf) -> bool:
     inner = conf.inner if isinstance(conf, L.FrozenLayer) else conf
     return isinstance(inner, (L.LSTM, L.GravesLSTM))
+
+
+def _is_frozen(conf) -> bool:
+    return isinstance(conf, L.FrozenLayer)
+
+
+def _regularizable(name: str) -> bool:
+    """Weight-style params get l1/l2; biases and batchnorm affine params do
+    not (reference: each ParamInitializer flags regularizable params)."""
+    if name in ("gamma", "beta"):
+        return False
+    return name.rsplit("_", 1)[-1] in ("W", "RW", "pI", "pF", "pO")
+
+
+def _preout_of_output_layer(conf, params, x):
+    """Pre-activation of the final (output) layer — the quantity losses
+    consume (reference: BaseOutputLayer.preOutput2d)."""
+    if isinstance(conf, L.LossLayer):
+        return x
+    return affine(x, params["W"], params["b"])
+
+
+def _detached(states):
+    return [None if st is None else {k: v.detach() for k, v in st.items()}
+            for st in states]
 
 
 def _layer_seed(seed: int, i: int) -> int:
@@ -49,9 +101,9 @@ def _layer_seed(seed: int, i: int) -> int:
 
 
 class MultiLayerNetwork(NetworkBase):
-    """Sequential network. API mirrors the reference: init, output,
-    params/set_params, rnn_time_step. Runs on `device` ("cuda" when None;
-    pass device="cpu" for the CPU)."""
+    """Sequential network. API mirrors the reference: init, fit, output,
+    score, params/set_params, rnn_time_step. Runs on `device` ("cuda"
+    when None; pass device="cpu" for the CPU)."""
 
     def __init__(self, conf: MultiLayerConfiguration, device=None):
         super().__init__()
@@ -61,6 +113,7 @@ class MultiLayerNetwork(NetworkBase):
         self.net_conf = conf.net_conf
         self.policy = policy_from_name(self.net_conf.precision)
         self.policy.apply()
+        self.updater_def = updater_from_conf(self.net_conf)
         self._rnn_states = None  # streaming inference state (rnn_time_step)
 
     def _ordered_layer_confs(self):
@@ -79,6 +132,7 @@ class MultiLayerNetwork(NetworkBase):
             st = init_layer_state(conf, dtype)
             self.state_list.append(
                 None if st is None else {k: v.to(self.device) for k, v in st.items()})
+        self.upd_state = self.updater_def.init_tree(self.params_list)
         return self
 
     def _as_input(self, x) -> torch.Tensor:
@@ -86,10 +140,20 @@ class MultiLayerNetwork(NetworkBase):
             return x.to(self.device)
         return torch.as_tensor(np.asarray(x), device=self.device)
 
+    def _as_data(self, a):
+        """A batch array on the device; float64 arrives as float32, as
+        jnp.asarray gives it to the JAX package."""
+        if a is None:
+            return None
+        t = self._as_input(a)
+        return t.float() if t.dtype == torch.float64 else t
+
     # -- forward -------------------------------------------------------------
 
-    def _forward(self, params, states, x, *, training, rng, stateful=False):
-        """Pure forward. Returns (out, new_states)."""
+    def _forward(self, params, states, x, *, training, rng, f_mask=None,
+                 stateful=False, preout_last=False):
+        """Pure forward. Returns (out, new_states). With `preout_last` the
+        output layer returns its pre-activation, for the loss."""
         confs = self.layer_confs
         pps = self.conf.preprocessors
         new_states: List[Optional[dict]] = [None] * len(confs)
@@ -104,12 +168,251 @@ class MultiLayerNetwork(NetworkBase):
             if stateful and _is_recurrent(conf) and st is None:
                 st = {}  # empty dict triggers zero-state seed + state return
             ctx = LayerContext(training=training, rng=rng,
+                               mask=f_mask if x.dim() == 3 else None,
                                timesteps=timesteps, state=st)
-            x, new_states[i] = forward_layer(conf, params[i], x, ctx)
+            if (preout_last and i == len(confs) - 1
+                    and isinstance(conf, _OUTPUT_LAYER_TYPES)):
+                # input dropout applies to the output layer too (reference:
+                # BaseOutputLayer preOutput applies Dropout to its input)
+                x = _preout_of_output_layer(
+                    conf, params[i], apply_dropout(x, conf.dropout, ctx))
+            else:
+                x, new_states[i] = forward_layer(conf, params[i], x, ctx)
         return x, new_states
 
     def _merge_states(self, old, new):
         return [n if n is not None else o for o, n in zip(old, new)]
+
+    # -- loss ----------------------------------------------------------------
+
+    def _loss(self, params, states, x, y, f_mask, l_mask, rng, training=True):
+        last = self.layer_confs[-1]
+        if not isinstance(last, _OUTPUT_LAYER_TYPES):
+            raise ValueError(
+                "the final layer must be an OutputLayer/RnnOutputLayer/"
+                "LossLayer to compute a training loss")
+        x = self.policy.cast_input(x)
+        preout, new_states = self._forward(
+            params, states, x, training=training, rng=rng, f_mask=f_mask,
+            preout_last=True)
+        preout = self.policy.cast_output(preout)
+        per_ex = loss_value(last.loss, y, preout, last.activation, l_mask)
+        score = masked_example_mean(per_ex, l_mask)
+        # L1/L2 penalties (reference: BaseLayer.calcL1/calcL2 added to the
+        # score; their gradients come from differentiating this expression)
+        reg = 0.0
+        for conf, p in zip(self.layer_confs, params):
+            inner = conf.inner if isinstance(conf, L.FrozenLayer) else conf
+            l1 = getattr(inner, "l1", 0.0) or 0.0
+            l2 = getattr(inner, "l2", 0.0) or 0.0
+            if l1 == 0.0 and l2 == 0.0:
+                continue
+            for name, w in p.items():
+                if _regularizable(name):
+                    if l1:
+                        reg = reg + l1 * w.abs().sum()
+                    if l2:
+                        reg = reg + 0.5 * l2 * (w * w).sum()
+        return score + reg, new_states
+
+    # -- train step ----------------------------------------------------------
+
+    def _lr_mult_tree(self):
+        """Per-leaf learning-rate multiplier (per-layer learning_rate and
+        bias_learning_rate overrides, reference: layer conf learningRate)."""
+        base = self.net_conf.learning_rate
+        out = []
+        for conf, p in zip(self.layer_confs, self.params_list):
+            inner = conf.inner if isinstance(conf, L.FrozenLayer) else conf
+            layer_lr = getattr(inner, "learning_rate", None)
+            bias_lr = getattr(inner, "bias_learning_rate", None)
+            mult = {}
+            for name in p:
+                if name == "b" and bias_lr is not None:
+                    mult[name] = bias_lr / base
+                elif layer_lr is not None:
+                    mult[name] = layer_lr / base
+                else:
+                    mult[name] = 1.0
+            out.append(mult)
+        return out
+
+    def _trainable_mask(self):
+        return [{k: (0.0 if _is_frozen(conf) else 1.0) for k in p}
+                for conf, p in zip(self.layer_confs, self.params_list)]
+
+    def _step(self, loss_builder, states, data, lr: float, t: float, rng):
+        """One optimizer step, eagerly: the loss and its gradients by
+        autograd, then the shared tail — the diagnostic, trainable mask,
+        gradient normalization, per-leaf lr and the updater, which adds its
+        deltas to the parameters in place. Returns (merged states, score).
+        `self._step_diag` holds [loss, raw global gradient norm] (before
+        masking or clipping, in f32), as the JAX step's `diag`."""
+        params = self.params_list
+        leaves = [v for p in params for v in p.values()]
+        for v in leaves:
+            v.requires_grad_(True)
+        try:
+            score, new_states = loss_builder(params, states, data, rng)
+            flat = iter(torch.autograd.grad(score, leaves))
+        finally:
+            for v in leaves:
+                v.requires_grad_(False)
+        score = score.detach()
+        grads = [{k: next(flat) for k in p} for p in params]
+        with torch.no_grad():
+            # leaves in sorted-key order per layer, as jax.tree_util walks
+            gsq = sum(g[k].float().square().sum() for g in grads for k in sorted(g))
+            self._step_diag = torch.stack([score.float(), torch.sqrt(gsq)])
+            if not self.net_conf.minimize:
+                grads = [{k: -v for k, v in g.items()} for g in grads]
+            grads = [{k: g[k] * m[k] for k in g}
+                     for g, m in zip(grads, self._trainable_mask())]
+            grads = normalize_gradients(
+                grads, self.net_conf.gradient_normalization,
+                self.net_conf.gradient_normalization_threshold)
+            lr_tree = [{k: lr * m[k] for k in g}
+                       for g, m in zip(grads, self._lr_mult_tree())]
+            self.updater_def.step_(params, grads, self.upd_state, lr_tree, t)
+        return _detached(self._merge_states(states, new_states)), score
+
+    def _std_loss_builder(self):
+        def loss_builder(p, states, data, rng):
+            x, y, f_mask, l_mask = data
+            return self._loss(p, states, x, y, f_mask, l_mask, rng)
+
+        return loss_builder
+
+    def _trunc_loss_builder(self):
+        """TBPTT loss with tbptt_bwd_length < tbptt_fwd_length: the
+        segment's leading (fwd - bwd) timesteps run under torch.no_grad()
+        (the JAX package's stop_gradient): the state advances and their
+        loss counts in the score, but no gradient flows back through them
+        (reference: tBPTTBackwardLength, MultiLayerNetwork.java:1333)."""
+
+        def loss_builder(p, states, data, rng):
+            xA, yA, fmA, lmA, xB, yB, fmB, lmB = data
+            with torch.no_grad():
+                lossA, statesA = self._loss(p, states, xA, yA, fmA, lmA, rng)
+            carried = self._merge_states(states, statesA)
+            lossB, statesB = self._loss(p, carried, xB, yB, fmB, lmB, rng)
+            nA, nB = xA.shape[1], xB.shape[1]
+            score = (lossA * nA + lossB * nB) / (nA + nB)
+            return score, self._merge_states(carried, statesB)
+
+        return loss_builder
+
+    def _run_step(self, loss_builder, data, stateful_states=None):
+        lr = schedule_lr(self.net_conf, self.iteration)
+        # the step's generator: seed ^ 0x5EED with the iteration folded in
+        rng = torch.Generator(device=self.device).manual_seed(
+            ((self.net_conf.seed ^ 0x5EED) * 1_000_003 + self.iteration) % (2 ** 63))
+        states = stateful_states if stateful_states is not None else self.state_list
+        states, score = self._step(loss_builder, states, data, lr,
+                                   float(self.iteration), rng)
+        self._score = score
+        self.iteration += 1
+        return states, score
+
+    def _fit_step(self, x, y, f_mask, l_mask, stateful_states=None):
+        """One optimizer step. Returns (states, device score)."""
+        return self._run_step(self._std_loss_builder(),
+                              (x, y, f_mask, l_mask), stateful_states)
+
+    def _fit_step_truncated(self, dataA, dataB, stateful_states):
+        """One TBPTT segment step with a backward-truncation boundary
+        between slice A (state carry, no gradient) and slice B."""
+        return self._run_step(self._trunc_loss_builder(), dataA + dataB,
+                              stateful_states)
+
+    # -- fit -----------------------------------------------------------------
+
+    def fit(self, data, labels=None, *, epochs: int = 1, batch_size: int = 32,
+            async_prefetch: bool = True):
+        """Train. Accepts (features, labels) arrays, a DataSet, or a
+        DataSetIterator (reference: MultiLayerNetwork.fit overloads :1019).
+        `async_prefetch` is accepted for the JAX package's signature; the
+        staged prefetch pipeline is not ported yet, so batches are read
+        and moved to the device inline either way."""
+        del async_prefetch
+        self._require_init()
+        if self.upd_state is None:
+            self.upd_state = self.updater_def.init_tree(self.params_list)
+        if self.conf.pretrain:
+            raise NotImplementedError("layerwise pretraining is not ported yet")
+        return self._run_fit(self._as_iterator(data, labels, batch_size), epochs)
+
+    def _as_iterator(self, data, labels, batch_size) -> DataSetIterator:
+        if isinstance(data, DataSetIterator):
+            return data
+        if isinstance(data, DataSet):
+            return ListDataSetIterator(data, batch_size)
+        return ListDataSetIterator(DataSet(np.asarray(data), np.asarray(labels)),
+                                   batch_size)
+
+    def _fit_dataset(self, ds: DataSet):
+        algo = self.net_conf.optimization_algo
+        if algo != "sgd":
+            raise NotImplementedError(
+                f"optimization algorithm {algo!r}: the line-search solvers "
+                "are not ported yet")
+        data = tuple(self._as_data(a) for a in (
+            ds.features, ds.labels, ds.features_mask, ds.labels_mask))
+        if (self.conf.backprop_type == BackpropType.TRUNCATED_BPTT
+                and data[0].dim() == 3):
+            self._fit_tbptt(ds, *data)
+        else:
+            self.state_list, _ = self._fit_step(*data)
+            self._notify(ds.num_examples())
+
+    def _fit_tbptt(self, ds, x, y, f_mask, l_mask):
+        """Truncated BPTT: split time into segments of tbptt_fwd_length and
+        carry the RNN state across segments, detached, so each segment's
+        backward stops at its start (reference:
+        MultiLayerNetwork.doTruncatedBPTT :1333). When tbptt_bwd_length <
+        tbptt_fwd_length, each segment's gradient is truncated to its last
+        bwd_length timesteps."""
+        T = x.shape[1]
+        seg = int(self.conf.tbptt_fwd_length)
+        bwd = int(self.conf.tbptt_bwd_length)
+        # seed zero RNN state for recurrent layers
+        states = [({} if _is_recurrent(c) and st is None else st)
+                  for c, st in zip(self.layer_confs, self.state_list)]
+
+        def cut(sl):
+            cm = lambda m: None if m is None else (m if m.dim() == 1 else m[:, sl])
+            return (x[:, sl], y[:, sl] if y.dim() == 3 else y, cm(f_mask),
+                    cm(l_mask))
+
+        for start in range(0, T, seg):
+            end = min(start + seg, T)
+            if bwd < end - start:
+                boundary = end - bwd
+                states, _ = self._fit_step_truncated(
+                    cut(slice(start, boundary)), cut(slice(boundary, end)),
+                    stateful_states=states)
+            else:
+                states, _ = self._fit_step(*cut(slice(start, end)),
+                                           stateful_states=states)
+            self._notify(ds.num_examples())
+        # persist only non-RNN state; the RNN carry is per batch
+        self.state_list = [
+            st if not _is_recurrent(conf) else self.state_list[i]
+            for i, (conf, st) in enumerate(zip(self.layer_confs, states))]
+
+    def score(self, data, labels=None) -> float:
+        """Loss on a dataset without updating (reference:
+        MultiLayerNetwork.score(DataSet))."""
+        self._require_init()
+        ds = data if isinstance(data, DataSet) else DataSet(
+            np.asarray(data), np.asarray(labels))
+        with torch.no_grad():
+            s, _ = self._loss(
+                self.params_list, self.state_list,
+                *(self._as_data(a) for a in (ds.features, ds.labels,
+                                             ds.features_mask, ds.labels_mask)),
+                rng=None, training=False)
+        return float(s)
 
     # -- inference -----------------------------------------------------------
 
@@ -289,4 +592,7 @@ class MultiLayerNetwork(NetworkBase):
                 None if s is None else {k: v.clone() for k, v in s.items()}
                 for s in self.state_list
             ]
+            if self.upd_state is not None:
+                other.upd_state = [{k: {n: v.clone() for n, v in s.items()}
+                                    for k, s in p.items()} for p in self.upd_state]
         return other

@@ -1,13 +1,17 @@
-"""Shared network machinery — the inference core of the JAX package's
-nn/netbase.py: lazy init, the shape-keyed forward cache with its counter,
-and the flattened parameter view (params()/setParams(), reference:
-MultiLayerNetwork.java:102-104 flattenedParams). The fit loop, mesh,
-checkpoint, health and sentinel machinery are not ported yet.
+"""Shared network machinery, the port of the JAX package's nn/netbase.py:
+lazy init, the shape-keyed forward cache with its counter, the flattened
+parameter view (params()/setParams(), reference:
+MultiLayerNetwork.java:102-104 flattenedParams), listeners, and the fit
+loop (`_run_fit` -> `_fit_epochs` -> `_timed_fit` -> the subclass's
+`_fit_dataset`) with its four registry instruments. Resume, the
+divergence sentinel, mesh, fused multi-batch steps, health, run ledger
+and the staged prefetch pipeline are not ported yet.
 """
 
 from __future__ import annotations
 
 import threading
+import time
 from typing import List
 
 from deeplearning4j_tpu_torch.nn.params import (
@@ -20,12 +24,22 @@ from deeplearning4j_tpu_torch.utils import metrics as _metrics
 
 
 class NetworkBase:
-    """Common network state. Subclasses implement `init()` and
+    """Common network state and loops. Subclasses implement `init()`,
+    `_fit_dataset(ds)` (one optimizer step or a TBPTT segment loop) and
     `_ordered_layer_confs()` (layer configs aligned with params_list)."""
 
     def __init__(self):
+        self.listeners = []
+        self.iteration = 0
+        self.epoch = 0
         self.params_list = None
         self.state_list = None
+        self.upd_state = None
+        self._score = None  # last minibatch score (device tensor, lazy read)
+        # [loss, raw global gradient norm] of the last optimizer step
+        self._step_diag = None
+        # the fit instruments, resolved from the registry once per network
+        self._fit_instruments = None
         # forward functions built by `output()` / `rnn_time_step` so far,
         # one per (kind, input shape, dtype) key. PyTorch runs eagerly, so
         # an entry is a closure, not a compiled program; the count keeps
@@ -47,6 +61,94 @@ class NetworkBase:
     def _require_init(self):
         if self.params_list is None:
             self.init()
+
+    def _fit_dataset(self, ds):
+        raise NotImplementedError
+
+    # -- listeners -----------------------------------------------------------
+
+    def set_listeners(self, *listeners):
+        self.listeners = list(listeners)
+        return self
+
+    def add_listener(self, listener):
+        self.listeners.append(listener)
+        return self
+
+    def _notify(self, batch_size):
+        if not self.listeners:
+            return
+        info = {"score": lambda: self._score, "batch_size": batch_size}
+        for lst in self.listeners:
+            lst.iteration_done(self, self.iteration - 1, info)
+
+    # -- the fit loop --------------------------------------------------------
+
+    def _fit_obs(self):
+        """The fit-loop instruments from the shared registry, resolved once
+        per network, so the per-step path touches no registry lookup."""
+        ins = self._fit_instruments
+        if ins is None:
+            reg = _metrics.get_registry()
+            ins = self._fit_instruments = {
+                "steps": reg.counter(
+                    "fit_step_total", "optimizer steps run").labels(),
+                "examples": reg.counter(
+                    "fit_examples_total",
+                    "training examples consumed").labels(),
+                "data_wait": reg.histogram(
+                    "fit_data_wait_seconds",
+                    "time blocked on the data iterator (ETL) before a "
+                    "dispatch").labels(),
+                "dispatch": reg.histogram(
+                    "fit_dispatch_seconds",
+                    "host time in the train-step call (launches; "
+                    "excludes device sync)").labels(),
+            }
+        return ins
+
+    def _timed_fit(self, fit_fn, data_wait: float, n_examples: int):
+        """Run one `_fit_dataset` under the step-phase timers: data wait
+        and dispatch, each a histogram in the shared registry, plus the
+        step and example counters. PyTorch returns before the device
+        finishes, so the dispatch time is host time, as in the JAX
+        package."""
+        ins = self._fit_obs()
+        it0 = self.iteration
+        t0 = time.perf_counter()
+        fit_fn()
+        dispatch = time.perf_counter() - t0
+        ins["steps"].inc(max(1, self.iteration - it0))
+        ins["examples"].inc(n_examples)
+        ins["data_wait"].observe(data_wait)
+        ins["dispatch"].observe(dispatch)
+
+    def _run_fit(self, iterator, epochs: int):
+        try:
+            self._fit_epochs(iterator, epochs)
+        finally:
+            # fires even when an epoch raises: listeners that flipped
+            # process-global state for the run restore it here
+            for lst in self.listeners:
+                hook = getattr(lst, "on_fit_end", None)
+                if hook is not None:
+                    hook(self)
+        return self
+
+    def _fit_epochs(self, iterator, epochs: int):
+        for _ in range(epochs):
+            for lst in self.listeners:
+                lst.on_epoch_start(self, self.epoch)
+            t_etl = time.perf_counter()
+            for ds in iterator:
+                wait = time.perf_counter() - t_etl
+                self._timed_fit(lambda: self._fit_dataset(ds), wait,
+                                ds.num_examples())
+                t_etl = time.perf_counter()
+            for lst in self.listeners:
+                lst.on_epoch_end(self, self.epoch)
+            self.epoch += 1
+            iterator.reset()
 
     @property
     def output_compile_count(self) -> int:

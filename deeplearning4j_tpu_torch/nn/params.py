@@ -19,6 +19,7 @@ from typing import Dict, List, Tuple
 import numpy as np
 import torch
 
+from deeplearning4j_tpu_torch.common.devices import resolve_device
 from deeplearning4j_tpu_torch.nn.layers.registry import param_order
 
 
@@ -76,14 +77,17 @@ def param_table(layer_confs, params_list) -> List[Tuple[str, Tuple[int, ...], in
     return rows
 
 
-def params_from_numpy(conf, params_list, *, device="cpu") -> List[Dict]:
+def params_from_numpy(conf, params_list, *, device=None) -> List[Dict]:
     """The weight carry-across: the JAX package's `params_list` (one dict
     of arrays per layer, converted with `np.asarray`) as the port's params,
     so both packages compute the same function. The layouts are the same
     on both sides — LSTM W [nIn, 4H], RW [H, 4H], b [4H], pI/pF/pO [H]
     with gate blocks [i|f|g|o], dense/output W [nIn, nOut] — so this is a
     checked copy: every layer must carry exactly its param_order() names.
-    `conf` is the port's MultiLayerConfiguration (or its layer list)."""
+    `conf` is the port's MultiLayerConfiguration (or its layer list).
+    `device` follows the other entry points: "cuda" when None; pass
+    device="cpu" (or the network's device) for the CPU."""
+    device = resolve_device(device)
     layers = getattr(conf, "layers", conf)
     if len(layers) != len(params_list):
         raise ValueError(

@@ -1,14 +1,19 @@
 """Fused peephole-LSTM kernels for Hopper, behind the helper SPI.
 
-The port of the JAX package's ops/pallas_lstm.py forward kernels:
+The port of the JAX package's ops/pallas_lstm.py kernels:
 
 - `lstm_step` — one inference-only decode step (csrc/lstm_step.cu),
   replacing `lstm_step` -> `_step_kernel`. The decode serving engine and
   every T==1 stateful `rnn_time_step` go through it.
-- `lstm_sequence` — the whole-sequence forward (csrc/lstm_sequence.cu),
-  replacing `_fwd_call` -> `_fwd_kernel`. `output()` and multi-token
-  `rnn_time_step` go through it. It has no backward yet, so its probe
-  declines calls that need gradients.
+- `lstm_sequence_forward` — the whole-sequence forward
+  (csrc/lstm_sequence.cu), replacing `_fwd_call` -> `_fwd_kernel`.
+- `lstm_sequence_backward` — its reverse-time pullback
+  (csrc/lstm_sequence_bwd.cu), replacing `_bwd_call` -> `_bwd_kernel`.
+- `LSTMSequence` — the autograd Function over the two, the counterpart of
+  the JAX package's `custom_vjp`. `lstm_sequence`, the helper-SPI entry,
+  goes through it: every training step of `fit` runs both kernels;
+  `output()` and multi-token `rnn_time_step` record no graph and run the
+  forward kernel alone.
 
 Beside each kernel is its plain PyTorch version (`*_reference`), the same
 function as step-by-step torch ops in f32. The wrappers take the plain
@@ -17,7 +22,8 @@ kernel or raise — nothing falls back. Each launch adds one to the
 wrapper's count in `launch_counts()`.
 
 Gate blocks are [i|f|g|o] as in nn/layers/recurrent.py. Tensors are f32
-or bf16; math and the h/c carry are f32, as on the TPU.
+or bf16; math and the h/c carries are f32, as on the TPU. The plain
+versions also take f64 (math in f64), for gradient checks.
 """
 
 from __future__ import annotations
@@ -33,7 +39,8 @@ from deeplearning4j_tpu_torch.ops import cuda_build
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 _count_lock = threading.Lock()
-_LAUNCHES: Dict[str, int] = {"lstm_step": 0, "lstm_sequence": 0}
+_LAUNCHES: Dict[str, int] = {"lstm_step": 0, "lstm_sequence": 0,
+                             "lstm_sequence_backward": 0}
 
 
 def launch_counts() -> Dict[str, int]:
@@ -65,9 +72,14 @@ def _cell(pre, c, pI, pF, pO, H):
     return i, f, g, o, c_new, o * torch.tanh(c_new)
 
 
+def _math_dtype(dt):
+    """f32 for f32 and bf16 tensors (the kernels' math), f64 for f64."""
+    return torch.promote_types(dt, torch.float32)
+
+
 def lstm_step_reference(xg, rw, pI, pF, pO, h0, c0):
     """Plain version of `lstm_step`: (h1, c1) in xg's dtype."""
-    f32 = torch.float32
+    f32 = _math_dtype(xg.dtype)
     H = h0.shape[-1]
     h, c = h0.to(f32), c0.to(f32)
     pre = xg.to(f32) + h @ rw.to(f32)
@@ -78,7 +90,7 @@ def lstm_step_reference(xg, rw, pI, pF, pO, h0, c0):
 def lstm_sequence_forward_reference(xg, rw, pI, pF, pO, h0, c0):
     """Plain version of `lstm_sequence_forward`: (y, acts, hprev, cprev,
     cF) in xg's dtype, with h/c carried in f32 across time."""
-    f32, dt = torch.float32, xg.dtype
+    f32, dt = _math_dtype(xg.dtype), xg.dtype
     H = h0.shape[-1]
     rw32, p = rw.to(f32), (pI.to(f32), pF.to(f32), pO.to(f32))
     h, c = h0.to(f32), c0.to(f32)
@@ -93,21 +105,68 @@ def lstm_sequence_forward_reference(xg, rw, pI, pF, pO, h0, c0):
             torch.stack(cprev), c.to(dt))
 
 
+def lstm_sequence_backward_reference(acts, hprev, cprev, rw, pI, pF, pO, dy,
+                                     dcF):
+    """Plain version of `lstm_sequence_backward`, line by line the TPU
+    kernel's reverse walk: c_t recomputed from the stashes, dRW and the
+    peephole sums accumulated in f32 from the f32 dpre. Returns (dxg,
+    drw, dpi, dpf, dpo, dh0, dc0): dxg, dh0, dc0 in acts' dtype, the rest
+    in f32."""
+    f32, dt = _math_dtype(acts.dtype), acts.dtype
+    T, B, H4 = acts.shape
+    H = H4 // 4
+    rw32 = rw.to(f32)
+    pi, pf, po = pI.to(f32), pF.to(f32), pO.to(f32)
+    dh = torch.zeros((B, H), dtype=f32, device=acts.device)
+    dc_carry = dcF.to(f32)
+    drw = torch.zeros((H, H4), dtype=f32, device=acts.device)
+    dp = torch.zeros((3, H), dtype=f32, device=acts.device)
+    dxg = [None] * T
+    for t in range(T - 1, -1, -1):
+        a = acts[t].to(f32)
+        i, f, g, o = a[:, :H], a[:, H:2 * H], a[:, 2 * H:3 * H], a[:, 3 * H:]
+        hp, cp = hprev[t].to(f32), cprev[t].to(f32)
+        dh = dh + dy[t].to(f32)
+        c_t = f * cp + i * g
+        tc = torch.tanh(c_t)
+        dpre_o = dh * tc * o * (1.0 - o)
+        dc = dh * o * (1.0 - tc * tc) + dc_carry + dpre_o * po
+        dpre_i = dc * g * i * (1.0 - i)
+        dpre_f = dc * cp * f * (1.0 - f)
+        dpre_g = dc * i * (1.0 - g * g)
+        dpre = torch.cat([dpre_i, dpre_f, dpre_g, dpre_o], dim=-1)
+        dxg[t] = dpre.to(dt)
+        drw += hp.t() @ dpre
+        dp[0] += (dpre_i * cp).sum(0)
+        dp[1] += (dpre_f * cp).sum(0)
+        dp[2] += (dpre_o * c_t).sum(0)
+        dh = dpre @ rw32.t()
+        dc_carry = dc * f + dpre_i * pi + dpre_f * pf
+    return (torch.stack(dxg), drw, dp[0], dp[1], dp[2], dh.to(dt),
+            dc_carry.to(dt))
+
+
 # -- wrappers -----------------------------------------------------------------
+
+
+def _check_args(args: Dict[str, torch.Tensor]) -> None:
+    """One dtype (f32 or bf16), one device, contiguous."""
+    first, x = next(iter(args.items()))
+    if x.dtype not in _DTYPE_CODES:
+        raise TypeError(f"fused LSTM takes float32 or bfloat16, got {x.dtype}")
+    for n, a in args.items():
+        if a.dtype != x.dtype:
+            raise TypeError(f"{n} is {a.dtype}, {first} is {x.dtype}")
+        if a.device != x.device:
+            raise ValueError(f"{n} is on {a.device}, {first} is on {x.device}")
+        if not a.is_contiguous():
+            raise ValueError(f"{n} must be contiguous")
 
 
 def _check(xg, rw, pI, pF, pO, h0, c0, *, seq: bool) -> Tuple[int, int, int]:
     """Validate device, dtype, shape and contiguity; returns (T, B, H)."""
     args = {"xg": xg, "rw": rw, "pI": pI, "pF": pF, "pO": pO, "h0": h0, "c0": c0}
-    if xg.dtype not in _DTYPE_CODES:
-        raise TypeError(f"fused LSTM takes float32 or bfloat16, got {xg.dtype}")
-    for n, a in args.items():
-        if a.dtype != xg.dtype:
-            raise TypeError(f"{n} is {a.dtype}, xg is {xg.dtype}")
-        if a.device != xg.device:
-            raise ValueError(f"{n} is on {a.device}, xg is on {xg.device}")
-        if not a.is_contiguous():
-            raise ValueError(f"{n} must be contiguous")
+    _check_args(args)
     if xg.dim() != (3 if seq else 2):
         raise ValueError(f"xg must be {'[T, B, 4H]' if seq else '[B, 4H]'}, "
                          f"got {tuple(xg.shape)}")
@@ -120,6 +179,23 @@ def _check(xg, rw, pI, pF, pO, h0, c0, *, seq: bool) -> Tuple[int, int, int]:
             raise ValueError(
                 f"{n} has shape {tuple(args[n].shape)}, expected {shape} "
                 f"(from h0 {tuple(h0.shape)} and xg {tuple(xg.shape)})")
+    return T, B, H
+
+
+def _check_bwd(acts, hprev, cprev, rw, pI, pF, pO, dy, dcF) -> Tuple[int, int, int]:
+    """`_check` for the backward's inputs; returns (T, B, H)."""
+    args = {"acts": acts, "hprev": hprev, "cprev": cprev, "rw": rw, "pI": pI,
+            "pF": pF, "pO": pO, "dy": dy, "dcF": dcF}
+    _check_args(args)
+    T, B, H = tuple(hprev.shape) if hprev.dim() == 3 else (-1, -1, -1)
+    want = {"acts": (T, B, 4 * H), "hprev": (T, B, H), "cprev": (T, B, H),
+            "rw": (H, 4 * H), "pI": (H,), "pF": (H,), "pO": (H,),
+            "dy": (T, B, H), "dcF": (B, H)}
+    for n, shape in want.items():
+        if tuple(args[n].shape) != shape or min(T, B, H) < 1:
+            raise ValueError(
+                f"{n} has shape {tuple(args[n].shape)}, expected {shape} "
+                f"(from hprev {tuple(hprev.shape)})")
     return T, B, H
 
 
@@ -190,10 +266,71 @@ def lstm_sequence_forward(xg, rw, pI, pF, pO, h0, c0):
     return y, acts, hprev, cprev, c_final
 
 
+def lstm_sequence_backward(acts, hprev, cprev, rw, pI, pF, pO, dy, dcF):
+    """The whole-sequence backward. acts [T,B,4H], hprev/cprev [T,B,H]:
+    the forward's stashes; rw [H,4H]; pI/pF/pO [H]; dy [T,B,H]: the
+    cotangent of y (with hF's folded into dy[-1]); dcF [B,H]: the
+    cotangent of cF. Returns (dxg [T,B,4H], drw [H,4H], dpi, dpf, dpo
+    [H], dh0, dc0 [B,H]): dxg, dh0, dc0 in acts' dtype, the rest in f32,
+    as the TPU kernel's outputs. The kernel keeps about 416*H + 32*B
+    bytes per block in shared memory, so it takes H up to ~550 at B=32;
+    a larger shape raises with the launch's CUDA error."""
+    T, B, H = _check_bwd(acts, hprev, cprev, rw, pI, pF, pO, dy, dcF)
+    if not acts.is_cuda:
+        return lstm_sequence_backward_reference(acts, hprev, cprev, rw, pI,
+                                                pF, pO, dy, dcF)
+    _require_hopper(acts.device)
+    lib, fn = _entry("lstm_sequence_bwd", "lstm_sequence_backward", 18, 3)
+    dev, f32 = acts.device, torch.float32
+    dxg = torch.empty_like(acts)
+    drw = torch.empty((H, 4 * H), dtype=f32, device=dev)
+    dpi, dpf, dpo = (torch.empty((H,), dtype=f32, device=dev) for _ in range(3))
+    dh0, dc0 = torch.empty_like(dcF), torch.empty_like(dcF)
+    xbuf = torch.empty((2, B, 4 * H), dtype=f32, device=dev)
+    bar = torch.zeros((1,), dtype=torch.int32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        code = fn(_DTYPE_CODES[acts.dtype], *(a.data_ptr() for a in
+                  (acts, hprev, cprev, rw, pI, pF, pO, dy, dcF, dxg, drw, dpi,
+                   dpf, dpo, dh0, dc0, xbuf, bar)), T, B, H, stream)
+    cuda_build.check(lib, code, "lstm_sequence_backward launch")
+    _bump("lstm_sequence_backward")
+    return dxg, drw, dpi, dpf, dpo, dh0, dc0
+
+
+class LSTMSequence(torch.autograd.Function):
+    """y, cF = LSTMSequence.apply(xg, rw, pI, pF, pO, h0, c0): the forward
+    on `lstm_sequence_forward`, the backward on `lstm_sequence_backward`
+    (the JAX package's `custom_vjp` of `lstm_sequence`). The caller takes
+    hF = y[-1] outside, so autograd folds hF's cotangent into dy[-1] and
+    the Function never returns a view. An output the loss does not use
+    (cF, when TBPTT carries it detached) reaches `backward` as zeros:
+    autograd materializes unused gradients by default."""
+
+    @staticmethod
+    def forward(ctx, xg, rw, pI, pF, pO, h0, c0):
+        y, acts, hprev, cprev, c_final = lstm_sequence_forward(
+            xg, rw, pI, pF, pO, h0, c0)
+        ctx.save_for_backward(acts, hprev, cprev, rw, pI, pF, pO)
+        return y, c_final
+
+    @staticmethod
+    def backward(ctx, dy, dcF):
+        acts, hprev, cprev, rw, pI, pF, pO = ctx.saved_tensors
+        dxg, drw, dpi, dpf, dpo, dh0, dc0 = lstm_sequence_backward(
+            acts, hprev, cprev, rw, pI, pF, pO, dy.contiguous(),
+            dcF.contiguous())
+        return (dxg, drw.to(rw.dtype), dpi.to(pI.dtype), dpf.to(pF.dtype),
+                dpo.to(pO.dtype), dh0, dc0)
+
+
 def lstm_sequence(xg, rw, pI, pF, pO, h0, c0):
     """Fused LSTM over a whole sequence: (y [T, B, H], hF, cF) — the
-    helper-SPI signature of the JAX package's `lstm_sequence`."""
-    y, _, _, _, c_final = lstm_sequence_forward(xg, rw, pI, pF, pO, h0, c0)
+    helper-SPI signature of the JAX package's `lstm_sequence`. It runs
+    through `LSTMSequence`: under autograd the backward runs on the
+    backward kernel; otherwise autograd records nothing and only the
+    forward kernel runs."""
+    y, c_final = LSTMSequence.apply(xg, rw, pI, pF, pO, h0, c0)
     return y, y[-1], c_final
 
 
@@ -219,14 +356,13 @@ def step_supported(*, peephole, gate_act, cell_act, device=None, **_):
     return _on_hopper(device)
 
 
-def supported(*, peephole, mask, gate_act, cell_act, reverse, device=None,
-              grad=False, **_):
-    """Probe for the sequence kernel: sigmoid gates + tanh cell, forward
+def supported(*, peephole, mask, gate_act, cell_act, reverse, device=None, **_):
+    """Probe for the sequence kernels: sigmoid gates + tanh cell, forward
     direction, no time mask, on a CUDA device of compute capability
-    >= 9.0, and forward only — a call that needs gradients takes the
-    builtin loop until the backward kernel is ported."""
+    >= 9.0 — the JAX probe's scope. Calls that need gradients are taken
+    too: `LSTMSequence` runs their backward on the backward kernel."""
     del peephole
-    if reverse or mask is not None or grad:
+    if reverse or mask is not None:
         return False
     if gate_act not in ("sigmoid",) or cell_act not in ("tanh",):
         return False

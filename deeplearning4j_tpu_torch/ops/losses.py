@@ -1,0 +1,239 @@
+"""Loss functions.
+
+The port of the JAX package's ops/losses.py: the reference's
+LossFunctions.LossFunction enum and ILossFunction SPI. A loss sees the
+output layer's *pre-output* (logits) plus its activation, so
+softmax + cross-entropy runs as the numerically stable log-softmax.
+
+Every function returns a per-example score vector [batch]; the network
+averages over present examples (`masked_example_mean`). Masks multiply
+per-element scores before the feature-axis reduction. Gradients are never
+hand-written: autograd differentiates through these, as jax.grad does in
+the JAX package.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict, Optional
+
+import torch
+import torch.nn.functional as F
+
+from deeplearning4j_tpu_torch.ops.activations import apply_activation
+
+_EPS = 1e-8
+
+# name -> fn(labels, preout, activation, mask) -> per-example score [batch]
+_REGISTRY: Dict[str, Callable] = {}
+
+
+def register_loss(name: str, fn: Callable) -> None:
+    """Custom-loss SPI (reference: ILossFunction implementations)."""
+    _REGISTRY[name.lower()] = fn
+
+
+def _expand(mask, ndim):
+    while mask.dim() < ndim:
+        mask = mask[..., None]
+    return mask
+
+
+def _reduce(per_elem, mask):
+    """Apply an element mask then sum over all non-batch axes."""
+    if mask is not None:
+        # mask may be [batch], [batch, 1] or full element shape; broadcast
+        per_elem = per_elem * _expand(mask.to(per_elem.dtype), per_elem.dim())
+    axes = tuple(range(1, per_elem.dim()))
+    return per_elem.sum(dim=axes) if axes else per_elem
+
+
+def _out(preout, activation):
+    return apply_activation(activation, preout)
+
+
+def _loss(name):
+    def deco(fn):
+        register_loss(name, fn)
+        return fn
+
+    return deco
+
+
+@_loss("mse")
+def mse(labels, preout, activation, mask=None):
+    d = _out(preout, activation) - labels
+    return _reduce(d * d, mask) / labels.shape[-1]
+
+
+@_loss("l2")
+def l2(labels, preout, activation, mask=None):
+    # reference LossL2 = sum of squared errors (no 1/n)
+    d = _out(preout, activation) - labels
+    return _reduce(d * d, mask)
+
+
+@_loss("l1")
+def l1(labels, preout, activation, mask=None):
+    return _reduce((_out(preout, activation) - labels).abs(), mask)
+
+
+@_loss("mean_absolute_error")
+def mean_absolute_error(labels, preout, activation, mask=None):
+    return l1(labels, preout, activation, mask) / labels.shape[-1]
+
+
+@_loss("mean_absolute_percentage_error")
+def mape(labels, preout, activation, mask=None):
+    out = _out(preout, activation)
+    per = ((labels - out) / (labels + _EPS)).abs() * 100.0
+    return _reduce(per, mask) / labels.shape[-1]
+
+
+@_loss("mean_squared_logarithmic_error")
+def msle(labels, preout, activation, mask=None):
+    d = torch.log1p(_out(preout, activation)) - torch.log1p(labels)
+    return _reduce(d * d, mask) / labels.shape[-1]
+
+
+@_loss("xent")
+def xent(labels, preout, activation, mask=None):
+    """Binary cross-entropy; from the logits directly when the activation
+    is sigmoid."""
+    if activation == "sigmoid":
+        # log(sigmoid(z)) = -softplus(-z); log(1-sigmoid(z)) = -softplus(z)
+        per = labels * F.softplus(-preout) + (1.0 - labels) * F.softplus(preout)
+    else:
+        out = _out(preout, activation).clamp(_EPS, 1.0 - _EPS)
+        per = -(labels * torch.log(out) + (1.0 - labels) * torch.log(1.0 - out))
+    return _reduce(per, mask)
+
+
+@_loss("mcxent")
+def mcxent(labels, preout, activation, mask=None):
+    """Multi-class cross-entropy; the fused log-softmax path when the
+    output activation is softmax (the common OutputLayer configuration)."""
+    if activation == "softmax":
+        logp = torch.log_softmax(preout, dim=-1)
+    else:
+        logp = torch.log(_out(preout, activation).clamp_min(_EPS))
+    return _reduce(-labels * logp, mask)
+
+
+@_loss("negativeloglikelihood")
+def negativeloglikelihood(labels, preout, activation, mask=None):
+    # reference LossNegativeLogLikelihood extends LossMCXENT
+    return mcxent(labels, preout, activation, mask)
+
+
+@_loss("kl_divergence")
+def kl_divergence(labels, preout, activation, mask=None):
+    out = _out(preout, activation).clamp(_EPS, 1.0 - _EPS)
+    lab = labels.clamp(_EPS, 1.0 - _EPS)
+    return _reduce(lab * (torch.log(lab) - torch.log(out)), mask)
+
+
+@_loss("reconstruction_crossentropy")
+def reconstruction_crossentropy(labels, preout, activation, mask=None):
+    return xent(labels, preout, activation, mask)
+
+
+@_loss("cosine_proximity")
+def cosine_proximity(labels, preout, activation, mask=None):
+    out = _out(preout, activation)
+    if mask is not None:
+        m = _expand(mask.to(out.dtype), out.dim())
+        out = out * m
+        labels = labels * m
+    dot = (labels * out).sum(dim=-1)
+    norm = (torch.linalg.vector_norm(labels, dim=-1)
+            * torch.linalg.vector_norm(out, dim=-1))
+    cos = dot / norm.clamp_min(_EPS)
+    while cos.dim() > 1:  # reduce any remaining time axes
+        cos = cos.sum(dim=-1)
+    return -cos
+
+
+@_loss("hinge")
+def hinge(labels, preout, activation, mask=None):
+    # labels in {-1, 1}
+    out = _out(preout, activation)
+    return _reduce(torch.clamp_min(1.0 - labels * out, 0.0), mask)
+
+
+@_loss("squared_hinge")
+def squared_hinge(labels, preout, activation, mask=None):
+    h = torch.clamp_min(1.0 - labels * _out(preout, activation), 0.0)
+    return _reduce(h * h, mask)
+
+
+@_loss("poisson")
+def poisson(labels, preout, activation, mask=None):
+    out = _out(preout, activation)
+    return _reduce(out - labels * torch.log(out.clamp_min(_EPS)), mask)
+
+
+@_loss("squared_loss")
+def squared_loss(labels, preout, activation, mask=None):
+    return l2(labels, preout, activation, mask)
+
+
+@_loss("rmse_xent")
+def rmse_xent(labels, preout, activation, mask=None):
+    # reference legacy LossFunction: sqrt of the per-example SSE
+    d = _out(preout, activation) - labels
+    return torch.sqrt(_reduce(d * d, mask) + _EPS)
+
+
+class LossFunction:
+    """Enum-style names mirroring LossFunctions.LossFunction."""
+
+    MSE = "mse"
+    L1 = "l1"
+    L2 = "l2"
+    XENT = "xent"
+    MCXENT = "mcxent"
+    SQUARED_LOSS = "squared_loss"
+    RECONSTRUCTION_CROSSENTROPY = "reconstruction_crossentropy"
+    NEGATIVELOGLIKELIHOOD = "negativeloglikelihood"
+    COSINE_PROXIMITY = "cosine_proximity"
+    HINGE = "hinge"
+    SQUARED_HINGE = "squared_hinge"
+    KL_DIVERGENCE = "kl_divergence"
+    MEAN_ABSOLUTE_ERROR = "mean_absolute_error"
+    MEAN_ABSOLUTE_PERCENTAGE_ERROR = "mean_absolute_percentage_error"
+    MEAN_SQUARED_LOGARITHMIC_ERROR = "mean_squared_logarithmic_error"
+    POISSON = "poisson"
+    RMSE_XENT = "rmse_xent"
+
+
+def example_presence(per_ex, mask: Optional[torch.Tensor]):
+    """[batch] 0/1 presence from a labels mask: an example whose mask is
+    all zero (a pad row) is absent. None mask -> all present."""
+    if mask is None:
+        return torch.ones(per_ex.shape[0], dtype=per_ex.dtype, device=per_ex.device)
+    m = mask
+    while m.dim() > 1:
+        m = m.amax(dim=-1)
+    return (m > 0).to(per_ex.dtype)
+
+
+def masked_example_mean(per_ex, mask: Optional[torch.Tensor]):
+    """Mean of per-example losses over PRESENT examples only: the plain
+    mean when no example is fully masked. Dividing by the present count
+    (not the batch, as the reference does) keeps the per-real-example
+    gradient scale constant across padded batches, as in the JAX
+    package."""
+    if mask is None:
+        return per_ex.mean()
+    present = example_presence(per_ex, mask)
+    return (per_ex * present).sum() / present.sum().clamp_min(1.0)
+
+
+def loss_value(name: str, labels, preout, activation: str,
+               mask: Optional[torch.Tensor] = None):
+    """Per-example loss [batch] for the named loss function."""
+    try:
+        fn = _REGISTRY[name.lower()]
+    except KeyError:
+        raise ValueError(f"unknown loss {name!r}; known: {sorted(_REGISTRY)}") from None
+    return fn(labels, preout, activation, mask)

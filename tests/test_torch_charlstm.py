@@ -26,7 +26,7 @@ def _shared_pair(seed=7):
                              seed=seed, device="cpu")
     tnet.params_list = params_from_numpy(
         tnet.conf, [{k: np.asarray(v) for k, v in p.items()}
-                    for p in jnet.params_list])
+                    for p in jnet.params_list], device="cpu")
     return jnet, tnet
 
 
@@ -60,7 +60,19 @@ def test_params_from_numpy_rejects_a_mismatched_layer():
     bad = [{k: np.asarray(v) for k, v in p.items()} for p in jnet.params_list]
     del bad[0]["pO"]
     with pytest.raises(ValueError):
-        params_from_numpy(tnet.conf, bad)
+        params_from_numpy(tnet.conf, bad, device="cpu")
+
+
+def test_params_from_numpy_defaults_to_the_gpu(monkeypatch):
+    """Like every entry point, the carry-across puts the weights on the
+    card unless the caller asks for the CPU."""
+    jnet, tnet = _shared_pair()
+    arrays = [{k: np.asarray(v) for k, v in p.items()} for p in jnet.params_list]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        params_from_numpy(tnet.conf, arrays)
+    out = params_from_numpy(tnet.conf, arrays, device=tnet.device)
+    assert all(t.device.type == "cpu" for p in out for t in p.values())
 
 
 def test_init_is_seeded_and_matches_reference_statistics():

@@ -35,7 +35,7 @@ def _nets(layers=2, hidden=16, seed=5):
                              tbptt_length=8, seed=seed, device="cpu")
     tnet.params_list = params_from_numpy(
         tnet.conf, [{k: np.asarray(v) for k, v in p.items()}
-                    for p in jnet.params_list])
+                    for p in jnet.params_list], device="cpu")
     return jnet, tnet
 
 
