@@ -6,11 +6,14 @@ every Pallas kernel of a ported slice is a CUDA kernel written by hand
 for Hopper (`csrc/`, built at first use by ops/cuda_build.py). Entry
 points run on the GPU unless the caller passes device="cpu".
 
-Ported so far: char-LSTM serving and training — the conf DSL and its
-JSON, layer forwards, `MultiLayerNetwork` inference and `fit` with
-truncated BPTT (losses, updaters, data iterators, listeners), and the
-continuous-batching decode engine, with the fused LSTM step, sequence
-and sequence-backward kernels.
+Ported so far: char-LSTM serving and training and ResNet-50 training —
+the conf DSL and its JSON (graphs included), layer forwards (dense,
+LSTM, conv, pooling, batch norm), `MultiLayerNetwork` inference and
+`fit` with truncated BPTT, `ComputationGraph` training and inference
+(losses, updaters, data iterators, listeners), and the
+continuous-batching decode engine, with every kernel of the JAX
+package: the fused LSTM step, sequence and sequence-backward kernels,
+and the conv + BN-statistics, BN apply and BN backward kernels.
 """
 
 __version__ = "0.1.0"

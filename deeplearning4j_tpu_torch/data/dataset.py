@@ -1,8 +1,9 @@
-"""DataSet container.
+"""DataSet containers.
 
-The port of the JAX package's data/dataset.py `DataSet` (ND4J's DataSet:
+The port of the JAX package's data/dataset.py: `DataSet` (ND4J's DataSet:
 features, labels, optional masks) — the unit every iterator yields and
-fit() consumes. Arrays are host numpy until the train step moves them to
+fit() consumes — and `MultiDataSet`, its multi-input/multi-output form for
+ComputationGraph. Arrays are host numpy until the train step moves them to
 the network's device.
 """
 
@@ -58,3 +59,17 @@ class DataSet:
             None if self.features_mask is None else self.features_mask[sl],
             None if self.labels_mask is None else self.labels_mask[sl],
         )
+
+
+@dataclasses.dataclass
+class MultiDataSet:
+    """Multiple inputs / multiple outputs (reference: ND4J MultiDataSet,
+    consumed by ComputationGraph.fit)."""
+
+    features: List[np.ndarray]
+    labels: List[np.ndarray]
+    features_masks: Optional[List[Optional[np.ndarray]]] = None
+    labels_masks: Optional[List[Optional[np.ndarray]]] = None
+
+    def num_examples(self) -> int:
+        return int(self.features[0].shape[0])

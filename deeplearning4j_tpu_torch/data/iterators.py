@@ -2,7 +2,8 @@
 
 The port of the JAX package's data/iterators.py host iterators
 (reference: datasets/iterator/): the DataSetIterator SPI,
-ListDataSetIterator and ExistingDataSetIterator. The background-prefetch
+ListDataSetIterator and ExistingDataSetIterator, and the
+MultiDataSetIterator SPI that ComputationGraph.fit also takes. The background-prefetch
 wrappers (AsyncDataSetIterator and the staged device pipeline) are not
 ported yet.
 """
@@ -101,3 +102,27 @@ class ExistingDataSetIterator(DataSetIterator):
 
     def total_examples(self):
         return sum(d.num_examples() for d in self._list)
+
+
+class MultiDataSetIterator:
+    """SPI: iterable over MultiDataSet minibatches with reset()
+    (reference: nd4j MultiDataSetIterator, consumed by
+    ComputationGraph.fit)."""
+
+    def __iter__(self):
+        raise NotImplementedError
+
+    def reset(self) -> None:
+        pass
+
+    def batch_size(self) -> Optional[int]:
+        return None
+
+    def total_examples(self) -> Optional[int]:
+        return None
+
+    def state(self) -> Optional[dict]:
+        return None
+
+    def restore_state(self, state: Optional[dict]) -> None:
+        pass

@@ -1,0 +1,381 @@
+"""ComputationGraph — the DAG network.
+
+The port of the JAX package's nn/compgraph.py (reference:
+nn/graph/ComputationGraph.java): the topological order is computed once
+(:340,1055), the forward walks it calling each vertex (:1291-1292), and
+the backward is autograd, so fan-out accumulation (:1480-1502) comes for
+free. Training is the eager step shared with MultiLayerNetwork
+(nn/netbase.py): autograd through the layers — the conv/BN kernels'
+autograd Functions on a Hopper GPU — then the updater in place.
+
+Parameters are a list of per-layer-vertex dicts in topological order, the
+same flattening convention as MultiLayerNetwork, so params()/set_params()
+and the carry-across from the JAX package (nn/params.py) work alike;
+`state_list` holds the BatchNormalization running statistics.
+
+One design decision is the port's own: the graph marks, at construction,
+every BatchNormalization vertex whose only consumer is a relu
+ActivationLayer. In training those BN layers return their output
+rectified (the ReLU variant of the fused BN kernel, ops/fused_conv_bn.py,
+on the kernel path) and the relu vertex passes it through. The JAX
+package reaches the same kernel count through XLA's dead-code
+elimination, which eager PyTorch does not have.
+
+Not ported yet: the scan over identical blocks (`set_block_scan`), TBPTT,
+fused multi-step fits, `rnn_time_step`, `evaluate` and the center-loss
+head.
+"""
+
+from __future__ import annotations
+
+import copy
+from typing import Dict, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from deeplearning4j_tpu_torch.common.devices import resolve_device
+from deeplearning4j_tpu_torch.common.dtypes import policy_from_name
+from deeplearning4j_tpu_torch.data.dataset import DataSet, MultiDataSet
+from deeplearning4j_tpu_torch.data.iterators import (
+    DataSetIterator,
+    ListDataSetIterator,
+    MultiDataSetIterator,
+)
+from deeplearning4j_tpu_torch.nn.conf import layers as L
+from deeplearning4j_tpu_torch.nn.conf.graph import (
+    ComputationGraphConfiguration,
+    LayerVertex,
+)
+from deeplearning4j_tpu_torch.nn.layers.core import apply_dropout
+from deeplearning4j_tpu_torch.nn.layers.registry import (
+    LayerContext,
+    forward_layer,
+    init_layer_params,
+    init_layer_state,
+)
+from deeplearning4j_tpu_torch.nn.multilayer import (
+    _OUTPUT_LAYER_TYPES,
+    _preout_of_output_layer,
+)
+from deeplearning4j_tpu_torch.nn.netbase import NetworkBase, _layer_seed
+from deeplearning4j_tpu_torch.ops.losses import loss_value, masked_example_mean
+from deeplearning4j_tpu_torch.train.updaters import updater_from_conf
+
+
+def _as_multidataset(ds) -> MultiDataSet:
+    if isinstance(ds, MultiDataSet):
+        return ds
+    if isinstance(ds, DataSet):
+        return MultiDataSet(
+            [ds.features], [ds.labels],
+            None if ds.features_mask is None else [ds.features_mask],
+            None if ds.labels_mask is None else [ds.labels_mask],
+        )
+    raise TypeError(f"expected DataSet or MultiDataSet, got {type(ds)}")
+
+
+def relu_fused_bn_vertices(conf: ComputationGraphConfiguration) -> Dict[str, str]:
+    """{BN vertex: its relu vertex} for every BatchNormalization vertex
+    whose only consumer is a relu ActivationLayer vertex (and that is not
+    a graph output): the BNs that apply the ReLU themselves in training.
+    In ResNet-50: the stem's BN and each block's `_a` and `_b` BNs (33),
+    but not `_c` and `_sc`, which feed the residual add."""
+    consumers: Dict[str, List[str]] = {}
+    for name, ins in conf.vertex_inputs.items():
+        for src in ins:
+            consumers.setdefault(src, []).append(name)
+    out = {}
+    for name, v in conf.vertices.items():
+        if not (isinstance(v, LayerVertex)
+                and isinstance(v.layer, L.BatchNormalization)):
+            continue
+        cs = consumers.get(name, [])
+        if len(cs) != 1 or name in conf.outputs:
+            continue
+        c = conf.vertices[cs[0]]
+        if (isinstance(c, LayerVertex) and isinstance(c.layer, L.ActivationLayer)
+                and c.layer.activation == "relu" and c.preprocessor is None):
+            out[name] = cs[0]
+    return out
+
+
+class ComputationGraph(NetworkBase):
+    """DAG network. API mirrors the reference: init, fit, output, score,
+    params/set_params. Runs on `device` ("cuda" when None; pass
+    device="cpu" for the CPU)."""
+
+    def __init__(self, conf: ComputationGraphConfiguration, device=None):
+        super().__init__()
+        self.conf = conf
+        self.device = resolve_device(device)
+        self.net_conf = conf.net_conf
+        self.policy = policy_from_name(self.net_conf.precision)
+        self.policy.apply()
+        self.updater_def = updater_from_conf(self.net_conf)
+        self.topo: List[str] = conf.topological_order()
+        self.layer_vertex_names: List[str] = [
+            n for n in self.topo if isinstance(conf.vertices.get(n), LayerVertex)]
+        self._pidx: Dict[str, int] = {
+            n: i for i, n in enumerate(self.layer_vertex_names)}
+        self._layer_confs: List[L.LayerConf] = [
+            conf.vertices[n].layer for n in self.layer_vertex_names]
+        self.relu_fused_bn = relu_fused_bn_vertices(conf)
+        self._relu_passed = frozenset(self.relu_fused_bn.values())
+
+    def _ordered_layer_confs(self):
+        return self._layer_confs
+
+    # -- init ----------------------------------------------------------------
+
+    def init(self) -> "ComputationGraph":
+        dtype = self.policy.param_dtype
+        self.params_list = []
+        self.state_list = []
+        for i, lc in enumerate(self._layer_confs):
+            gen = torch.Generator().manual_seed(_layer_seed(self.net_conf.seed, i))
+            p = init_layer_params(gen, lc, dtype)
+            self.params_list.append({k: v.to(self.device) for k, v in p.items()})
+            st = init_layer_state(lc, dtype)
+            self.state_list.append(
+                None if st is None else {k: v.to(self.device) for k, v in st.items()})
+        self.upd_state = self.updater_def.init_tree(self.params_list)
+        return self
+
+    # -- forward -------------------------------------------------------------
+
+    def _forward(self, params, states, inputs: Sequence, *, training, rng,
+                 input_masks: Optional[Sequence] = None, preout_outputs=False):
+        """Forward over the cached topo order. Returns (activations dict,
+        new_states list). With `preout_outputs` the loss-head vertices
+        return their pre-activation, for the loss."""
+        conf = self.conf
+        acts: Dict[str, torch.Tensor] = dict(zip(conf.inputs, inputs))
+        masks: Dict[str, torch.Tensor] = {}
+        if input_masks is not None:
+            masks = {n: m for n, m in zip(conf.inputs, input_masks) if m is not None}
+        # single-mask convenience: an rnn layer deeper in the graph uses the
+        # sole input mask
+        sole_mask = next(iter(masks.values())) if len(masks) == 1 else None
+        new_states: List[Optional[dict]] = [None] * len(self.layer_vertex_names)
+        env = {"activations": acts, "input_masks": masks}
+        for name in self.topo:
+            if name in acts:
+                continue
+            v = conf.vertices[name]
+            xs = [acts[i] for i in conf.vertex_inputs[name]]
+            if training and name in self._relu_passed:
+                acts[name] = xs[0]  # its BN applied the ReLU
+                continue
+            if not isinstance(v, LayerVertex):
+                acts[name] = v.forward(xs, env)
+                continue
+            x = xs[0]
+            timesteps = x.shape[1] if x.dim() == 3 else None
+            if v.preprocessor is not None:
+                x = v.preprocessor(x, {"timesteps": timesteps})
+                if x.dim() == 3:
+                    timesteps = x.shape[1]
+            pidx = self._pidx[name]
+            lc = v.layer
+            ctx = LayerContext(
+                training=training, rng=rng,
+                mask=sole_mask if x.dim() == 3 else None,
+                timesteps=timesteps, state=states[pidx],
+                fuse_relu=training and name in self.relu_fused_bn)
+            if (preout_outputs and name in conf.outputs
+                    and isinstance(lc, _OUTPUT_LAYER_TYPES)):
+                x = _preout_of_output_layer(
+                    lc, params[pidx], apply_dropout(x, lc.dropout, ctx))
+                ns = None
+            else:
+                x, ns = forward_layer(lc, params[pidx], x, ctx)
+            new_states[pidx] = ns
+            acts[name] = x
+        return acts, new_states
+
+    def _merge_states(self, old, new):
+        return [n if n is not None else o for o, n in zip(old, new)]
+
+    # -- loss ----------------------------------------------------------------
+
+    def _loss(self, params, states, xs, ys, f_masks, l_masks, rng, training=True):
+        conf = self.conf
+        xs = [self.policy.cast_input(x) for x in xs]
+        acts, new_states = self._forward(
+            params, states, xs, training=training, rng=rng,
+            input_masks=f_masks, preout_outputs=True)
+        score = 0.0
+        n_heads = 0
+        for i, name in enumerate(conf.outputs):
+            v = conf.vertices[name]
+            if not (isinstance(v, LayerVertex)
+                    and isinstance(v.layer, _OUTPUT_LAYER_TYPES)):
+                continue
+            lc = v.layer
+            lm = l_masks[i] if l_masks is not None else None
+            per_ex = loss_value(lc.loss, ys[i], self.policy.cast_output(acts[name]),
+                                lc.activation, lm)
+            score = score + masked_example_mean(per_ex, lm)
+            n_heads += 1
+        if n_heads == 0:
+            raise ValueError(
+                "no output vertex is a loss head (OutputLayer/RnnOutputLayer/"
+                "LossLayer) — cannot compute a training loss")
+        return score + self._reg_penalty(params), new_states
+
+    # -- train step ----------------------------------------------------------
+
+    def _std_loss_builder(self):
+        def loss_builder(p, states, data, rng):
+            xs, ys, fms, lms = data
+            return self._loss(p, states, xs, ys, fms, lms, rng)
+
+        return loss_builder
+
+    def _data_list(self, arrs):
+        if arrs is None:
+            return None
+        return [self._as_data(a) for a in arrs]
+
+    def _fit_step(self, xs, ys, f_masks, l_masks):
+        """One optimizer step on device lists. Returns (states, device
+        score)."""
+        return self._run_step(self._std_loss_builder(), (xs, ys, f_masks, l_masks))
+
+    # -- fit -----------------------------------------------------------------
+
+    def fit(self, data, labels=None, *, epochs: int = 1, batch_size: int = 32,
+            async_prefetch: bool = True):
+        """Train. Accepts (features, labels) arrays, a DataSet/MultiDataSet,
+        or a DataSetIterator/MultiDataSetIterator (reference:
+        ComputationGraph.fit overloads :857-867). `async_prefetch` is
+        accepted for the JAX package's signature; batches are read and moved
+        to the device inline either way."""
+        del async_prefetch
+        self._require_init()
+        if self.upd_state is None:
+            self.upd_state = self.updater_def.init_tree(self.params_list)
+        if isinstance(data, (DataSetIterator, MultiDataSetIterator)):
+            iterator = data
+        elif isinstance(data, MultiDataSet):
+            iterator = _ListMultiIterator(data, batch_size)
+        elif isinstance(data, DataSet):
+            iterator = ListDataSetIterator(data, batch_size)
+        else:
+            iterator = ListDataSetIterator(
+                DataSet(np.asarray(data), np.asarray(labels)), batch_size)
+        return self._run_fit(iterator, epochs)
+
+    def _fit_dataset(self, ds):
+        mds = _as_multidataset(ds)
+        if self.conf.backprop_type == "tbptt" and any(
+                np.ndim(f) == 3 for f in mds.features):
+            raise NotImplementedError("TBPTT in ComputationGraph is not ported yet")
+        algo = self.net_conf.optimization_algo
+        if algo != "sgd":
+            raise NotImplementedError(
+                f"optimization algorithm {algo!r}: the line-search solvers "
+                "are not ported yet")
+        self.state_list, _ = self._fit_step(
+            self._data_list(mds.features), self._data_list(mds.labels),
+            self._data_list(mds.features_masks), self._data_list(mds.labels_masks))
+        self._notify(mds.num_examples())
+
+    def score(self, data, labels=None) -> float:
+        """Loss on a dataset without updating (inference-mode forward)."""
+        self._require_init()
+        if isinstance(data, (DataSet, MultiDataSet)):
+            mds = _as_multidataset(data)
+        else:
+            mds = _as_multidataset(DataSet(np.asarray(data), np.asarray(labels)))
+        with torch.no_grad():
+            s, _ = self._loss(
+                self.params_list, self.state_list, self._data_list(mds.features),
+                self._data_list(mds.labels), self._data_list(mds.features_masks),
+                self._data_list(mds.labels_masks), rng=None, training=False)
+        return float(s)
+
+    # -- inference -----------------------------------------------------------
+
+    def output(self, *inputs, input_masks: Optional[Sequence] = None):
+        """Inference forward; one tensor for a single-output graph, else a
+        list in set_outputs order (reference: ComputationGraph.output)."""
+        self._require_init()
+        xs = [self._as_input(x) for x in inputs]
+        masks = None
+        if input_masks is not None:
+            if len(input_masks) != len(self.conf.inputs):
+                raise ValueError(
+                    f"input_masks has {len(input_masks)} entries but the "
+                    f"graph has {len(self.conf.inputs)} inputs "
+                    f"({self.conf.inputs}); pass one mask (or None) per input")
+            masks = [None if m is None else self._as_input(m) for m in input_masks]
+        key = (tuple((tuple(x.shape), str(x.dtype)) for x in xs),
+               None if masks is None else tuple(
+                   None if m is None else (tuple(m.shape), str(m.dtype)) for m in masks))
+
+        def make_fn():
+            def fwd(params, states, xs, masks):
+                xs = [self.policy.cast_input(x) for x in xs]
+                acts, _ = self._forward(params, states, xs, training=False,
+                                        rng=None, input_masks=masks)
+                return [self.policy.cast_output(acts[n]) for n in self.conf.outputs]
+
+            return fwd
+
+        fn = self._cached_output_fn(key, make_fn)
+        with torch.no_grad():
+            outs = fn(self.params_list, self.state_list, xs, masks)
+        return outs[0] if len(outs) == 1 else outs
+
+    def feed_forward(self, *inputs):
+        """All vertex activations as a dict — the inspection path."""
+        self._require_init()
+        with torch.no_grad():
+            acts, _ = self._forward(
+                self.params_list, self.state_list,
+                [self.policy.cast_input(self._as_input(x)) for x in inputs],
+                training=False, rng=None)
+        return acts
+
+    def clone(self) -> "ComputationGraph":
+        other = ComputationGraph(copy.deepcopy(self.conf), device=self.device)
+        if self.params_list is not None:
+            other.params_list = [{k: v.clone() for k, v in p.items()}
+                                 for p in self.params_list]
+            other.state_list = [None if s is None else {k: v.clone() for k, v in s.items()}
+                                for s in self.state_list]
+            if self.upd_state is not None:
+                other.upd_state = [{k: {n: v.clone() for n, v in s.items()}
+                                    for k, s in p.items()} for p in self.upd_state]
+            other.iteration = self.iteration
+            other.epoch = self.epoch
+        return other
+
+
+class _ListMultiIterator(MultiDataSetIterator):
+    """Minibatches from one in-memory MultiDataSet."""
+
+    def __init__(self, mds: MultiDataSet, batch: int):
+        self.mds = mds
+        self.batch = batch
+
+    def __iter__(self):
+        n = self.mds.num_examples()
+        for i in range(0, n, self.batch):
+            sl = slice(i, min(i + self.batch, n))
+
+            def cut(arrs):
+                return None if arrs is None else [None if a is None else a[sl]
+                                                  for a in arrs]
+
+            yield MultiDataSet(cut(self.mds.features), cut(self.mds.labels),
+                               cut(self.mds.features_masks),
+                               cut(self.mds.labels_masks))
+
+    def batch_size(self):
+        return self.batch
+
+    def total_examples(self):
+        return self.mds.num_examples()

@@ -4,10 +4,28 @@ Analog of the reference's nn/conf package: a declarative, JSON-serializable
 description of a network (NeuralNetConfiguration.java, 1,189 LoC;
 MultiLayerConfiguration.java; layer configs in nn/conf/layers/). The JSON
 form is the persistence/compat surface and is byte-compatible with the JAX
-package's: `MultiLayerConfiguration.from_json(jax_conf.to_json())` works
-here. The DAG configuration (`conf/graph.py`) is not ported yet.
+package's: `MultiLayerConfiguration.from_json(jax_conf.to_json())` and
+`ComputationGraphConfiguration.from_json(...)` work here.
 """
 
+from deeplearning4j_tpu_torch.nn.conf.graph import (
+    ComputationGraphConfiguration,
+    DuplicateToTimeSeriesVertex,
+    ElementWiseVertex,
+    GraphBuilder,
+    L2NormalizeVertex,
+    L2Vertex,
+    LastTimeStepVertex,
+    LayerVertex,
+    MergeVertex,
+    PreprocessorVertex,
+    ReshapeVertex,
+    ScaleVertex,
+    ShiftVertex,
+    StackVertex,
+    SubsetVertex,
+    UnstackVertex,
+)
 from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
 from deeplearning4j_tpu_torch.nn.conf.layers import (
     ActivationLayer,

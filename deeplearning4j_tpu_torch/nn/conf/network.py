@@ -8,8 +8,8 @@ inherited by every layer whose own field is None, exactly the reference's
 clone-defaults-into-layer behavior.
 
 Workspace modes (NONE/SINGLE/SEPARATE) have no analog here: PyTorch's
-caching allocator owns the intermediate buffers. The DAG builder
-(`graph_builder`, nn/conf/graph.py) is not ported yet.
+caching allocator owns the intermediate buffers. `graph_builder()` starts
+the DAG builder of nn/conf/graph.py.
 """
 
 from __future__ import annotations
@@ -422,3 +422,10 @@ class Builder:
 
     def list(self) -> ListBuilder:
         return ListBuilder(self.build())
+
+    def graph_builder(self):
+        """DAG configuration builder (reference:
+        NeuralNetConfiguration.Builder.graphBuilder())."""
+        from deeplearning4j_tpu_torch.nn.conf.graph import GraphBuilder
+
+        return GraphBuilder(self.build())

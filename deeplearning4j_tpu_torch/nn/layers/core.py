@@ -5,7 +5,6 @@ Reference impls: nn/layers/feedforward/dense/DenseLayer.java (preOutput =
 input·W + b then activation, BaseLayer.java), BaseOutputLayer.java,
 feedforward/embedding/EmbeddingLayer.java, DropoutLayer, ActivationLayer.
 Same parameters, names and math as the JAX package's nn/layers/core.py.
-The deferred-ReLU hook of the conv/BN kernels waits for that slice.
 """
 
 from __future__ import annotations

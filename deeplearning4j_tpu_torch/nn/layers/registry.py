@@ -34,6 +34,10 @@ class LayerContext:
     mask: Optional[torch.Tensor] = None  # [batch, time] for RNN inputs
     timesteps: Optional[int] = None  # batch time length (for ff<->rnn reshape)
     state: Optional[dict] = None  # layer's mutable state going in
+    # a BatchNormalization whose only consumer is a relu ActivationLayer
+    # (ComputationGraph decides it, in training): the BN returns its output
+    # rectified, and the graph passes it through the relu vertex
+    fuse_relu: bool = False
 
 
 def register_layer(conf_cls, init_fn, forward_fn, order_fn=None, state_fn=None):

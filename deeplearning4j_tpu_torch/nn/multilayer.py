@@ -3,8 +3,9 @@
 Analog of the reference's nn/multilayer/MultiLayerNetwork.java and the
 port of the JAX package's nn/multilayer.py: init, the forward pass,
 `output`, `feed_forward`, streaming `rnn_time_step`, the pure decode step
-the serving engine drives, and training: the loss with its L1/L2 terms,
-the optimizer step, `fit` with truncated BPTT, and `score`.
+the serving engine drives, and training: the loss, `fit` with truncated
+BPTT, and `score`; the optimizer step and the L1/L2 terms are
+nn/netbase.py's, shared with ComputationGraph.
 
 Where the JAX package compiles forward + loss + backward + updater into
 one jitted program, the port runs them eagerly: autograd gives the
@@ -49,13 +50,9 @@ from deeplearning4j_tpu_torch.nn.layers.registry import (
     init_layer_params,
     init_layer_state,
 )
-from deeplearning4j_tpu_torch.nn.netbase import NetworkBase
+from deeplearning4j_tpu_torch.nn.netbase import NetworkBase, _layer_seed
 from deeplearning4j_tpu_torch.ops.losses import loss_value, masked_example_mean
-from deeplearning4j_tpu_torch.train.updaters import (
-    normalize_gradients,
-    schedule_lr,
-    updater_from_conf,
-)
+from deeplearning4j_tpu_torch.train.updaters import updater_from_conf
 
 logger = logging.getLogger("deeplearning4j_tpu_torch")
 
@@ -68,36 +65,12 @@ def _is_recurrent(conf) -> bool:
     return isinstance(inner, (L.LSTM, L.GravesLSTM))
 
 
-def _is_frozen(conf) -> bool:
-    return isinstance(conf, L.FrozenLayer)
-
-
-def _regularizable(name: str) -> bool:
-    """Weight-style params get l1/l2; biases and batchnorm affine params do
-    not (reference: each ParamInitializer flags regularizable params)."""
-    if name in ("gamma", "beta"):
-        return False
-    return name.rsplit("_", 1)[-1] in ("W", "RW", "pI", "pF", "pO")
-
-
 def _preout_of_output_layer(conf, params, x):
     """Pre-activation of the final (output) layer — the quantity losses
     consume (reference: BaseOutputLayer.preOutput2d)."""
     if isinstance(conf, L.LossLayer):
         return x
     return affine(x, params["W"], params["b"])
-
-
-def _detached(states):
-    return [None if st is None else {k: v.detach() for k, v in st.items()}
-            for st in states]
-
-
-def _layer_seed(seed: int, i: int) -> int:
-    """Per-layer generator seed: layer i's draws do not depend on how many
-    numbers earlier layers drew (the role jax.random.fold_in plays in the
-    JAX package)."""
-    return (int(seed) * 1_000_003 + i) % (2 ** 63)
 
 
 class MultiLayerNetwork(NetworkBase):
@@ -134,19 +107,6 @@ class MultiLayerNetwork(NetworkBase):
                 None if st is None else {k: v.to(self.device) for k, v in st.items()})
         self.upd_state = self.updater_def.init_tree(self.params_list)
         return self
-
-    def _as_input(self, x) -> torch.Tensor:
-        if torch.is_tensor(x):
-            return x.to(self.device)
-        return torch.as_tensor(np.asarray(x), device=self.device)
-
-    def _as_data(self, a):
-        """A batch array on the device; float64 arrives as float32, as
-        jnp.asarray gives it to the JAX package."""
-        if a is None:
-            return None
-        t = self._as_input(a)
-        return t.float() if t.dtype == torch.float64 else t
 
     # -- forward -------------------------------------------------------------
 
@@ -198,83 +158,9 @@ class MultiLayerNetwork(NetworkBase):
         preout = self.policy.cast_output(preout)
         per_ex = loss_value(last.loss, y, preout, last.activation, l_mask)
         score = masked_example_mean(per_ex, l_mask)
-        # L1/L2 penalties (reference: BaseLayer.calcL1/calcL2 added to the
-        # score; their gradients come from differentiating this expression)
-        reg = 0.0
-        for conf, p in zip(self.layer_confs, params):
-            inner = conf.inner if isinstance(conf, L.FrozenLayer) else conf
-            l1 = getattr(inner, "l1", 0.0) or 0.0
-            l2 = getattr(inner, "l2", 0.0) or 0.0
-            if l1 == 0.0 and l2 == 0.0:
-                continue
-            for name, w in p.items():
-                if _regularizable(name):
-                    if l1:
-                        reg = reg + l1 * w.abs().sum()
-                    if l2:
-                        reg = reg + 0.5 * l2 * (w * w).sum()
-        return score + reg, new_states
+        return score + self._reg_penalty(params), new_states
 
     # -- train step ----------------------------------------------------------
-
-    def _lr_mult_tree(self):
-        """Per-leaf learning-rate multiplier (per-layer learning_rate and
-        bias_learning_rate overrides, reference: layer conf learningRate)."""
-        base = self.net_conf.learning_rate
-        out = []
-        for conf, p in zip(self.layer_confs, self.params_list):
-            inner = conf.inner if isinstance(conf, L.FrozenLayer) else conf
-            layer_lr = getattr(inner, "learning_rate", None)
-            bias_lr = getattr(inner, "bias_learning_rate", None)
-            mult = {}
-            for name in p:
-                if name == "b" and bias_lr is not None:
-                    mult[name] = bias_lr / base
-                elif layer_lr is not None:
-                    mult[name] = layer_lr / base
-                else:
-                    mult[name] = 1.0
-            out.append(mult)
-        return out
-
-    def _trainable_mask(self):
-        return [{k: (0.0 if _is_frozen(conf) else 1.0) for k in p}
-                for conf, p in zip(self.layer_confs, self.params_list)]
-
-    def _step(self, loss_builder, states, data, lr: float, t: float, rng):
-        """One optimizer step, eagerly: the loss and its gradients by
-        autograd, then the shared tail — the diagnostic, trainable mask,
-        gradient normalization, per-leaf lr and the updater, which adds its
-        deltas to the parameters in place. Returns (merged states, score).
-        `self._step_diag` holds [loss, raw global gradient norm] (before
-        masking or clipping, in f32), as the JAX step's `diag`."""
-        params = self.params_list
-        leaves = [v for p in params for v in p.values()]
-        for v in leaves:
-            v.requires_grad_(True)
-        try:
-            score, new_states = loss_builder(params, states, data, rng)
-            flat = iter(torch.autograd.grad(score, leaves))
-        finally:
-            for v in leaves:
-                v.requires_grad_(False)
-        score = score.detach()
-        grads = [{k: next(flat) for k in p} for p in params]
-        with torch.no_grad():
-            # leaves in sorted-key order per layer, as jax.tree_util walks
-            gsq = sum(g[k].float().square().sum() for g in grads for k in sorted(g))
-            self._step_diag = torch.stack([score.float(), torch.sqrt(gsq)])
-            if not self.net_conf.minimize:
-                grads = [{k: -v for k, v in g.items()} for g in grads]
-            grads = [{k: g[k] * m[k] for k in g}
-                     for g, m in zip(grads, self._trainable_mask())]
-            grads = normalize_gradients(
-                grads, self.net_conf.gradient_normalization,
-                self.net_conf.gradient_normalization_threshold)
-            lr_tree = [{k: lr * m[k] for k in g}
-                       for g, m in zip(grads, self._lr_mult_tree())]
-            self.updater_def.step_(params, grads, self.upd_state, lr_tree, t)
-        return _detached(self._merge_states(states, new_states)), score
 
     def _std_loss_builder(self):
         def loss_builder(p, states, data, rng):
@@ -301,18 +187,6 @@ class MultiLayerNetwork(NetworkBase):
             return score, self._merge_states(carried, statesB)
 
         return loss_builder
-
-    def _run_step(self, loss_builder, data, stateful_states=None):
-        lr = schedule_lr(self.net_conf, self.iteration)
-        # the step's generator: seed ^ 0x5EED with the iteration folded in
-        rng = torch.Generator(device=self.device).manual_seed(
-            ((self.net_conf.seed ^ 0x5EED) * 1_000_003 + self.iteration) % (2 ** 63))
-        states = stateful_states if stateful_states is not None else self.state_list
-        states, score = self._step(loss_builder, states, data, lr,
-                                   float(self.iteration), rng)
-        self._score = score
-        self.iteration += 1
-        return states, score
 
     def _fit_step(self, x, y, f_mask, l_mask, stateful_states=None):
         """One optimizer step. Returns (states, device score)."""

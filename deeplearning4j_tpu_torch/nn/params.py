@@ -20,7 +20,7 @@ import numpy as np
 import torch
 
 from deeplearning4j_tpu_torch.common.devices import resolve_device
-from deeplearning4j_tpu_torch.nn.layers.registry import param_order
+from deeplearning4j_tpu_torch.nn.layers.registry import init_layer_state, param_order
 
 
 def num_params(layer_confs, params_list) -> int:
@@ -77,29 +77,54 @@ def param_table(layer_confs, params_list) -> List[Tuple[str, Tuple[int, ...], in
     return rows
 
 
+def _layer_confs(conf):
+    """The layer confs in params_list order: a MultiLayerConfiguration's
+    layers, a ComputationGraphConfiguration's layer vertices in topological
+    order, or a list of layer confs as it is."""
+    if hasattr(conf, "topological_order"):
+        return [conf.vertices[n].layer for n in conf.topological_order()
+                if hasattr(conf.vertices.get(n), "layer")]
+    return getattr(conf, "layers", conf)
+
+
+def _checked_copy(layers, dicts, expected, what, device):
+    if len(layers) != len(dicts):
+        raise ValueError(f"{len(dicts)} {what} dicts for {len(layers)} layers")
+    out = []
+    for i, (lc, d) in enumerate(zip(layers, dicts)):
+        want = expected(lc)
+        if set(d or {}) != want:
+            raise ValueError(
+                f"layer {i} ({type(lc).__name__}): {what} {sorted(d or {})} "
+                f"!= expected {sorted(want)}")
+        out.append(None if d is None else {
+            k: torch.tensor(np.asarray(v), device=device) for k, v in d.items()})
+    return out
+
+
 def params_from_numpy(conf, params_list, *, device=None) -> List[Dict]:
     """The weight carry-across: the JAX package's `params_list` (one dict
     of arrays per layer, converted with `np.asarray`) as the port's params,
     so both packages compute the same function. The layouts are the same
     on both sides — LSTM W [nIn, 4H], RW [H, 4H], b [4H], pI/pF/pO [H]
-    with gate blocks [i|f|g|o], dense/output W [nIn, nOut] — so this is a
-    checked copy: every layer must carry exactly its param_order() names.
-    `conf` is the port's MultiLayerConfiguration (or its layer list).
-    `device` follows the other entry points: "cuda" when None; pass
-    device="cpu" (or the network's device) for the CPU."""
-    device = resolve_device(device)
-    layers = getattr(conf, "layers", conf)
-    if len(layers) != len(params_list):
-        raise ValueError(
-            f"{len(params_list)} parameter dicts for {len(layers)} layers")
-    out = []
-    for i, (lc, p) in enumerate(zip(layers, params_list)):
-        expected = set(param_order(lc)) if lc.has_params() else set()
-        if set(p) != expected:
-            raise ValueError(
-                f"layer {i} ({type(lc).__name__}): parameters {sorted(p)} "
-                f"!= expected {sorted(expected)}")
-        out.append({
-            k: torch.tensor(np.asarray(v), device=device)
-            for k, v in p.items()})
-    return out
+    with gate blocks [i|f|g|o], dense/output W [nIn, nOut], conv W HWIO
+    [kh, kw, nIn, nOut], BN gamma/beta [C] — so this is a checked copy:
+    every layer must carry exactly its param_order() names. `conf` is the
+    port's MultiLayerConfiguration, ComputationGraphConfiguration (layers in
+    topological order) or a layer list. `device` follows the other entry
+    points: "cuda" when None; pass device="cpu" (or the network's device)
+    for the CPU."""
+    return _checked_copy(
+        _layer_confs(conf), params_list,
+        lambda lc: set(param_order(lc)) if lc.has_params() else set(),
+        "parameters", resolve_device(device))
+
+
+def states_from_numpy(conf, state_list, *, device=None) -> List:
+    """The JAX package's `state_list` (BatchNormalization running "mean"
+    and "var" [C], None for stateless layers) as the port's, a checked copy
+    in the order of `params_from_numpy`."""
+    return _checked_copy(
+        _layer_confs(conf), state_list,
+        lambda lc: set(init_layer_state(lc, torch.float32) or {}),
+        "state", resolve_device(device))

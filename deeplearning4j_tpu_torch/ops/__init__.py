@@ -9,4 +9,4 @@ from deeplearning4j_tpu_torch.ops.helpers import (
     register_helper,
     set_helper_enabled,
 )
-from deeplearning4j_tpu_torch.ops import fused_lstm  # noqa: F401  (registers its helpers)
+from deeplearning4j_tpu_torch.ops import fused_conv_bn, fused_lstm  # noqa: F401  (register their helpers)

@@ -6,7 +6,8 @@ Builds happen at first use, never at import, into
 `deeplearning4j_tpu_torch/_build/`, keyed by a hash of the sources and
 flags, so an unchanged tree reuses its libraries and an edited one
 rebuilds. `build_all()` starts one `nvcc` per source at once and waits
-for all of them.
+for all of them. `entry()` binds one C entry point; `require_hopper()` and
+`on_hopper()` are the device checks every kernel wrapper and probe share.
 """
 
 from __future__ import annotations
@@ -20,11 +21,14 @@ import threading
 import time
 from typing import Dict, Tuple
 
+import torch
+
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-SOURCES = ("lstm_step", "lstm_sequence", "lstm_sequence_bwd")
-_HEADERS = ("common.cuh",)
+SOURCES = ("lstm_step", "lstm_sequence", "lstm_sequence_bwd", "conv1x1_stats",
+           "conv_kxk_stats", "bn_apply", "bn_backward")
+_HEADERS = ("common.cuh", "conv_bn.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -112,3 +116,36 @@ def check(lib: ctypes.CDLL, code: int, what: str) -> None:
     if code != 0:
         msg = lib.dl4j_error_string(code).decode(errors="replace")
         raise RuntimeError(f"{what}: CUDA error {code} ({msg})")
+
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+
+
+def entry(lib_name: str, fn_name: str, n_ptr: int, n_int: int):
+    """(library, bound function) for a C entry point of the shape every
+    kernel here exports: int fn(int dtype, n_ptr pointers, n_int ints,
+    void* stream), returning a CUDA error code."""
+    lib = library(lib_name)
+    fn = getattr(lib, fn_name)
+    if fn.argtypes is None:
+        fn.argtypes = [_I] + [_P] * n_ptr + [_I] * n_int + [_P]
+        fn.restype = _I
+    return lib, fn
+
+
+def on_hopper(device) -> bool:
+    """True for a CUDA device of compute capability >= 9.0."""
+    if device is None:
+        return False
+    device = torch.device(device)
+    return (device.type == "cuda"
+            and torch.cuda.get_device_capability(device) >= (9, 0))
+
+
+def require_hopper(device: torch.device) -> None:
+    cap = torch.cuda.get_device_capability(device)
+    if cap < (9, 0):
+        raise RuntimeError(
+            f"the port's kernels are built for sm_90a; {device} has "
+            f"compute capability {cap}")

@@ -28,7 +28,6 @@ versions also take f64 (math in f64), for gradient checks.
 
 from __future__ import annotations
 
-import ctypes
 import threading
 from typing import Dict, Tuple
 
@@ -199,27 +198,6 @@ def _check_bwd(acts, hprev, cprev, rw, pI, pF, pO, dy, dcF) -> Tuple[int, int, i
     return T, B, H
 
 
-def _require_hopper(device: torch.device) -> None:
-    cap = torch.cuda.get_device_capability(device)
-    if cap < (9, 0):
-        raise RuntimeError(
-            f"the fused LSTM kernels are built for sm_90a; {device} has "
-            f"compute capability {cap}")
-
-
-_P = ctypes.c_void_p
-_I = ctypes.c_int
-
-
-def _entry(lib_name: str, fn_name: str, n_ptr: int, n_int: int):
-    lib = cuda_build.library(lib_name)
-    fn = getattr(lib, fn_name)
-    if fn.argtypes is None:
-        fn.argtypes = [_I] + [_P] * n_ptr + [_I] * n_int + [_P]
-        fn.restype = _I
-    return lib, fn
-
-
 def lstm_step(xg, rw, pI, pF, pO, h0, c0):
     """One decode timestep, fused. xg: [B, 4H] input projection + bias;
     rw: [H, 4H]; pI/pF/pO: [H] peepholes (zeros for plain LSTM); h0/c0:
@@ -227,8 +205,8 @@ def lstm_step(xg, rw, pI, pF, pO, h0, c0):
     _, B, H = _check(xg, rw, pI, pF, pO, h0, c0, seq=False)
     if not xg.is_cuda:
         return lstm_step_reference(xg, rw, pI, pF, pO, h0, c0)
-    _require_hopper(xg.device)
-    lib, fn = _entry("lstm_step", "lstm_step", 9, 2)
+    cuda_build.require_hopper(xg.device)
+    lib, fn = cuda_build.entry("lstm_step", "lstm_step", 9, 2)
     h1, c1 = torch.empty_like(h0), torch.empty_like(c0)
     stream = torch.cuda.current_stream(xg.device).cuda_stream
     with torch.cuda.device(xg.device):
@@ -248,8 +226,8 @@ def lstm_sequence_forward(xg, rw, pI, pF, pO, h0, c0):
     T, B, H = _check(xg, rw, pI, pF, pO, h0, c0, seq=True)
     if not xg.is_cuda:
         return lstm_sequence_forward_reference(xg, rw, pI, pF, pO, h0, c0)
-    _require_hopper(xg.device)
-    lib, fn = _entry("lstm_sequence", "lstm_sequence_forward", 14, 3)
+    cuda_build.require_hopper(xg.device)
+    lib, fn = cuda_build.entry("lstm_sequence", "lstm_sequence_forward", 14, 3)
     y = torch.empty((T, B, H), dtype=xg.dtype, device=xg.device)
     acts = torch.empty_like(xg)
     hprev, cprev = torch.empty_like(y), torch.empty_like(y)
@@ -279,8 +257,8 @@ def lstm_sequence_backward(acts, hprev, cprev, rw, pI, pF, pO, dy, dcF):
     if not acts.is_cuda:
         return lstm_sequence_backward_reference(acts, hprev, cprev, rw, pI,
                                                 pF, pO, dy, dcF)
-    _require_hopper(acts.device)
-    lib, fn = _entry("lstm_sequence_bwd", "lstm_sequence_backward", 18, 3)
+    cuda_build.require_hopper(acts.device)
+    lib, fn = cuda_build.entry("lstm_sequence_bwd", "lstm_sequence_backward", 18, 3)
     dev, f32 = acts.device, torch.float32
     dxg = torch.empty_like(acts)
     drw = torch.empty((H, 4 * H), dtype=f32, device=dev)
@@ -337,14 +315,6 @@ def lstm_sequence(xg, rw, pI, pF, pO, h0, c0):
 # -- probes and registration --------------------------------------------------
 
 
-def _on_hopper(device) -> bool:
-    if device is None:
-        return False
-    device = torch.device(device)
-    return (device.type == "cuda"
-            and torch.cuda.get_device_capability(device) >= (9, 0))
-
-
 def step_supported(*, peephole, gate_act, cell_act, device=None, **_):
     """Probe for the decode-step kernel: sigmoid gates + tanh cell,
     peepholes optional, on a CUDA device of compute capability >= 9.0.
@@ -353,7 +323,7 @@ def step_supported(*, peephole, gate_act, cell_act, device=None, **_):
     del peephole
     if gate_act not in ("sigmoid",) or cell_act not in ("tanh",):
         return False
-    return _on_hopper(device)
+    return cuda_build.on_hopper(device)
 
 
 def supported(*, peephole, mask, gate_act, cell_act, reverse, device=None, **_):
@@ -366,7 +336,7 @@ def supported(*, peephole, mask, gate_act, cell_act, reverse, device=None, **_):
         return False
     if gate_act not in ("sigmoid",) or cell_act not in ("tanh",):
         return False
-    return _on_hopper(device)
+    return cuda_build.on_hopper(device)
 
 
 def register():

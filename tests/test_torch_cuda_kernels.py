@@ -13,6 +13,17 @@ import torch
 from deeplearning4j_tpu_torch.ops import fused_lstm as fl
 
 
+@pytest.fixture(autouse=True)
+def _no_tf32():
+    """The plain versions compute in f32: cuDNN's default TF32 would give
+    their convolutions about three decimal digits. Every f32 policy turns
+    it off (common/dtypes.py); so does this file."""
+    old = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    yield
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = old
+
+
 def _require_hopper():
     if not (torch.cuda.is_available()
             and torch.cuda.get_device_capability() >= (9, 0)):
@@ -131,3 +142,134 @@ def test_kernel_errors_propagate_instead_of_falling_back():
         assert helpers.helper_enabled("test_cuda_op") is True
     finally:
         helpers._HELPERS.pop("test_cuda_op", None)
+
+
+# -- the conv/BN kernels (K4-K8) ---------------------------------------------
+
+from deeplearning4j_tpu_torch.ops import fused_conv_bn as fcb  # noqa: E402
+
+
+def _t(rng, shape, dtype, scale=1.0, shift=0.0):
+    return torch.from_numpy((rng.standard_normal(shape) * scale + shift)
+                            .astype(np.float32)).to(dtype).cuda()
+
+
+def _sums_close(sums, rows, M):
+    """Per-channel sums against the exact (f64) column sums of `rows` [M,
+    C], at 1e-7 * sqrt(M) of the largest |sum|: an f32 sum of M values in
+    some order (unit roundoff 6e-8, rounding errors growing like
+    sqrt(M))."""
+    tol = 1e-7 * M ** 0.5
+    for s, r in zip(sums, rows):
+        e = r.sum(0)
+        assert (s.double() - e).abs().max().item() <= tol * e.abs().max().item()
+
+
+def _conv_close(outs, refs, dtype, K, M):
+    """y: f32 1e-5 at the output's scale times sqrt(K) (a sum of K products
+    in another order); bf16 one rounding step. s1, s2: the sums of the
+    kernel's own stored y, as `_sums_close` holds them."""
+    y, s1, s2 = outs
+    ry = refs[0]
+    assert y.dtype == ry.dtype and s1.dtype == s2.dtype == torch.float32
+    if dtype == torch.float32:
+        tol = 1e-5 * K ** 0.5
+        torch.testing.assert_close(y, ry, rtol=tol, atol=tol * ry.abs().max().item())
+    else:
+        torch.testing.assert_close(y.float(), ry.float(), rtol=2 ** -7,
+                                   atol=2 ** -7 * max(1.0, ry.float().abs().max().item()))
+    yd = y.double().reshape(-1, y.shape[-1])
+    _sums_close((s1, s2), (yd, yd * yd), M)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("M,K,N", [(4096, 64, 256), (1003, 37, 70)], ids=["small", "ragged"])
+def test_conv1x1_stats_matches_plain_version_and_is_deterministic(dtype, M, K, N):
+    _require_hopper()
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng(20)
+    x, w = _t(rng, (M, K), dt), _t(rng, (K, N), dt, scale=K ** -0.5)
+    before = fcb.launch_counts()["conv1x1_stats"]
+    outs = fcb.conv1x1_stats(x, w)
+    again = fcb.conv1x1_stats(x, w)
+    torch.cuda.synchronize()
+    assert fcb.launch_counts()["conv1x1_stats"] == before + 2
+    _conv_close(outs, fcb.conv1x1_stats_reference(x, w), dt, K, M)
+    for a, b in zip(outs, again):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n,hw,cin,cout,k,s", [(2, 14, 16, 24, 3, 1), (2, 11, 19, 33, 3, 2),
+                                               (2, 17, 3, 10, 7, 2), (3, 9, 5, 7, 3, 1)],
+                         ids=["3x3", "3x3s2_ragged", "stem_odd", "ragged"])
+def test_conv_kxk_stats_matches_plain_version_and_is_deterministic(dtype, n, hw, cin, cout, k, s):
+    _require_hopper()
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng(21)
+    x, w = _t(rng, (n, hw, hw, cin), dt), _t(rng, (k, k, cin, cout), dt, scale=(k * k * cin) ** -0.5)
+    outs = fcb.conv_kxk_stats(x, w, (s, s))
+    again = fcb.conv_kxk_stats(x, w, (s, s))
+    torch.cuda.synchronize()
+    ho = -(-hw // s)
+    assert tuple(outs[0].shape) == (n, ho, ho, cout)
+    _conv_close(outs, fcb.conv_kxk_stats_reference(x, w, (s, s)), dt, k * k * cin, n * ho * ho)
+    for a, b in zip(outs, again):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("M,C", [(4096, 64), (1003, 37)], ids=["small", "ragged"])
+def test_bn_kernels_match_plain_versions_and_reduce_deterministically(dtype, M, C):
+    _require_hopper()
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng(22)
+    x, g = _t(rng, (M, C), dt, shift=0.3), _t(rng, (M, C), dt)
+    v = [_t(rng, (C,), torch.float32, scale=0.5, shift=1.0) for _ in range(3)]
+    step = (dict(rtol=1e-5, atol=1e-5) if dt == torch.float32
+            else dict(rtol=2 ** -7, atol=2 ** -7))
+    before = fcb.launch_counts()
+    for relu in (False, True):
+        y = fcb.bn_normalize(x, *v, relu)
+        torch.testing.assert_close(y.float(), fcb.bn_normalize_reference(x, *v, relu).float(), **step)
+    sums = fcb.bn_backward_reduce(g, x)
+    again = fcb.bn_backward_reduce(g, x)
+    dx = fcb.bn_backward_apply(g, x, *v)
+    torch.cuda.synchronize()
+    after = fcb.launch_counts()
+    assert [after[k] - before[k] for k in ("bn_apply", "bn_backward_reduce",
+                                           "bn_backward_apply")] == [2, 2, 1]
+    for a, b in zip(sums, again):
+        assert torch.equal(a, b)
+    gd = g.double()
+    _sums_close(sums, (gd, gd * x.double()), M)
+    torch.testing.assert_close(dx.float(), fcb.bn_backward_apply_reference(g, x, *v).float(), **step)
+
+
+@pytest.mark.cuda
+def test_conv_bn_functions_run_the_kernels_under_autograd():
+    _require_hopper()
+    rng = np.random.default_rng(23)
+    x = _t(rng, (2, 9, 9, 8), torch.float32).requires_grad_()
+    w = _t(rng, (3, 3, 8, 16), torch.float32, scale=0.1).requires_grad_()
+    gamma = torch.ones(16, device="cuda", requires_grad=True)
+    beta = torch.zeros(16, device="cuda", requires_grad=True)
+    before = fcb.launch_counts()
+    y, s1, s2 = fcb.conv2d_bn_stats(x, w, (2, 2))
+    out, _, _ = fcb.bn_apply(y, s1, s2, gamma, beta, 1e-5, y.numel() // 16, True)
+    out.square().sum().backward()
+    torch.cuda.synchronize()
+    after = fcb.launch_counts()
+    assert {k: after[k] - before[k] for k in after} == {
+        "conv1x1_stats": 0, "conv_kxk_stats": 1, "bn_apply": 1,
+        "bn_backward_reduce": 1, "bn_backward_apply": 1}
+    refs = [t.detach().cpu().requires_grad_() for t in (x, w, gamma, beta)]
+    yr, r1, r2 = fcb.conv2d_bn_stats(*refs[:2], (2, 2))
+    outr, _, _ = fcb.bn_apply(yr, r1, r2, *refs[2:], 1e-5, yr.numel() // 16, True)
+    outr.square().sum().backward()
+    torch.testing.assert_close(out.cpu(), outr.detach(), rtol=1e-4, atol=1e-4)
+    for a, b in zip((x, w, gamma, beta), refs):
+        torch.testing.assert_close(a.grad.cpu(), b.grad, rtol=1e-3, atol=1e-3 * b.grad.abs().max().item())
