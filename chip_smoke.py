@@ -6,24 +6,27 @@
 Phases; any failure raises and the script exits non-zero without its
 result lines:
 
-1. Device: the card's name and power limit (nvidia-smi), and the build of
+1. Device: the card's name and power limit (nvidia-smi), the build of
    every kernel from `deeplearning4j_tpu_torch/csrc/` (one nvcc per source,
-   in parallel).
+   in parallel), and the HGMMA (wgmma) instructions in the SASS of every
+   bf16 conv kernel (cuobjdump).
 2. Kernels: each hand-written kernel against its plain PyTorch version on
    the card, at the shapes the main path gives it, in f32 and bf16. The
    LSTM kernels with and without peepholes (the backward kernel at the
    training segment and at a ragged shape, on the forward kernel's
    stashes); the conv/BN kernels K4-K8 at the largest ResNet-50 instance
-   of every conv family at batch 128 and of the BN passes, plus a ragged
-   shape each; the conv and BN-backward statistics against the exact sums
-   of the values the kernel stored (in bf16 that tells the stored y from
-   the unrounded one). Device time per call by torch.profiler (CUPTI) for
-   the kernel, its plain version and one library call that computes the
-   same function (cuDNN's LSTM without peepholes, F.conv2d without the
-   statistics, F.batch_norm, torch.batch_norm_backward_reduce and
-   torch.batch_norm_backward_elemt), beside the roofline bound; for the
-   LSTM kernels the wall time per back-to-back call by CUDA events beside
-   them.
+   of every conv family at batch 128 and of the BN passes, plus small
+   shapes that reach each producer and tile edge of the conv kernels (see
+   CONV_CASES) and a ragged BN shape; the conv and BN-backward statistics
+   against the exact sums of the values the kernel stored (in bf16 that
+   tells the stored y from the unrounded one). Device time per call by
+   torch.profiler (CUPTI) for the kernel, its plain version and one
+   library call that computes the same function (cuDNN's LSTM without
+   peepholes, F.conv2d without the statistics, F.batch_norm,
+   torch.batch_norm_backward_reduce and torch.batch_norm_backward_elemt),
+   beside the roofline bound, for the conv kernels at three ResNet-50
+   shapes each (TIMED_CONVS); for the LSTM kernels the wall time per
+   back-to-back call by CUDA events beside them.
 3. Slice: full-width char-LSTM (vocab 77, hidden 200, 2 GravesLSTM
    layers, f32, weights from --seed): `output()` on a [32, 100, 77]
    one-hot batch equals the same net with the helpers switched off, and
@@ -53,9 +56,10 @@ result lines:
    lower on its last visit than on its first, and per step 36 launches of
    K4, 17 of K5 and 53 each of K6, K7 and K8; then step p50/p99 with the
    device synced at each step, and one profiled step's busy share and
-   device time by kernel. In f32 at batch 32, a few builtin steps in, one
-   step with the helpers on holds to one with them off (the builtin torch
-   layers) in gradients, score and the BN running statistics it leaves;
+   device time by kernel (K4 and K5 summed by name). In f32 at batch 32,
+   a few builtin steps in, one step with the helpers on holds to one with
+   them off (the builtin torch layers) in gradients, score and the BN
+   running statistics it leaves;
    at init, where the f32 gradient is ill-conditioned, the kernels'
    gradients stand no further from the builtin step in f64 than the
    builtin f32 gradients do (within a factor: see LOCKSTEP_BATCH).
@@ -163,12 +167,15 @@ def device_ms(torch, fn, reps=20):
     """Device time per call: the CUDA kernels, copies and memsets that
     `reps` calls put on the card, summed by torch.profiler (CUPTI), over
     `reps`. Host overhead between launches is not in it. None when the
-    profiler sees no device activity."""
+    profiler sees no device activity. Device activity only: with CPU
+    activity on, key_averages() also gives each aten op (F.conv2d, the
+    plain versions' ops) its kernels' time as its own, and the sum counts
+    those kernels twice; a kernel launched through ctypes has no op."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
@@ -183,6 +190,30 @@ def bound(nbytes: float, flops: float, peak: float = F32_FLOP_PER_S) -> tuple:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def tensor_core_check(cuda_build) -> dict:
+    """HGMMA (wgmma) instructions per kernel in the SASS of the built conv
+    libraries (cuobjdump -sass): every bf16 conv kernel must have them, so
+    its products run on the tensor cores."""
+    tool = os.path.join(os.path.dirname(cuda_build._nvcc()), "cuobjdump")  # beside nvcc
+    counts = {}
+    for lib in ("conv1x1_stats", "conv_kxk_stats"):
+        sass = subprocess.run([tool, "-sass", cuda_build._lib_path(lib)], capture_output=True,
+                              text=True, timeout=120, check=True).stdout
+        fn = None
+        for line in sass.splitlines():
+            if "Function :" in line:
+                fn = line.split("Function :", 1)[1].strip()
+                counts[fn] = 0
+            elif fn is not None and "HGMMA" in line:
+                counts[fn] += 1
+    bf16 = {f: c for f, c in counts.items() if "bf16_kernel" in f}
+    print(f"  HGMMA instructions in the SASS (cuobjdump): "
+          + ", ".join(f"{f[:60]} {c}" for f, c in counts.items()))
+    check(len(bf16) == 8 and all(bf16.values()),
+          f"a bf16 conv kernel has no wgmma in its SASS: {counts}")
+    return counts
 
 
 # -- phase 2: kernels ---------------------------------------------------------
@@ -402,17 +433,35 @@ def backward_phase(torch, fl, seed):
 # -- phase 2, conv/BN: K4-K8 at ResNet-50's widths ------------------------------
 
 RESNET_BATCH = 128
-# the largest ResNet-50 instance of every conv family at batch 128, as
-# (name, x shape, (kh, kw, Cin, Cout), stride), plus a ragged shape each
+# Conv cases as (name, x shape, (kh, kw, Cin, Cout), stride): ResNet-50's
+# largest instance of every conv family at batch 128, and its deepest 1x1
+# (small M, deep K); then small shapes that reach each producer of the
+# tensor-core engine (conv_bn.cuh) and each edge of its tiles.
 CONV_CASES = [
     ("1x1/s1 64->256 at 56", (RESNET_BATCH, 56, 56, 64), (1, 1, 64, 256), 1),
     ("1x1/s2 256->512 at 56", (RESNET_BATCH, 56, 56, 256), (1, 1, 256, 512), 2),
-    ("1x1 ragged", (3, 7, 11, 37), (1, 1, 37, 70), 1),
+    ("1x1 512->2048 at 7", (RESNET_BATCH, 7, 7, 512), (1, 1, 512, 2048), 1),
     ("3x3/s1 64->64 at 56", (RESNET_BATCH, 56, 56, 64), (3, 3, 64, 64), 1),
     ("3x3/s2 128->128 at 56", (RESNET_BATCH, 56, 56, 128), (3, 3, 128, 128), 2),
     ("7x7/s2 3->64 at 224", (RESNET_BATCH, 224, 224, 3), (7, 7, 3, 64), 2),
+    # gather producer (Cin 37), ragged N (70)
+    ("1x1 ragged", (3, 7, 11, 37), (1, 1, 37, 70), 1),
+    # vector, BN 64, M = 221 (not a multiple of 128)
+    ("1x1 64->64 ragged M", (1, 13, 17, 64), (1, 1, 64, 64), 1),
+    # vector, BN 128, the second column tile 72 wide
+    ("1x1 64->200 ragged tile", (2, 9, 11, 64), (1, 1, 64, 200), 1),
+    # vector, Cin 24: a 64-deep slice straddles taps
+    ("3x3 24->40 straddle", (3, 13, 10, 24), (3, 3, 24, 40), 1),
+    # gather (Cin 19), ragged N (33), odd H and W: the high-side pad
     ("3x3/s2 ragged", (3, 11, 13, 19), (3, 3, 19, 33), 2),
+    # vector at stride 2 on odd H and W, BN 128
+    ("3x3/s2 64->128 odd", (2, 15, 17, 64), (3, 3, 64, 128), 2),
+    # the stem's gather on odd H and W
+    ("7x7/s2 3->64 odd", (2, 33, 29, 3), (7, 7, 3, 64), 2),
 ]
+# Cases timed in bf16; the first of each kernel is its row in the kernels line.
+TIMED_CONVS = ("3x3/s1 64->64 at 56", "7x7/s2 3->64 at 224", "3x3/s2 128->128 at 56",
+               "1x1/s1 64->256 at 56", "1x1/s2 256->512 at 56", "1x1 512->2048 at 7")
 # BN passes: [M, C] of the stem BN (the largest with ReLU), of the
 # 1x1 64->256 BN at 56x56, and a ragged shape
 BN_CASES = [("stem 112x112x64", RESNET_BATCH * 112 * 112, 64),
@@ -532,8 +581,8 @@ def conv_bn_kernel_phase(torch, F, fcb, seed):
             if gap is not None:
                 rows[kname]["unrounded_gap_min"] = min(
                     rows[kname].get("unrounded_gap_min", math.inf), gap)
-            if dtype == torch.bfloat16 and name in ("1x1/s1 64->256 at 56", "3x3/s1 64->64 at 56"):
-                timed[kname] = (name, args, x, w, st)
+            if dtype == torch.bfloat16 and name in TIMED_CONVS:
+                timed[name] = (kname, args, x, w, st)
             del x, w, outs, refs, unrounded
         for name, M, C in BN_CASES:
             x2 = rnd((M, C), dtype, shift=0.3)
@@ -575,27 +624,45 @@ def conv_bn_kernel_phase(torch, F, fcb, seed):
 
     # device times, bf16, at the timed shapes
     bf = torch.bfloat16
-    for kname in ("conv1x1_stats", "conv_kxk_stats"):
-        name, args, x, w, st = timed[kname]
-        xn, wn = x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1)
-        kh, _, cin, cout = w.shape
-        pad = (kh - 1) // 2  # symmetric at these stride-1 shapes
+    for name in TIMED_CONVS:
+        kname, args, x, w, st = timed.pop(name)
+        kh, kw, cin, cout = w.shape
         fn = fcb.conv1x1_stats if kname == "conv1x1_stats" else fcb.conv_kxk_stats
         ref = (fcb.conv1x1_stats_reference if kname == "conv1x1_stats"
                else fcb.conv_kxk_stats_reference)
+        n, h, wd, _ = x.shape
+        ho, ph, _ = fcb.same_pads(h, kh, st)
+        wo, pw, _ = fcb.same_pads(wd, kw, st)
+        if kh == 1:
+            # K4 takes the subsampled rows; the library gets the same input
+            xin = args[0].reshape(n, ho, wo, cin)
+            lib_x, lib_s, lib_p = xin.permute(0, 3, 1, 2), 1, 0
+            taps = ho * wo
+        else:
+            # cuDNN pads symmetrically: with SAME's low pad, a stride-2 conv
+            # whose odd pixel SAME puts on the high side loses its last
+            # output row and column there (111x111 of 112x112 at the stem)
+            xin = x
+            lib_x, lib_s, lib_p = x.permute(0, 3, 1, 2), st, (ph, pw)
+            taps = valid_taps(h, kh, st, ph) * valid_taps(wd, kw, st, pw)
+        wn = w.permute(3, 2, 0, 1)
         ms = {"kernel": device_ms(torch, lambda: fn(*args)),
               "plain": device_ms(torch, lambda: ref(*args), reps=3),
-              "library": device_ms(torch, lambda: F.conv2d(xn, wn, padding=pad))}
-        n, h, wd, _ = x.shape
-        taps = valid_taps(h, kh, st, pad) * valid_taps(wd, kh, st, pad)
+              "library": device_ms(torch, lambda: F.conv2d(lib_x, wn, stride=lib_s,
+                                                           padding=lib_p))}
         flops = 2.0 * n * taps * cin * cout
-        ho = -(-h // st)
-        nbytes = 2 * (x.numel() + w.numel() + n * ho * ho * cout) + 8 * cout
-        rows[kname].update(bound_and_times(ms, nbytes, flops, name))
-        print(f"  {kname} bf16 {name}: device ms kernel {ms['kernel']:.4f}, plain "
-              f"{ms['plain']:.4f}, library F.conv2d (cuDNN, the conv alone, no "
-              f"statistics) {ms['library']:.4f}; bound {rows[kname]['bound_ms']:.4f} ms "
-              f"by {rows[kname]['bound_by']}")
+        nbytes = 2 * (xin.numel() + w.numel() + n * ho * wo * cout) + 8 * cout
+        row = bound_and_times(ms, nbytes, flops, name)
+        row["variant"] = fcb.conv_variant((kh, kw), cin, cout, bf, *args[:2])
+        rows[kname].setdefault("shapes", []).append(row)
+        if len(rows[kname]["shapes"]) == 1:
+            rows[kname].update({k: v for k, v in row.items() if k != "variant"})
+        print(f"  {kname} bf16 {name} ({row['variant']['producer']}, BN "
+              f"{row['variant']['bn']}, {row['variant']['stages']} stages): device ms kernel "
+              f"{ms['kernel']:.4f}, plain {ms['plain']:.4f}, library F.conv2d (cuDNN, the conv "
+              f"alone, no statistics) {ms['library']:.4f}; bound {row['bound_ms']:.4f} ms by "
+              f"{row['bound_by']}; kernel / library {ms['kernel'] / ms['library']:.2f}")
+        del args, x, w, xin, lib_x, wn
     name, x2, g2, v = timed["bn"]
     M, C = x2.shape
     wb = [t.to(bf) for t in v]
@@ -1135,13 +1202,20 @@ def resnet_phase(torch, F, fcb, helpers, resnet50_network, DataSet,
                    for e in prof.key_averages()), key=lambda r: -r[1])
     busy_ms = sum(r[1] for r in rows)
     check(busy_ms > 0, "the profiler saw no device time in the ResNet step")
+    # K4 and K5 by their kernels' names (the shared column_sums second stage
+    # is not in them)
+    conv_ms = {k: sum(m for n, m, _ in rows if k in n) for k in ("conv1x1_stats",
+                                                                  "conv_kxk_stats")}
     st["profiled_step"] = {"seconds": wall1, "device_busy_s": busy_ms / 1e3,
                            "busy_share": busy_ms / 1e3 / wall1,
+                           "conv_kernels_ms": conv_ms,
+                           "conv_kernels_share": sum(conv_ms.values()) / busy_ms,
                            "top_device_ms": [{"name": n[:80], "ms": m, "calls": c}
                                              for n, m, c in rows[:15]]}
     print(f"  one step under the profiler: device busy {busy_ms:.2f} ms of "
-          f"{wall1 * 1e3:.2f} ms wall = busy share {busy_ms / 1e3 / wall1:.4f}; "
-          f"device time by kernel:")
+          f"{wall1 * 1e3:.2f} ms wall = busy share {busy_ms / 1e3 / wall1:.4f}; K4 "
+          f"{conv_ms['conv1x1_stats']:.2f} ms + K5 {conv_ms['conv_kxk_stats']:.2f} ms = "
+          f"{100 * sum(conv_ms.values()) / busy_ms:.1f}% of it; device time by kernel:")
     for n, m, c in rows[:15]:
         print(f"    {m:9.3f} ms {100 * m / busy_ms:5.1f}%  x{c:<5d} {n[:70]}")
     del net, data
@@ -1330,6 +1404,7 @@ def main(argv=None) -> int:
         for line in rec["log"].splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
+    hgmma = tensor_core_check(cuda_build)
 
     print(f"[2] kernels vs plain versions (tolerance: f32 {F32_ATOL} abs; "
           f"bf16 {BF16_ULP}*max(1, |plain|))")
@@ -1406,11 +1481,12 @@ def main(argv=None) -> int:
         "bound_by": r["bound_by"], "library_ms": r["library_ms"],
         "ms_source": r["ms_source"], "call_ms": r.get("call_ms"),
         "shape": r["shape"],
-        **{k: r[k] for k in ("stats_rel_err", "unrounded_gap_min", "library_both_passes_ms")
-           if k in r},
+        **{k: r[k] for k in ("stats_rel_err", "unrounded_gap_min", "library_both_passes_ms",
+                             "shapes") if k in r},
     } for name, r in rows.items()]
     record = {"card": card, "kind": kind, "seed": args.seed,
-              "kernels": kernels, "slice": sl, "serve": sv, "train": tr,
+              "kernels": kernels, "hgmma_per_kernel": hgmma, "slice": sl, "serve": sv,
+              "train": tr,
               "train_resnet": rn,
               "build": {k: v["seconds"] for k, v in info.items()},
               "seconds": time.perf_counter() - t_start}

@@ -10,35 +10,34 @@
 // Replaces: deeplearning4j_tpu/ops/pallas_conv_bn.py `_ck_stats_call` ->
 // `_ck_stats_kernel` (K5): 3x3/s1, 3x3/s2 and the 7x7/s2 stem.
 //
-// What bounds it on an H100: the product. The 3x3 64 -> 64 conv on 56x56
-// at batch 128 moves about 103 MB in bf16 (0.031 ms at 3.35 TB/s) and
-// does 29.6 GFLOP (0.030 ms on the bf16 tensor cores, 0.44 ms at the f32
-// rate of 67 TFLOP/s), so on the tensor cores the bytes would bound it, by
-// a hair. Like K4 this first kernel uses f32 FMAs on the CUDA cores, so
-// the f32 rate bounds it; tensor-core tiles are later work.
+// What bounds it on an H100: bytes, once the product is on the tensor
+// cores. The 3x3 64 -> 64 conv on 56x56 at batch 128 moves about 103 MB in
+// bf16 (0.031 ms at 3.35 TB/s) and does 29.6 GFLOP (0.030 ms on the bf16
+// tensor cores): bytes by a hair. Gathered for nine taps, A crosses from
+// L2 to shared memory nine times, so that traffic, not HBM, is the
+// practical floor of an implicit product.
 //
-// Design: an implicit product. Output pixels are the rows (M = N*Ho*Wo),
-// the taps times input channels the depth (K = kh*kw*Cin, in HWIO order,
-// so w is already the [K, Cout] operand), and the operand tile of x is
-// gathered straight from the image with the halo clipped: a tap outside
-// the image loads 0, so no padded copy of x exists anywhere. Each block
-// decodes its 128 rows' (image, top-left corner) once into shared memory.
-// The stem's Cin = 3 (K = 147) needs nothing special: depth slices are
-// masked at K. The product engine and the statistics epilogue are K4's
-// (conv_bn.cuh), with the same fixed-order two-stage column sums.
+// Design (bf16): an implicit product on the tensor-core engine of
+// conv_bn.cuh. Each block decodes its rows' (image, top-left corner) once.
+// A 64-deep slice is one tap x 64 channels where Cin % 64 == 0, so the tap
+// and channel offset are decoded once per slice and a row's slice is 8
+// contiguous 16-byte chunks of one pixel, copied by cp.async with zero
+// fill for a tap outside the image (no padded copy of x exists anywhere);
+// where Cin % 8 == 0 but not % 64 a slice may straddle taps, and each
+// 16-byte chunk column decodes its own. Where Cin % 8 != 0 (the stem's
+// Cin = 3, K = 147 padded to 192) a scalar gather writes the same swizzled
+// slices, so the stem runs on the tensor cores too. The statistics
+// epilogue and the fixed-order two-stage column sums are K4's.
+// f32 keeps the first engine (f32 FMAs on the CUDA cores; conv_bn.cuh).
 #include "conv_bn.cuh"
 
 namespace {
 
 using namespace dl4j::convbn;
+using namespace dl4j::convbn::simt;
 
-struct Geom {
-  int H, W, Cin, Ho, Wo, kh, kw, sh, sw, ph, pw;
-};
-
-template <typename T>
-__global__ void __launch_bounds__(NT) conv_kxk_stats_kernel(
-    const T* __restrict__ x, const T* __restrict__ w, T* __restrict__ y,
+__global__ void __launch_bounds__(NT) conv_kxk_stats_f32_kernel(
+    const float* __restrict__ x, const float* __restrict__ w, float* __restrict__ y,
     float* __restrict__ part1, float* __restrict__ part2, Geom g, int M, int K, int N) {
   __shared__ __align__(16) float As[BK * AS_LD];
   __shared__ __align__(16) float Bs[BK][BN];
@@ -77,52 +76,55 @@ __global__ void __launch_bounds__(NT) conv_kxk_stats_kernel(
         const int ci = k % g.Cin, tap = k / g.Cin;
         const int ih = row_ih[mm] + tap / g.kw, iw = row_iw[mm] + tap % g.kw;
         if (ih >= 0 && ih < g.H && iw >= 0 && iw < g.W)
-          v = dl4j::to_f32(x[row_base[mm] + ((long long)ih * g.W + iw) * g.Cin + ci]);
+          v = x[row_base[mm] + ((long long)ih * g.W + iw) * g.Cin + ci];
       }
       As[kk * AS_LD + mm] = v;
     }
-    load_w_slice<T>(Bs, w, k0, n0, K, N);
+    load_w_slice<float>(Bs, w, k0, n0, K, N);
     __syncthreads();
     mac_slice(t, As, Bs, tx, ty);
     __syncthreads();
   }
-  store_with_stats<T>(t, y, part1, part2, As, m0, n0, M, N, tx, ty);
+  store_with_stats<float>(t, y, part1, part2, As, m0, n0, M, N, tx, ty);
 }
 
-template <typename T>
-int launch(const void* x, const void* w, void* y, void* s1, void* s2, void* part,
-           const Geom& g, int Nimg, int Cout, cudaStream_t stream) {
-  const int M = Nimg * g.Ho * g.Wo;
-  const int K = g.kh * g.kw * g.Cin;
-  const int P = (M + BM - 1) / BM;
-  float* part1 = static_cast<float*>(part);
-  float* part2 = part1 + (size_t)P * Cout;
-  dim3 grid(P, (Cout + BN - 1) / BN);
-  conv_kxk_stats_kernel<T><<<grid, NT, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(w), static_cast<T*>(y), part1,
-      part2, g, M, K, Cout);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
-  return launch_column_sums(part1, part2, static_cast<float*>(s1),
-                            static_cast<float*>(s2), P, Cout, stream);
+template <int BN, bool GATHER>
+__global__ void __launch_bounds__(tc::NT, 2) conv_kxk_stats_bf16_kernel(
+    const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ w,
+    __nv_bfloat16* __restrict__ y, float* __restrict__ part1, float* __restrict__ part2, Geom g,
+    int M, int K, int N, int stages) {
+  tc::conv_tile<BN, GATHER, false>(x, w, y, part1, part2, g, M, K, N, stages);
 }
+
+struct Bf16Kernels {
+  template <int BN, bool GATHER>
+  static tc::KernelFn kernel() {
+    return conv_kxk_stats_bf16_kernel<BN, GATHER>;
+  }
+};
 
 }  // namespace
 
-// Rows per output tile: the wrapper sizes the partial-sum scratch
-// [2, ceil(N*Ho*Wo / rows), Cout] f32 from it.
-extern "C" int conv_kxk_stats_tile_rows() { return BM; }
-
 // x [Nimg, H, W, Cin], w [kh, kw, Cin, Cout], y [Nimg, Ho, Wo, Cout];
-// (ph, pw) are the low-side SAME pads. dtype: 0 = f32, 1 = bf16.
+// (ph, pw) are the low-side SAME pads. dtype: 0 = f32, 1 = bf16. variant,
+// bn, stages and tile_rows as for conv1x1_stats (conv1x1_stats.cu); the
+// partial-sum scratch is [2, ceil(Nimg*Ho*Wo / tile_rows), Cout] f32.
 // Returns cudaGetLastError() after the launches.
 extern "C" int conv_kxk_stats(int dtype, const void* x, const void* w, void* y, void* s1,
                               void* s2, void* part, int Nimg, int H, int W, int Cin,
                               int kh, int kw, int Cout, int Ho, int Wo, int sh, int sw,
-                              int ph, int pw, void* stream) {
+                              int ph, int pw, int variant, int bn, int stages, int tile_rows,
+                              void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Geom g{H, W, Cin, Ho, Wo, kh, kw, sh, sw, ph, pw};
-  if (dtype == 0) return launch<float>(x, w, y, s1, s2, part, g, Nimg, Cout, s);
-  if (dtype == 1) return launch<__nv_bfloat16>(x, w, y, s1, s2, part, g, Nimg, Cout, s);
-  return cudaErrorInvalidValue;
+  const int M = Nimg * Ho * Wo, K = kh * kw * Cin;
+  auto simt_launch = [&](float* part1, float* part2) {
+    dim3 grid((M + BM - 1) / BM, (Cout + BN - 1) / BN);
+    conv_kxk_stats_f32_kernel<<<grid, NT, 0, s>>>(
+        static_cast<const float*>(x), static_cast<const float*>(w), static_cast<float*>(y),
+        part1, part2, g, M, K, Cout);
+    return cudaGetLastError();
+  };
+  return launch_conv_stats<Bf16Kernels>(dtype, variant, bn, stages, tile_rows, simt_launch, x,
+                                        w, y, s1, s2, part, g, M, K, Cout, s);
 }

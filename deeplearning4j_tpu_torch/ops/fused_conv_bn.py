@@ -40,7 +40,6 @@ rows for the BN passes. Statistics are f32 (f64 for f64 tensors).
 
 from __future__ import annotations
 
-import ctypes
 import threading
 from collections import deque
 from typing import Dict
@@ -257,18 +256,54 @@ def _launch(lib_name, fn_name, n_ptr, n_int, dev, ptrs, ints, what):
     return lib
 
 
-def _tile_rows(lib_name: str) -> int:
-    """Rows per output tile of a conv kernel, which sizes its partial-sum
-    scratch."""
-    fn = getattr(cuda_build.library(lib_name), f"{lib_name}_tile_rows")
-    fn.argtypes, fn.restype = [], ctypes.c_int
-    return fn()
-
-
 def _vec_ok(C: int, *tensors) -> int:
     """1 when the 8-wide vector path applies: C % 8 == 0 and every tensor
     16-byte aligned."""
     return int(C % 8 == 0 and all(t.data_ptr() % 16 == 0 for t in tensors))
+
+
+# The conv kernels' engines (csrc/conv_bn.cuh). Every tile has TILE_M rows
+# (the partial-sum scratch holds one row per tile); the tensor-core engine
+# keeps at most MAX_STAGES[bn] 64-deep bf16 slices of A [TILE_M, 64] and
+# B [64, bn] in its ring, sized for two resident blocks per SM.
+TILE_M, SLICE_K = 128, 64
+_VARIANT_CODES = {"simt": 0, "vector": 1, "gather": 2}
+MAX_STAGES = {64: 4, 128: 3}
+SMEM_LIMIT = 232448  # bytes of shared memory one block may use on an H100
+
+
+def conv_variant(kernel, cin: int, cout: int, dtype, *tensors) -> dict:
+    """Which engine and tile K4 (kernel (1, 1)) or K5 runs for a conv:
+
+    - "simt": f32, the f32-FMA engine (TF32 tensor cores would break the
+      f32 holds against the plain versions), 128 x 64 tiles;
+    - "vector": bf16 with Cin % 8 == 0, Cout % 8 == 0 and every given
+      tensor 16-byte aligned: tensor-core tiles fed by 16-byte cp.async;
+    - "gather": any other bf16 conv (the stem's Cin = 3): the same tiles
+      fed by a scalar gather.
+
+    Returns {"producer", "bn" (tile columns: 64 where Cout <= 64, else
+    128), "stages" (ring slices: min(MAX_STAGES[bn], ceil(K / 64)); 0 for
+    simt), "tile_rows", "smem_bytes" (shared memory per block)}."""
+    kh, kw = (int(k) for k in kernel)
+    if dtype == torch.float32:
+        smem = (16 * (TILE_M + 4) + 16 * 64) * 4 + (0 if (kh, kw) == (1, 1) else TILE_M * 16)
+        return {"producer": "simt", "bn": 64, "stages": 0, "tile_rows": TILE_M,
+                "smem_bytes": smem}
+    if dtype != torch.bfloat16:
+        raise TypeError(f"no conv kernel for {dtype}")
+    bn = 64 if cout <= 64 else 128
+    vec = (cin % 8 == 0 and cout % 8 == 0
+           and all(t.data_ptr() % 16 == 0 for t in tensors))
+    stages = min(MAX_STAGES[bn], -(-(kh * kw * cin) // SLICE_K))
+    # the ring (+1 KB to align it) and the epilogue's per-warp column sums
+    smem = stages * (TILE_M + bn) * SLICE_K * 2 + 1024 + 2 * 8 * bn * 4
+    return {"producer": "vector" if vec else "gather", "bn": bn, "stages": stages,
+            "tile_rows": TILE_M, "smem_bytes": smem}
+
+
+def _variant_ints(v: dict) -> list:
+    return [_VARIANT_CODES[v["producer"]], v["bn"], v["stages"], v["tile_rows"]]
 
 
 def conv1x1_stats(x2, w2):
@@ -286,12 +321,12 @@ def conv1x1_stats(x2, w2):
         return conv1x1_stats_reference(x2, w2)
     cuda_build.require_hopper(x2.device)
     dev, f32 = x2.device, torch.float32
-    rows = _tile_rows("conv1x1_stats")
+    v = conv_variant((1, 1), K, N, x2.dtype, x2, w2)
     y = torch.empty((M, N), dtype=x2.dtype, device=dev)
     s1, s2 = torch.empty(N, dtype=f32, device=dev), torch.empty(N, dtype=f32, device=dev)
-    part = torch.empty((2, -(-M // rows), N), dtype=f32, device=dev)
-    _launch("conv1x1_stats", "conv1x1_stats", 6, 3, dev,
-            [_DTYPE_CODES[x2.dtype], x2, w2, y, s1, s2, part], [M, K, N],
+    part = torch.empty((2, -(-M // v["tile_rows"]), N), dtype=f32, device=dev)
+    _launch("conv1x1_stats", "conv1x1_stats", 6, 7, dev,
+            [_DTYPE_CODES[x2.dtype], x2, w2, y, s1, s2, part], [M, K, N, *_variant_ints(v)],
             "conv1x1_stats launch")
     return y, s1, s2
 
@@ -314,13 +349,14 @@ def conv_kxk_stats(x, w, strides):
     Ho, ph, _ = same_pads(H, kh, sh)
     Wo, pw, _ = same_pads(W, kw, sw)
     dev, f32 = x.device, torch.float32
-    rows = _tile_rows("conv_kxk_stats")
+    v = conv_variant((kh, kw), Cin, Cout, x.dtype, x, w)
     y = torch.empty((Nimg, Ho, Wo, Cout), dtype=x.dtype, device=dev)
     s1, s2 = torch.empty(Cout, dtype=f32, device=dev), torch.empty(Cout, dtype=f32, device=dev)
-    part = torch.empty((2, -(-(Nimg * Ho * Wo) // rows), Cout), dtype=f32, device=dev)
-    _launch("conv_kxk_stats", "conv_kxk_stats", 6, 13, dev,
+    part = torch.empty((2, -(-(Nimg * Ho * Wo) // v["tile_rows"]), Cout), dtype=f32,
+                       device=dev)
+    _launch("conv_kxk_stats", "conv_kxk_stats", 6, 17, dev,
             [_DTYPE_CODES[x.dtype], x, w, y, s1, s2, part],
-            [Nimg, H, W, Cin, kh, kw, Cout, Ho, Wo, sh, sw, ph, pw],
+            [Nimg, H, W, Cin, kh, kw, Cout, Ho, Wo, sh, sw, ph, pw, *_variant_ints(v)],
             "conv_kxk_stats launch")
     return y, s1, s2
 

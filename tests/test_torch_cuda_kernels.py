@@ -182,9 +182,17 @@ def _conv_close(outs, refs, dtype, K, M):
     _sums_close((s1, s2), (yd, yd * yd), M)
 
 
+# 1x1 shapes: each reaches one producer and tile edge of the bf16 engine
+# (csrc/conv_bn.cuh): one 128 x 64 and one 128 x 128 tile (the wgmma
+# descriptors on a single slice), M not a multiple of 128, a 72-wide last
+# column tile, the gather producer with ragged N, and deep K (8 slices
+# through a 3-stage ring).
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("M,K,N", [(4096, 64, 256), (1003, 37, 70)], ids=["small", "ragged"])
+@pytest.mark.parametrize("M,K,N", [(4096, 64, 256), (1003, 37, 70), (128, 64, 64), (128, 64, 128),
+                                   (221, 64, 64), (300, 64, 200), (392, 512, 2048)],
+                         ids=["small", "ragged", "tile64", "tile128", "ragged_m",
+                              "ragged_tile", "deep_k"])
 def test_conv1x1_stats_matches_plain_version_and_is_deterministic(dtype, M, K, N):
     _require_hopper()
     dt = getattr(torch, dtype)
@@ -200,22 +208,32 @@ def test_conv1x1_stats_matches_plain_version_and_is_deterministic(dtype, M, K, N
         assert torch.equal(a, b)
 
 
+# k x k shapes (n, H, W, Cin, Cout, k, stride): the gather producer (Cin
+# 16 is vector; 19, 3, 5, 37 gather), a 64-deep slice straddling taps (Cin
+# 24), the vector producer at stride 2 on odd H and W (the high-side pad),
+# the stem 7x7/2 with Cin 3 on odd H and W, ragged N (33, 7, 70).
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("n,hw,cin,cout,k,s", [(2, 14, 16, 24, 3, 1), (2, 11, 19, 33, 3, 2),
-                                               (2, 17, 3, 10, 7, 2), (3, 9, 5, 7, 3, 1)],
-                         ids=["3x3", "3x3s2_ragged", "stem_odd", "ragged"])
-def test_conv_kxk_stats_matches_plain_version_and_is_deterministic(dtype, n, hw, cin, cout, k, s):
+@pytest.mark.parametrize("n,h,wd,cin,cout,k,s", [
+    (2, 14, 14, 16, 24, 3, 1), (2, 11, 11, 19, 33, 3, 2), (2, 17, 17, 3, 10, 7, 2),
+    (3, 9, 9, 5, 7, 3, 1), (3, 13, 10, 24, 40, 3, 1), (2, 15, 17, 64, 128, 3, 2),
+    (2, 33, 29, 3, 64, 7, 2), (3, 9, 9, 37, 70, 3, 1), (2, 14, 14, 64, 64, 3, 1)],
+    ids=["3x3", "3x3s2_ragged", "stem_odd", "ragged", "straddle", "3x3s2_odd_vector",
+         "stem_small", "gather_ragged_n", "3x3_64"])
+def test_conv_kxk_stats_matches_plain_version_and_is_deterministic(dtype, n, h, wd, cin, cout,
+                                                                   k, s):
     _require_hopper()
     dt = getattr(torch, dtype)
     rng = np.random.default_rng(21)
-    x, w = _t(rng, (n, hw, hw, cin), dt), _t(rng, (k, k, cin, cout), dt, scale=(k * k * cin) ** -0.5)
+    x, w = _t(rng, (n, h, wd, cin), dt), _t(rng, (k, k, cin, cout), dt, scale=(k * k * cin) ** -0.5)
+    before = fcb.launch_counts()["conv_kxk_stats"]
     outs = fcb.conv_kxk_stats(x, w, (s, s))
     again = fcb.conv_kxk_stats(x, w, (s, s))
     torch.cuda.synchronize()
-    ho = -(-hw // s)
-    assert tuple(outs[0].shape) == (n, ho, ho, cout)
-    _conv_close(outs, fcb.conv_kxk_stats_reference(x, w, (s, s)), dt, k * k * cin, n * ho * ho)
+    assert fcb.launch_counts()["conv_kxk_stats"] == before + 2
+    ho, wo = -(-h // s), -(-wd // s)
+    assert tuple(outs[0].shape) == (n, ho, wo, cout)
+    _conv_close(outs, fcb.conv_kxk_stats_reference(x, w, (s, s)), dt, k * k * cin, n * ho * wo)
     for a, b in zip(outs, again):
         assert torch.equal(a, b)
 
