@@ -8,14 +8,17 @@ result lines:
 
 1. Device: the card's name and power limit (nvidia-smi), the build of
    every kernel from `deeplearning4j_tpu_torch/csrc/` (one nvcc per source,
-   in parallel), and the HGMMA (wgmma) instructions in the SASS of every
+   in parallel) with each kernel's registers, shared memory and spills
+   (ptxas -v), and the HGMMA (wgmma) instructions in the SASS of every
    bf16 conv kernel (cuobjdump).
 2. Kernels: each hand-written kernel against its plain PyTorch version on
    the card, at the shapes the main path gives it, in f32 and bf16. The
-   LSTM kernels with and without peepholes (the backward kernel at the
-   training segment and at a ragged shape, on the forward kernel's
-   stashes); the conv/BN kernels K4-K8 at the largest ResNet-50 instance
-   of every conv family at batch 128 and of the BN passes, plus small
+   LSTM kernels with and without peepholes; the sequence kernels K1 and
+   K3 (K3 on the forward kernel's stashes) on both variants, cluster and
+   grid (see FWD_SHAPES, BWD_SHAPES), with two launches bit-equal, and
+   their launch geometry; the conv/BN kernels K4-K8 at the largest
+   ResNet-50 instance of every conv family at batch 128 and of the BN
+   passes, plus small
    shapes that reach each producer and tile edge of the conv kernels (see
    CONV_CASES) and a ragged BN shape; the conv and BN-backward statistics
    against the exact sums of the values the kernel stored (in bf16 that
@@ -26,7 +29,8 @@ result lines:
    torch.batch_norm_backward_reduce and torch.batch_norm_backward_elemt),
    beside the roofline bound, for the conv kernels at three ResNet-50
    shapes each (TIMED_CONVS); for the LSTM kernels the wall time per
-   back-to-back call by CUDA events beside them.
+   back-to-back call by CUDA events beside them, and for K1 and K3 both
+   variants' times and the microseconds per step.
 3. Slice: full-width char-LSTM (vocab 77, hidden 200, 2 GravesLSTM
    layers, f32, weights from --seed): `output()` on a [32, 100, 77]
    one-hot batch equals the same net with the helpers switched off, and
@@ -43,7 +47,8 @@ result lines:
    lower), two launches of the forward and of the backward kernel per
    step; then step p50/p99 over the same batches with the device synced
    at each step, and the device-busy share of one fit batch under
-   torch.profiler. Over the 20 segments of one fit batch, in lockstep, the
+   torch.profiler, whose K1 and K3 must be the cluster kernels. Over the
+   20 segments of one fit batch, in lockstep, the
    helpers-on step holds to the helpers-off step (the builtin loop plus
    autograd) in gradients, score, and the parameters and RMSProp state
    it leaves; left to run free, their score drift stays within a factor
@@ -171,6 +176,13 @@ def device_ms(torch, fn, reps=20):
     activity on, key_averages() also gives each aten op (F.conv2d, the
     plain versions' ops) its kernels' time as its own, and the sum counts
     those kernels twice; a kernel launched through ctypes has no op."""
+    total = sum(device_by_kernel(torch, fn, reps).values())
+    return total if total > 0 else None
+
+
+def device_by_kernel(torch, fn, reps=20):
+    """device_ms() by kernel name, with the template arguments and
+    parameters cut."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -179,9 +191,14 @@ def device_ms(torch, fn, reps=20):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    total_us = sum(getattr(e, "self_device_time_total", 0.0)
-                   for e in prof.key_averages())
-    return total_us / 1e3 / reps if total_us > 0 else None
+    out = {}
+    for e in prof.key_averages():
+        t = getattr(e, "self_device_time_total", 0.0)
+        if t > 0:
+            name = e.key.replace("void ", "").replace("(anonymous namespace)::", "")
+            name = name.split("<")[0].split("(")[0]
+            out[name] = out.get(name, 0.0) + t / 1e3 / reps
+    return out
 
 
 def bound(nbytes: float, flops: float, peak: float = F32_FLOP_PER_S) -> tuple:
@@ -190,6 +207,36 @@ def bound(nbytes: float, flops: float, peak: float = F32_FLOP_PER_S) -> tuple:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def kernel_name(ptxas_line: str) -> str:
+    """The kernel's name in a ptxas "Compiling entry function '_ZN...'"
+    line: the last identifier of the mangled nested name, with its
+    template arguments where they are f32, bf16, ints or bools."""
+    s = ptxas_line.split("'")[1] if "'" in ptxas_line else ptxas_line
+    if not s.startswith("_ZN"):
+        return s[:60]
+    s, name = s[3:], ""
+    while s[:1].isdigit():
+        digits = len(s) - len(s.lstrip("0123456789"))
+        n = int(s[:digits])
+        name, s = s[digits:digits + n], s[digits + n:]
+    args = []
+    if s.startswith("I"):
+        s = s[1:]
+        while s and s[0] != "E":
+            if s.startswith("f"):
+                args.append("f32")
+                s = s[1:]
+            elif s.startswith("13__nv_bfloat16"):
+                args.append("bf16")
+                s = s[15:]
+            elif s.startswith("L") and "E" in s:  # a literal: Li4E, Lb0E
+                lit, s = s[1:s.index("E")], s[s.index("E") + 1:]
+                args.append({"b0": "false", "b1": "true"}.get(lit, lit[1:]))
+            else:
+                break
+    return name + (f"<{', '.join(args)}>" if args else "")
 
 
 def tensor_core_check(cuda_build) -> dict:
@@ -250,85 +297,185 @@ def compare(torch, outs, refs, dtype):
 
 
 def kernel_phase(torch, fl, seed):
+    """K2, the decode step, at char-LSTM's width and 1, 8, 64 slots."""
     gen = torch.Generator().manual_seed(seed)
     H = HIDDEN
-    specs = {
-        "lstm_step": dict(fn=fl.lstm_step, ref=fl.lstm_step_reference,
-                          shapes=[(None, b) for b in (1, 8, 64)],
-                          timed=(None, 8)),
-        "lstm_sequence": dict(fn=fl.lstm_sequence_forward,
-                              ref=fl.lstm_sequence_forward_reference,
-                              shapes=[(100, b) for b in (1, 8, 32)],
-                              timed=(100, 32)),
-    }
-    rows = {}
-    for name, sp in specs.items():
-        errs = {torch.float32: 0.0, torch.bfloat16: 0.0}
-        for dtype in (torch.float32, torch.bfloat16):
-            for T, B in sp["shapes"]:
+    errs = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    for dtype in (torch.float32, torch.bfloat16):
+        for B in (1, 8, 64):
+            for peep in (True, False):
+                a = kernel_inputs(torch, gen, dtype, None, B, H, peep)
+                outs = fl.lstm_step(*a)
+                torch.cuda.synchronize()
+                refs = fl.lstm_step_reference(*a)
+                err, rel, ok = compare(torch, outs, refs, dtype)
+                print(f"  lstm_step {str(dtype)[6:]} B={B} peepholes={peep}: max abs "
+                      f"{err:.3e} rel {rel:.3e} {'ok' if ok else 'OUT OF TOLERANCE'}")
+                check(ok, f"lstm_step disagrees with its plain version "
+                          f"({dtype}, B={B}, peepholes={peep})")
+                errs[dtype] = max(errs[dtype], err)
+    B = 8
+    a = kernel_inputs(torch, gen, torch.float32, None, B, H, True)
+    call = {"kernel": cuda_ms(torch, lambda: fl.lstm_step(*a)),
+            "plain": cuda_ms(torch, lambda: fl.lstm_step_reference(*a), reps=3)}
+    dev = {"kernel": device_ms(torch, lambda: fl.lstm_step(*a)),
+           "plain": device_ms(torch, lambda: fl.lstm_step_reference(*a), reps=3)}
+    nin = sum(t.numel() for t in a)
+    b_ms, b_by = bound(4 * (nin + 2 * B * H), 2.0 * B * H * 4 * H)
+    # the library yardstick computes the same function without
+    # peepholes: input weights = identity on the 4H projections
+    z = [torch.zeros(H, device="cuda") for _ in range(3)]
+    eye = torch.eye(4 * H, device="cuda")
+    rwT = a[1].t().contiguous()
+    zb = torch.zeros(4 * H, device="cuda")
+
+    def lib():
+        return torch.lstm_cell(a[0], (a[5], a[6]), eye, rwT, zb, zb)[0]
+
+    ker_out = fl.lstm_step(a[0], a[1], *z, a[5], a[6])[0]
+    call["library"] = cuda_ms(torch, lib)
+    dev["library"] = device_ms(torch, lib)
+    lib_diff = (lib() - ker_out).abs().max().item()
+    ms = {k: dev[k] if dev[k] is not None else call[k] for k in call}
+    source = "profiler" if dev["kernel"] is not None else "events"
+    print(f"  lstm_step B={B} f32: device time per call ({source}) kernel "
+          f"{ms['kernel']:.5f} ms, plain {ms['plain']:.5f} ms, library "
+          f"{ms['library']:.5f} ms; bound {b_ms:.5f} ms by {b_by}; wall time per "
+          f"back-to-back call (events) kernel {call['kernel']:.5f} ms, plain "
+          f"{call['plain']:.5f} ms, library {call['library']:.5f} ms; library vs "
+          f"kernel without peepholes: max abs {lib_diff:.2e}")
+    return {"lstm_step": dict(
+        err_f32=errs[torch.float32], err_bf16=errs[torch.bfloat16], ms=ms["kernel"],
+        plain_ms=ms["plain"], library_ms=ms["library"], ms_source=source,
+        call_ms=call, bound_ms=b_ms, bound_by=b_by, shape={"B": B, "H": H})}
+
+
+# K1 and K3 are held at these (T, B, H), on every variant that takes the
+# shape (fused_lstm.lstm_variant): char-LSTM's widths at output()'s T=100
+# and training's T=50, batches 1, 8 and 32 (clusters of 4 rows); a ragged
+# shape (B not a multiple of the cluster's rows, H not a multiple of its 8
+# CTAs); a short B=1 sequence; B=70, clusters of 8 rows, the last one
+# ragged; and H=300, past the cluster variant's H <= 256, which only the
+# grid variant takes.
+FWD_SHAPES = ((100, 1, 200), (100, 8, 200), (100, 32, 200), (50, 32, 200),
+              (7, 5, 20), (3, 1, 200), (10, 70, 200), (20, 32, 300))
+BWD_SHAPES = ((50, 32, 200), (100, 32, 200), (7, 5, 20), (3, 1, 200), (10, 70, 200),
+              (20, 32, 300))
+
+
+def lstm_variants(torch, fl, B, H, backward):
+    """The sequence-kernel variants that take (B, H): both where the
+    cluster variant does, the grid variant alone past it."""
+    out = []
+    for v in fl.VARIANTS:
+        try:
+            fl.lstm_variant(B, H, torch.float32, backward=backward, variant=v)
+            out.append(v)
+        except ValueError:
+            pass
+    return out
+
+
+def geometry(torch, fl, B, H, backward):
+    """Each variant's launch at (B, H), for the log and the record."""
+    geo = {}
+    for v in lstm_variants(torch, fl, B, H, backward):
+        g = fl.lstm_variant(B, H, torch.float32, backward=backward, variant=v)
+        if v == "cluster":
+            g["max_active_clusters"] = fl.cluster_occupancy(H, g["R"], backward=backward)
+            desc = (f"{g['ctas'] // g['C']} clusters x {g['C']} CTAs = {g['ctas']} CTAs "
+                    f"(at most {g['ctas']} SMs), {g['max_active_clusters']} clusters "
+                    f"fit at once (cudaOccupancyMaxActiveClusters)")
+        else:
+            desc = f"one cooperative grid of {g['ctas']} blocks"
+        print(f"    {v}: {desc}; R={g['R']} rows, U={g['U']} units a CTA, "
+              f"{g['smem_bytes']} bytes of shared memory a CTA")
+        geo[v] = g
+    return geo
+
+
+def sequence_phase(torch, fl, seed):
+    """K1 at FWD_SHAPES on each variant, f32 and bf16, with and without
+    peepholes: against its plain version, and two launches bit-equal;
+    then both variants' times at T=100, B=32 beside cuDNN's nn.LSTM."""
+    gen = torch.Generator().manual_seed(seed)
+    errs = {(v, d): 0.0 for v in fl.VARIANTS for d in (torch.float32, torch.bfloat16)}
+    for dtype in (torch.float32, torch.bfloat16):
+        for T, B, H in FWD_SHAPES:
+            for v in lstm_variants(torch, fl, B, H, False):
                 for peep in (True, False):
                     a = kernel_inputs(torch, gen, dtype, T, B, H, peep)
-                    outs = sp["fn"](*a)
+                    outs = fl.lstm_sequence_forward(*a, variant=v)
+                    again = fl.lstm_sequence_forward(*a, variant=v)
                     torch.cuda.synchronize()
-                    refs = sp["ref"](*a)
+                    refs = fl.lstm_sequence_forward_reference(*a)
                     err, rel, ok = compare(torch, outs, refs, dtype)
-                    print(f"  {name} {str(dtype)[6:]} T={T} B={B} "
-                          f"peepholes={peep}: max abs {err:.3e} rel {rel:.3e}"
-                          f" {'ok' if ok else 'OUT OF TOLERANCE'}")
-                    check(ok, f"{name} disagrees with its plain version "
-                              f"({dtype}, T={T}, B={B}, peepholes={peep})")
-                    errs[dtype] = max(errs[dtype], err)
-        T, B = sp["timed"]
-        a = kernel_inputs(torch, gen, torch.float32, T, B, H, True)
-        call = {"kernel": cuda_ms(torch, lambda: sp["fn"](*a)),
-                "plain": cuda_ms(torch, lambda: sp["ref"](*a), reps=3)}
-        dev = {"kernel": device_ms(torch, lambda: sp["fn"](*a)),
-               "plain": device_ms(torch, lambda: sp["ref"](*a), reps=3)}
-        steps = 1 if T is None else T
-        nin = sum(t.numel() for t in a)
-        nout = (2 * B * H) if T is None else (3 * T * B * H + T * B * 4 * H + B * H)
-        b_ms, b_by = bound(4 * (nin + nout), 2.0 * steps * B * H * 4 * H)
-        # the library yardstick computes the same function without
-        # peepholes: input weights = identity on the 4H projections
-        z = [torch.zeros(H, device="cuda") for _ in range(3)]
-        eye = torch.eye(4 * H, device="cuda")
-        rwT = a[1].t().contiguous()
-        zb = torch.zeros(4 * H, device="cuda")
-        if T is None:
-            def lib():
-                return torch.lstm_cell(a[0], (a[5], a[6]), eye, rwT, zb, zb)[0]
-            ker_out = fl.lstm_step(a[0], a[1], *z, a[5], a[6])[0]
-        else:
-            lstm = torch.nn.LSTM(4 * H, H).cuda()
-            with torch.no_grad():
-                lstm.weight_ih_l0.copy_(eye)
-                lstm.weight_hh_l0.copy_(rwT)
-                lstm.bias_ih_l0.zero_()
-                lstm.bias_hh_l0.zero_()
-            hc = (a[5][None], a[6][None])
+                    same = all(torch.equal(x, y) for x, y in zip(outs, again))
+                    print(f"  lstm_sequence {v} {str(dtype)[6:]} T={T} B={B} H={H} "
+                          f"peepholes={peep}: max abs {err:.3e} rel {rel:.3e} "
+                          f"{'ok' if ok else 'OUT OF TOLERANCE'}; two launches "
+                          f"{'bit-equal' if same else 'DIFFER'}")
+                    check(ok, f"lstm_sequence ({v}) disagrees with its plain version "
+                              f"({dtype}, T={T}, B={B}, H={H}, peepholes={peep})")
+                    check(same, f"lstm_sequence ({v}): two launches differ "
+                                f"({dtype}, T={T}, B={B}, H={H})")
+                    errs[v, dtype] = max(errs[v, dtype], err)
+    T, B, H = 100, 32, HIDDEN
+    print(f"  lstm_sequence launch at T={T} B={B} H={H}:")
+    geo = geometry(torch, fl, B, H, False)
+    a = kernel_inputs(torch, gen, torch.float32, T, B, H, True)
+    times = {}
+    for v in fl.VARIANTS:
+        times[v] = {"call": cuda_ms(torch, lambda: fl.lstm_sequence_forward(*a, variant=v)),
+                    "device": device_by_kernel(torch, lambda: fl.lstm_sequence_forward(
+                        *a, variant=v))}
+    call = {"kernel": times["cluster"]["call"], "grid": times["grid"]["call"],
+            "plain": cuda_ms(torch, lambda: fl.lstm_sequence_forward_reference(*a), reps=3)}
+    dev = {"kernel": sum(times["cluster"]["device"].values()) or None,
+           "grid": sum(times["grid"]["device"].values()) or None,
+           "plain": device_ms(torch, lambda: fl.lstm_sequence_forward_reference(*a), reps=3)}
+    nin = sum(t.numel() for t in a)
+    nout = 3 * T * B * H + T * B * 4 * H + B * H
+    b_ms, b_by = bound(4 * (nin + nout), 2.0 * T * B * H * 4 * H)
+    # the library yardstick computes the same function without peepholes
+    # (input weights = identity on the 4H projections: cuDNN also runs that
+    # [T*B, 4H] x [4H, 4H] product, ~4.1 GFLOP at T=100, which the kernel
+    # leaves to the layer outside)
+    z = [torch.zeros(H, device="cuda") for _ in range(3)]
+    lstm = torch.nn.LSTM(4 * H, H).cuda()
+    with torch.no_grad():
+        lstm.weight_ih_l0.copy_(torch.eye(4 * H, device="cuda"))
+        lstm.weight_hh_l0.copy_(a[1].t())
+        lstm.bias_ih_l0.zero_()
+        lstm.bias_hh_l0.zero_()
+    hc = (a[5][None], a[6][None])
 
-            def lib():
-                with torch.no_grad():
-                    return lstm(a[0], hc)[0]
-            ker_out = fl.lstm_sequence_forward(a[0], a[1], *z, a[5], a[6])[0]
-        call["library"] = cuda_ms(torch, lib)
-        dev["library"] = device_ms(torch, lib)
-        lib_diff = (lib() - ker_out).abs().max().item()
-        ms = {k: dev[k] if dev[k] is not None else call[k] for k in call}
-        source = "profiler" if dev["kernel"] is not None else "events"
-        print(f"  {name} T={T} B={B} f32: device time per call ({source}) "
-              f"kernel {ms['kernel']:.5f} ms, plain {ms['plain']:.5f} ms, "
-              f"library {ms['library']:.5f} ms; bound {b_ms:.5f} ms by {b_by}; "
-              f"wall time per back-to-back call (events) kernel "
-              f"{call['kernel']:.5f} ms, plain {call['plain']:.5f} ms, library "
-              f"{call['library']:.5f} ms; library vs kernel without "
-              f"peepholes: max abs {lib_diff:.2e}")
-        rows[name] = dict(err_f32=errs[torch.float32],
-                          err_bf16=errs[torch.bfloat16], ms=ms["kernel"],
-                          plain_ms=ms["plain"], library_ms=ms["library"],
-                          ms_source=source, call_ms=call, bound_ms=b_ms,
-                          bound_by=b_by, shape={"T": T, "B": B, "H": H})
-    return rows
+    def lib():
+        with torch.no_grad():
+            return lstm(a[0], hc)[0]
+
+    ker_out = fl.lstm_sequence_forward(a[0], a[1], *z, a[5], a[6])[0]
+    call["library"] = cuda_ms(torch, lib)
+    dev["library"] = device_ms(torch, lib)
+    lib_diff = (lib() - ker_out).abs().max().item()
+    ms = {k: dev[k] if dev[k] is not None else call[k] for k in call}
+    source = "profiler" if dev["kernel"] is not None else "events"
+    print(f"  lstm_sequence T={T} B={B} f32: device time per call ({source}) cluster "
+          f"{ms['kernel']:.5f} ms = {1e3 * ms['kernel'] / T:.3f} us/step, grid "
+          f"{ms['grid']:.5f} ms = {1e3 * ms['grid'] / T:.3f} us/step, plain "
+          f"{ms['plain']:.5f} ms, library (cuDNN nn.LSTM) {ms['library']:.5f} ms = "
+          f"{1e3 * ms['library'] / T:.3f} us/step; bound {b_ms:.5f} ms by {b_by}; "
+          f"wall time per back-to-back call (events) cluster {call['kernel']:.5f} ms, "
+          f"grid {call['grid']:.5f} ms, plain {call['plain']:.5f} ms, library "
+          f"{call['library']:.5f} ms; library vs kernel without peepholes: max abs "
+          f"{lib_diff:.2e}")
+    return dict(err_f32=errs["cluster", torch.float32], err_bf16=errs["cluster", torch.bfloat16],
+                err_by_variant={f"{v} {str(d)[6:]}": e for (v, d), e in errs.items()},
+                ms=ms["kernel"], grid_ms=ms["grid"], us_per_step=1e3 * ms["kernel"] / T,
+                plain_ms=ms["plain"], library_ms=ms["library"], ms_source=source,
+                call_ms=call, bound_ms=b_ms, bound_by=b_by, variant="cluster",
+                geometry=geo, device_by_kernel={v: t["device"] for v, t in times.items()},
+                shape={"T": T, "B": B, "H": H})
 
 
 def backward_inputs(torch, fl, gen, dtype, T, B, H, peephole):
@@ -359,33 +506,47 @@ def compare_backward(torch, outs, refs, dtype, T, B):
 
 
 def backward_phase(torch, fl, seed):
-    """The backward kernel against its plain version at the training
-    segment (T=50, B=32, H=200) and a ragged shape (B not a multiple of
-    the 8-row pass, H not a multiple of the 8-unit block), then its
-    times at the training segment."""
+    """K3 against its plain version at BWD_SHAPES on each variant, f32 and
+    bf16, with and without peepholes, on the forward kernel's stashes; two
+    launches bit-equal; then both variants' times at the training segment
+    (T=50, B=32, H=200), the cluster variant's by kernel (the chain, the
+    dRW partials, their sums)."""
     gen = torch.Generator().manual_seed(seed + 7)
-    errs = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    errs = {(v, d): 0.0 for v in fl.VARIANTS for d in (torch.float32, torch.bfloat16)}
     for dtype in (torch.float32, torch.bfloat16):
-        for T, B, H in ((TBPTT, 32, HIDDEN), (7, 5, 20)):
-            for peep in (True, False):
-                _, b = backward_inputs(torch, fl, gen, dtype, T, B, H, peep)
-                outs = fl.lstm_sequence_backward(*b)
-                torch.cuda.synchronize()
-                refs = fl.lstm_sequence_backward_reference(*b)
-                err, ok = compare_backward(torch, outs, refs, dtype, T, B)
-                print(f"  lstm_sequence_backward {str(dtype)[6:]} T={T} B={B} "
-                      f"H={H} peepholes={peep}: max abs {err:.3e} "
-                      f"{'ok' if ok else 'OUT OF TOLERANCE'}")
-                check(ok, f"lstm_sequence_backward disagrees with its plain "
-                          f"version ({dtype}, T={T}, B={B}, H={H}, "
-                          f"peepholes={peep})")
-                errs[dtype] = max(errs[dtype], err)
+        for T, B, H in BWD_SHAPES:
+            for v in lstm_variants(torch, fl, B, H, True):
+                for peep in (True, False):
+                    _, b = backward_inputs(torch, fl, gen, dtype, T, B, H, peep)
+                    outs = fl.lstm_sequence_backward(*b, variant=v)
+                    again = fl.lstm_sequence_backward(*b, variant=v)
+                    torch.cuda.synchronize()
+                    refs = fl.lstm_sequence_backward_reference(*b)
+                    err, ok = compare_backward(torch, outs, refs, dtype, T, B)
+                    same = all(torch.equal(x, y) for x, y in zip(outs, again))
+                    print(f"  lstm_sequence_backward {v} {str(dtype)[6:]} T={T} B={B} "
+                          f"H={H} peepholes={peep}: max abs {err:.3e} "
+                          f"{'ok' if ok else 'OUT OF TOLERANCE'}; two launches "
+                          f"{'bit-equal' if same else 'DIFFER'}")
+                    check(ok, f"lstm_sequence_backward ({v}) disagrees with its plain "
+                              f"version ({dtype}, T={T}, B={B}, H={H}, peepholes={peep})")
+                    check(same, f"lstm_sequence_backward ({v}): two launches differ "
+                                f"({dtype}, T={T}, B={B}, H={H})")
+                    errs[v, dtype] = max(errs[v, dtype], err)
     T, B, H = TBPTT, 32, HIDDEN
+    print(f"  lstm_sequence_backward launch at T={T} B={B} H={H}:")
+    geo = geometry(torch, fl, B, H, True)
     a, b = backward_inputs(torch, fl, gen, torch.float32, T, B, H, True)
-    call = {"kernel": cuda_ms(torch, lambda: fl.lstm_sequence_backward(*b)),
+    times = {}
+    for v in fl.VARIANTS:
+        times[v] = {"call": cuda_ms(torch, lambda: fl.lstm_sequence_backward(*b, variant=v)),
+                    "device": device_by_kernel(torch, lambda: fl.lstm_sequence_backward(
+                        *b, variant=v))}
+    call = {"kernel": times["cluster"]["call"], "grid": times["grid"]["call"],
             "plain": cuda_ms(torch, lambda: fl.lstm_sequence_backward_reference(*b),
                              reps=3)}
-    dev = {"kernel": device_ms(torch, lambda: fl.lstm_sequence_backward(*b)),
+    dev = {"kernel": sum(times["cluster"]["device"].values()) or None,
+           "grid": sum(times["grid"]["device"].values()) or None,
            "plain": device_ms(torch, lambda: fl.lstm_sequence_backward_reference(*b),
                               reps=3)}
     nin = sum(t.numel() for t in b)
@@ -394,9 +555,9 @@ def backward_phase(torch, fl, seed):
     b_ms, b_by = bound(4 * (nin + nout), 4.0 * T * B * H * 4 * H)
     # library yardstick, an approximation: cuDNN's LSTM backward at the
     # same shape without peepholes (input weights = identity on the 4H
-    # projections, so it also runs an input-weight gradient GEMM that the
-    # kernel leaves to autograd outside), timed as (forward + backward) -
-    # forward, with TF32 off
+    # projections, so it also runs the dx and input-weight gradient
+    # products, ~4.1 GFLOP at T=50, which the kernel leaves to autograd
+    # outside), timed as (forward + backward) - forward, with TF32 off
     lstm = torch.nn.LSTM(4 * H, H).cuda()
     with torch.no_grad():
         lstm.weight_ih_l0.copy_(torch.eye(4 * H, device="cuda"))
@@ -418,15 +579,22 @@ def backward_phase(torch, fl, seed):
     call["library"] = cuda_ms(torch, lib_fwd_bwd) - cuda_ms(torch, lib_fwd)
     ms = {k: dev[k] if dev[k] is not None else call[k] for k in call}
     source = "profiler" if dev["kernel"] is not None else "events"
-    print(f"  lstm_sequence_backward T={T} B={B} f32: device time per call "
-          f"({source}) kernel {ms['kernel']:.5f} ms, plain {ms['plain']:.5f} ms, "
-          f"library (cuDNN fwd+bwd - fwd, approximate) {ms['library']:.5f} ms; "
-          f"bound {b_ms:.5f} ms by {b_by}; wall time per back-to-back call "
-          f"(events) kernel {call['kernel']:.5f} ms, plain {call['plain']:.5f} ms, "
-          f"library {call['library']:.5f} ms")
-    return dict(err_f32=errs[torch.float32], err_bf16=errs[torch.bfloat16],
-                ms=ms["kernel"], plain_ms=ms["plain"], library_ms=ms["library"],
-                ms_source=source, call_ms=call, bound_ms=b_ms, bound_by=b_by,
+    parts = ", ".join(f"{n} {t:.5f}" for n, t in times["cluster"]["device"].items())
+    print(f"  lstm_sequence_backward T={T} B={B} f32: device time per call ({source}) "
+          f"cluster {ms['kernel']:.5f} ms ({parts}), chain "
+          f"{1e3 * times['cluster']['device'].get('lstm_sequence_bwd_cluster_kernel', 0.0) / T:.3f}"
+          f" us/step; grid {ms['grid']:.5f} ms = {1e3 * ms['grid'] / T:.3f} us/step; plain "
+          f"{ms['plain']:.5f} ms, library (cuDNN fwd+bwd - fwd, approximate) "
+          f"{ms['library']:.5f} ms = {1e3 * ms['library'] / T:.3f} us/step; bound "
+          f"{b_ms:.5f} ms by {b_by}; wall time per back-to-back call (events) cluster "
+          f"{call['kernel']:.5f} ms, grid {call['grid']:.5f} ms, plain {call['plain']:.5f} "
+          f"ms, library {call['library']:.5f} ms")
+    return dict(err_f32=errs["cluster", torch.float32], err_bf16=errs["cluster", torch.bfloat16],
+                err_by_variant={f"{v} {str(d)[6:]}": e for (v, d), e in errs.items()},
+                ms=ms["kernel"], grid_ms=ms["grid"], us_per_step=1e3 * ms["kernel"] / T,
+                plain_ms=ms["plain"], library_ms=ms["library"], ms_source=source,
+                call_ms=call, bound_ms=b_ms, bound_by=b_by, variant="cluster",
+                geometry=geo, device_by_kernel={v: t["device"] for v, t in times.items()},
                 shape={"T": T, "B": B, "H": H})
 
 
@@ -1003,6 +1171,23 @@ def train_phase(torch, fl, helpers, char_lstm_network, DataSet,
           f"device time by kernel:")
     for n, ms, c in rows[:10]:
         print(f"    {ms:9.3f} ms {100 * ms / busy_ms:5.1f}%  x{c:<5d} {n[:70]}")
+    # the main path ran the cluster variants of K1 and K3, never the grid's
+    lstm_ms = {k: sum(ms for n, ms, _ in rows if f"::{k}<" in n or n.startswith(f"{k}<")
+                      or f"::{k}(" in n)
+               for k in ("lstm_sequence_cluster_kernel", "lstm_sequence_bwd_cluster_kernel",
+                         "drw_partial_kernel", "drw_reduce_kernel", "lstm_sequence_kernel",
+                         "lstm_sequence_bwd_kernel")}
+    check(lstm_ms["lstm_sequence_cluster_kernel"] > 0
+          and lstm_ms["lstm_sequence_bwd_cluster_kernel"] > 0,
+          f"the fit did not run the cluster kernels: {lstm_ms}")
+    check(lstm_ms["lstm_sequence_kernel"] == 0 and lstm_ms["lstm_sequence_bwd_kernel"] == 0,
+          f"the fit ran the grid kernels: {lstm_ms}")
+    k1 = lstm_ms["lstm_sequence_cluster_kernel"]
+    k3 = sum(lstm_ms[k] for k in ("lstm_sequence_bwd_cluster_kernel", "drw_partial_kernel",
+                                  "drw_reduce_kernel"))
+    st["profiled_batch"]["k1_ms"], st["profiled_batch"]["k3_ms"] = k1, k3
+    print(f"  K1 (cluster) {k1:.3f} ms = {100 * k1 / busy_ms:.1f}% and K3 (cluster chain + "
+          f"dRW pass) {k3:.3f} ms = {100 * k3 / busy_ms:.1f}% of the device time")
 
     # helpers on vs off over the 20 segments of one fit batch, in lockstep:
     # each step from the same parameters and updater state, compared in
@@ -1401,15 +1586,19 @@ def main(argv=None) -> int:
     info = cuda_build.build_all()
     print(f"  kernels built in {time.perf_counter() - t0:.2f} s")
     for name, rec in info.items():
+        fn = ""
         for line in rec["log"].splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  {name}: {line.strip()}")
+            if "Compiling entry function" in line:
+                fn = kernel_name(line)
+            elif "registers" in line or "spill" in line:
+                print(f"  {name} {fn}: {line.split(':', 1)[-1].strip()}")
     hgmma = tensor_core_check(cuda_build)
 
     print(f"[2] kernels vs plain versions (tolerance: f32 {F32_ATOL} abs; "
           f"bf16 {BF16_ULP}*max(1, |plain|))")
     print("  LSTM kernels at char-LSTM's widths")
     rows = kernel_phase(torch, fl, args.seed)
+    rows["lstm_sequence"] = sequence_phase(torch, fl, args.seed)
     print(f"  backward kernel: f32 {F32_ATOL} abs, {F32_ATOL}*sqrt(T*B) for "
           f"the sums dRW and dp; bf16 as above")
     rows["lstm_sequence_backward"] = backward_phase(torch, fl, args.seed)
@@ -1482,7 +1671,8 @@ def main(argv=None) -> int:
         "ms_source": r["ms_source"], "call_ms": r.get("call_ms"),
         "shape": r["shape"],
         **{k: r[k] for k in ("stats_rel_err", "unrounded_gap_min", "library_both_passes_ms",
-                             "shapes") if k in r},
+                             "shapes", "variant", "grid_ms", "us_per_step", "err_by_variant")
+           if k in r},
     } for name, r in rows.items()]
     record = {"card": card, "kind": kind, "seed": args.seed,
               "kernels": kernels, "hgmma_per_kernel": hgmma, "slice": sl, "serve": sv,

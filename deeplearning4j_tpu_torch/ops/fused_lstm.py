@@ -15,6 +15,12 @@ The port of the JAX package's ops/pallas_lstm.py kernels:
   `output()` and multi-token `rnn_time_step` record no graph and run the
   forward kernel alone.
 
+Each sequence kernel has two variants, both hand-written and chosen by
+`lstm_variant` before a launch: "cluster" (H <= 256: the batch cut across
+thread-block clusters of 8 CTAs that exchange through distributed shared
+memory; csrc/lstm_cluster.cuh) and "grid" (larger H: one cooperative grid
+that exchanges through global memory and a grid barrier).
+
 Beside each kernel is its plain PyTorch version (`*_reference`), the same
 function as step-by-step torch ops in f32. The wrappers take the plain
 version only for tensors on the CPU; on a CUDA tensor they launch the
@@ -28,6 +34,7 @@ versions also take f64 (math in f64), for gradient checks.
 
 from __future__ import annotations
 
+import ctypes
 import threading
 from typing import Dict, Tuple
 
@@ -217,61 +224,210 @@ def lstm_step(xg, rw, pI, pF, pO, h0, c0):
     return h1, c1
 
 
-def lstm_sequence_forward(xg, rw, pI, pF, pO, h0, c0):
+# -- variants ---------------------------------------------------------------
+
+# The cluster kernels (csrc/lstm_cluster.cuh): C CTAs a cluster, R batch
+# rows a cluster, U = ceil(H / C) hidden units a CTA, at most 32 (one lane
+# a unit). R is 4 up to B = 64 (at most 128 CTAs on the H100's 132 SMs,
+# each with half the per-step product of R = 8), 8 past it, where clusters
+# of 4 rows would outnumber the SMs (PERF.md: R = 4 faster at B <= 64,
+# R = 8 at B >= 128).
+CLUSTER_CTAS = 8
+CLUSTER_ROWS = (4, 8)
+CLUSTER_MAX_UNITS = 32
+# rows of T*B per partial of the backward's dRW pass
+DRW_CHUNK = 256
+# the grid kernels: U units a block, BB batch rows a pass, and their
+# static shared memory (forward pre_s + peep_s; backward part_s + dpre_s +
+# pp_s + peep_s)
+GRID_UNITS, GRID_ROWS = 8, 8
+_GRID_STATIC = {False: 4 * (8 * 32 + 3 * 8),
+                True: 4 * (8 * 32 + 8 * 32 + 8 * 3 * 8 + 3 * 8)}
+# shared memory one CTA may use on an H100 (dynamic + static)
+SMEM_LIMIT = 227 * 1024
+VARIANTS = ("cluster", "grid")
+
+
+def _cluster_rows(B: int) -> int:
+    return CLUSTER_ROWS[0] if B <= 64 else CLUSTER_ROWS[1]
+
+
+def _cluster_smem(H: int, R: int, backward: bool) -> int:
+    C = CLUSTER_CTAS
+    U = -(-H // C)
+    if backward:  # RW^T slice [4U][H], dpre [4U][R], receive [2][C][R][U]
+        return 4 * (4 * U * H + 4 * U * R + 2 * C * R * U)
+    return 4 * (4 * U * H + 2 * R * H + 2 * R * 4 * U)  # RW slice, h [2][H][R], pre [2][R][4U]
+
+
+def _grid_smem(B: int, H: int, backward: bool) -> int:
+    U, BB = GRID_UNITS, GRID_ROWS
+    if backward:  # RW rows, dRW slice, dpre rows, hprev rows, dc carry
+        dyn = U * (4 * H + 1) + H * 4 * U + BB * 4 * H + BB * H + B * U
+    else:  # RW slice, h rows, c
+        dyn = H * 4 * U + BB * H + B * U
+    return 4 * dyn + _GRID_STATIC[backward]
+
+
+def lstm_variant(B: int, H: int, dtype, *, backward: bool = False,
+                 variant: str = None) -> dict:
+    """Which sequence kernel runs at batch B, hidden size H:
+
+    - "cluster" where U = ceil(H / 8) <= 32 (H <= 256): ceil(B / R)
+      clusters of C = 8 CTAs, R batch rows each (4 up to B = 64, else 8);
+      CTA q owns units q*U..q*U+U-1 (the last CTAs own fewer, or none,
+      where 8 does not divide H; the last cluster's rows past B are
+      masked);
+    - "grid" otherwise: one cooperative grid of C = ceil(H / 8) blocks of U
+      = 8 units, R = 8 batch rows a pass, while its shared memory fits.
+
+    `variant` asks for one of them. Returns {"variant", "C" (CTAs that
+    exchange: a cluster, or the whole grid), "R", "U", "ctas" (CTAs
+    launched), "smem_bytes" (shared memory per CTA)}. Raises ValueError
+    where the variant asked for, or both, cannot take the shape: no kernel
+    runs it, and nothing falls back."""
+    if dtype not in _DTYPE_CODES:
+        raise TypeError(f"fused LSTM takes float32 or bfloat16, got {dtype}")
+    if variant not in (None, *VARIANTS):
+        raise ValueError(f"variant must be one of {VARIANTS}, got {variant!r}")
+    if B < 1 or H < 1:
+        raise ValueError(f"B={B}, H={H}: both must be positive")
+    U = -(-H // CLUSTER_CTAS)
+    if variant in (None, "cluster") and U <= CLUSTER_MAX_UNITS:
+        R = _cluster_rows(B)
+        return {"variant": "cluster", "C": CLUSTER_CTAS, "R": R, "U": U,
+                "ctas": CLUSTER_CTAS * -(-B // R),
+                "smem_bytes": _cluster_smem(H, R, backward)}
+    smem = _grid_smem(B, H, backward)
+    if variant in (None, "grid") and smem <= SMEM_LIMIT:
+        blocks = -(-H // GRID_UNITS)
+        return {"variant": "grid", "C": blocks, "R": GRID_ROWS,
+                "U": GRID_UNITS, "ctas": blocks, "smem_bytes": smem}
+    raise ValueError(
+        f"no {'backward' if backward else 'forward'} sequence kernel takes "
+        f"B={B}, H={H}" + (f" as {variant!r}" if variant else "") +
+        f": the cluster variant needs H <= "
+        f"{CLUSTER_CTAS * CLUSTER_MAX_UNITS}, the grid variant {smem} bytes "
+        f"of shared memory (limit {SMEM_LIMIT})")
+
+
+def sequence_scratch(T: int, B: int, H: int, variant: str, *,
+                     backward: bool = False) -> Dict[str, Tuple[int, ...]]:
+    """The f32 scratch tensors (name -> shape) a sequence kernel's wrapper
+    allocates. Cluster forward: none. Cluster backward: the f32 dpre of
+    every step, [T, B, 4H]; the dRW pass's partials, one per DRW_CHUNK
+    rows of T*B; the peephole sums by batch row, [B, 3, H]. Grid: the
+    double-buffered exchange in global memory and the barrier counter
+    (int32, zeroed)."""
+    if variant == "cluster":
+        if not backward:
+            return {}
+        return {"dpre": (T, B, 4 * H),
+                "drw_part": (-(-T * B // DRW_CHUNK), H, 4 * H),
+                "dp_part": (B, 3, H)}
+    if variant == "grid":
+        return {("xbuf" if backward else "hbuf"): (2, B, 4 * H if backward else H),
+                "bar": (1,)}
+    raise ValueError(f"variant must be one of {VARIANTS}, got {variant!r}")
+
+
+def _scratch(T, B, H, variant, backward, device):
+    return [torch.zeros(s, dtype=torch.int32, device=device) if n == "bar"
+            else torch.empty(s, dtype=torch.float32, device=device)
+            for n, s in sequence_scratch(T, B, H, variant, backward=backward).items()]
+
+
+def cluster_occupancy(H: int, R: int, dtype=torch.float32, *,
+                      backward: bool = False) -> int:
+    """cudaOccupancyMaxActiveClusters for the cluster kernel of R batch
+    rows at hidden size H on the current CUDA device: how many of its
+    clusters run at once."""
+    lib_name, fn_name = (("lstm_sequence_bwd", "lstm_sequence_bwd_cluster_occupancy")
+                         if backward else
+                         ("lstm_sequence", "lstm_sequence_cluster_occupancy"))
+    lib = cuda_build.library(lib_name)
+    fn = getattr(lib, fn_name)
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    out = ctypes.c_int(0)
+    cuda_build.check(lib, fn(_DTYPE_CODES[dtype], H, R, ctypes.byref(out)),
+                     "cluster occupancy query")
+    return out.value
+
+
+def lstm_sequence_forward(xg, rw, pI, pF, pO, h0, c0, *, variant=None):
     """The whole-sequence forward. xg: [T, B, 4H] time-major input
     projections + bias; rw: [H, 4H]; pI/pF/pO: [H]; h0/c0: [B, H].
     Returns (y [T,B,H], acts [T,B,4H], hprev [T,B,H], cprev [T,B,H],
     cF [B,H]) in xg's dtype — the TPU kernel's outputs plus the final
-    cell state."""
+    cell state. `variant` ("cluster" or "grid") overrides
+    `lstm_variant`'s choice on a CUDA tensor."""
     T, B, H = _check(xg, rw, pI, pF, pO, h0, c0, seq=True)
     if not xg.is_cuda:
         return lstm_sequence_forward_reference(xg, rw, pI, pF, pO, h0, c0)
     cuda_build.require_hopper(xg.device)
-    lib, fn = cuda_build.entry("lstm_sequence", "lstm_sequence_forward", 14, 3)
+    geo = lstm_variant(B, H, xg.dtype, variant=variant)
+    v = geo["variant"]
     y = torch.empty((T, B, H), dtype=xg.dtype, device=xg.device)
     acts = torch.empty_like(xg)
     hprev, cprev = torch.empty_like(y), torch.empty_like(y)
     c_final = torch.empty_like(c0)
-    hbuf = torch.empty((2, B, H), dtype=torch.float32, device=xg.device)
-    bar = torch.zeros((1,), dtype=torch.int32, device=xg.device)
+    scratch = _scratch(T, B, H, v, False, xg.device)
+    ints = [T, B, H]
+    if v == "cluster":
+        lib, fn = cuda_build.entry("lstm_sequence", "lstm_sequence_forward_cluster", 12, 4)
+        ints.append(geo["R"])
+    else:
+        lib, fn = cuda_build.entry("lstm_sequence", "lstm_sequence_forward", 14, 3)
     stream = torch.cuda.current_stream(xg.device).cuda_stream
     with torch.cuda.device(xg.device):
         code = fn(_DTYPE_CODES[xg.dtype], *(a.data_ptr() for a in
                   (xg, rw, pI, pF, pO, h0, c0, y, acts, hprev, cprev,
-                   c_final, hbuf, bar)), T, B, H, stream)
-    cuda_build.check(lib, code, "lstm_sequence launch")
+                   c_final, *scratch)), *ints, stream)
+    cuda_build.check(lib, code, f"lstm_sequence ({v}) launch")
     _bump("lstm_sequence")
     return y, acts, hprev, cprev, c_final
 
 
-def lstm_sequence_backward(acts, hprev, cprev, rw, pI, pF, pO, dy, dcF):
+def lstm_sequence_backward(acts, hprev, cprev, rw, pI, pF, pO, dy, dcF, *,
+                           variant=None):
     """The whole-sequence backward. acts [T,B,4H], hprev/cprev [T,B,H]:
     the forward's stashes; rw [H,4H]; pI/pF/pO [H]; dy [T,B,H]: the
     cotangent of y (with hF's folded into dy[-1]); dcF [B,H]: the
     cotangent of cF. Returns (dxg [T,B,4H], drw [H,4H], dpi, dpf, dpo
     [H], dh0, dc0 [B,H]): dxg, dh0, dc0 in acts' dtype, the rest in f32,
-    as the TPU kernel's outputs. The kernel keeps about 416*H + 32*B
-    bytes per block in shared memory, so it takes H up to ~550 at B=32;
-    a larger shape raises with the launch's CUDA error."""
+    as the TPU kernel's outputs. `lstm_variant(B, H, dtype,
+    backward=True)` says which kernel takes the shape (the grid variant
+    takes H up to ~550 at B=32) and raises where none does; `variant`
+    overrides its choice on a CUDA tensor. The cluster variant's call
+    runs three launches (the chain, the dRW partials, their sums) and
+    counts as one."""
     T, B, H = _check_bwd(acts, hprev, cprev, rw, pI, pF, pO, dy, dcF)
     if not acts.is_cuda:
         return lstm_sequence_backward_reference(acts, hprev, cprev, rw, pI,
                                                 pF, pO, dy, dcF)
     cuda_build.require_hopper(acts.device)
-    lib, fn = cuda_build.entry("lstm_sequence_bwd", "lstm_sequence_backward", 18, 3)
+    geo = lstm_variant(B, H, acts.dtype, backward=True, variant=variant)
+    v = geo["variant"]
     dev, f32 = acts.device, torch.float32
     dxg = torch.empty_like(acts)
     drw = torch.empty((H, 4 * H), dtype=f32, device=dev)
     dpi, dpf, dpo = (torch.empty((H,), dtype=f32, device=dev) for _ in range(3))
     dh0, dc0 = torch.empty_like(dcF), torch.empty_like(dcF)
-    xbuf = torch.empty((2, B, 4 * H), dtype=f32, device=dev)
-    bar = torch.zeros((1,), dtype=torch.int32, device=dev)
+    scratch = _scratch(T, B, H, v, True, dev)
+    ints = [T, B, H]
+    if v == "cluster":
+        lib, fn = cuda_build.entry("lstm_sequence_bwd", "lstm_sequence_backward_cluster",
+                                   19, 5)
+        ints += [DRW_CHUNK, geo["R"]]
+    else:
+        lib, fn = cuda_build.entry("lstm_sequence_bwd", "lstm_sequence_backward", 18, 3)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         code = fn(_DTYPE_CODES[acts.dtype], *(a.data_ptr() for a in
                   (acts, hprev, cprev, rw, pI, pF, pO, dy, dcF, dxg, drw, dpi,
-                   dpf, dpo, dh0, dc0, xbuf, bar)), T, B, H, stream)
-    cuda_build.check(lib, code, "lstm_sequence_backward launch")
+                   dpf, dpo, dh0, dc0, *scratch)), *ints, stream)
+    cuda_build.check(lib, code, f"lstm_sequence_backward ({v}) launch")
     _bump("lstm_sequence_backward")
     return dxg, drw, dpi, dpf, dpo, dh0, dc0
 

@@ -99,6 +99,63 @@ def test_backward_kernel_matches_plain_version_and_counts_one_launch(dtype, shap
                                    **(sum_tol if 1 <= i <= 4 else step_tol))
 
 
+# (T, B, H) and variant: char-LSTM's widths at T=50 and T=100, a ragged
+# shape (B not a multiple of the cluster's rows, H not a multiple of its 8
+# CTAs), a short B=1 sequence, B=70 (clusters of 8 rows, the last ragged),
+# each on both variants; H=300, past the cluster variant's H <= 256, on the
+# grid variant
+_VARIANT_CASES = [(s, v) for s in ((50, 32, 200), (100, 32, 200), (7, 5, 20), (3, 1, 200),
+                                   (10, 70, 200))
+                  for v in ("cluster", "grid")] + [((20, 32, 300), "grid")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape,variant", _VARIANT_CASES,
+                         ids=[f"{v}-{'x'.join(map(str, s))}" for s, v in _VARIANT_CASES])
+def test_sequence_kernels_match_plain_versions_on_each_variant(dtype, shape, variant):
+    """K1 and K3 on one variant against their plain versions, and two
+    launches of each bit-equal (every sum runs in a fixed order)."""
+    _require_hopper()
+    dt = getattr(torch, dtype)
+    T, B, H = shape
+    assert fl.lstm_variant(B, H, dt, variant=variant)["variant"] == variant
+    a = _inputs(11, T, B, H, dt)
+    outs = fl.lstm_sequence_forward(*a, variant=variant)
+    again = fl.lstm_sequence_forward(*a, variant=variant)
+    torch.cuda.synchronize()
+    tol = (dict(rtol=1e-5, atol=1e-5) if dt == torch.float32
+           else dict(rtol=2 ** -7, atol=2 ** -7))
+    for o, r, o2 in zip(outs, fl.lstm_sequence_forward_reference(*a), again):
+        torch.testing.assert_close(o.float(), r.float(), **tol)
+        assert torch.equal(o, o2)
+    _, acts, hprev, cprev, _ = outs
+    rng = np.random.default_rng(12)
+    dy, dcF = (torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(dt).cuda()
+               for s in ((T, B, H), (B, H)))
+    args = [acts, hprev, cprev, *a[1:5], dy, dcF]
+    bouts = fl.lstm_sequence_backward(*args, variant=variant)
+    bagain = fl.lstm_sequence_backward(*args, variant=variant)
+    torch.cuda.synchronize()
+    step_tol, sum_tol = _backward_tolerance(dt, T, B)
+    for i, (o, r, o2) in enumerate(zip(bouts, fl.lstm_sequence_backward_reference(*args),
+                                       bagain)):
+        assert o.dtype == r.dtype
+        torch.testing.assert_close(o.float(), r.float(),
+                                   **(sum_tol if 1 <= i <= 4 else step_tol))
+        assert torch.equal(o, o2)
+
+
+@pytest.mark.cuda
+def test_cluster_occupancy_fits_the_char_lstm_grid():
+    """Every cluster of the training segment's launch can be resident at
+    once (8 clusters of 8 CTAs at B=32), forward and backward."""
+    _require_hopper()
+    for backward in (False, True):
+        v = fl.lstm_variant(32, 200, torch.float32, backward=backward)
+        assert fl.cluster_occupancy(200, v["R"], backward=backward) >= v["ctas"] // v["C"] == 8
+
+
 @pytest.mark.cuda
 def test_autograd_function_runs_both_kernels_and_matches_plain_backward():
     _require_hopper()
