@@ -8,7 +8,8 @@ result lines:
 
 1. Device: the card's name and power limit (nvidia-smi), the build of
    every kernel from `deeplearning4j_tpu_torch/csrc/` (one nvcc per source,
-   in parallel) with each kernel's registers, shared memory and spills
+   in parallel, with the swept variants of the BN streaming passes, see
+   BN_SWEEP) with each kernel's registers, shared memory and spills
    (ptxas -v), and the HGMMA (wgmma) instructions in the SASS of every
    bf16 conv kernel (cuobjdump).
 2. Kernels: each hand-written kernel against its plain PyTorch version on
@@ -22,14 +23,21 @@ result lines:
    shapes that reach each producer and tile edge of the conv kernels (see
    CONV_CASES) and a ragged BN shape; the conv and BN-backward statistics
    against the exact sums of the values the kernel stored (in bf16 that
-   tells the stored y from the unrounded one). Device time per call by
-   torch.profiler (CUPTI) for the kernel, its plain version and one
+   tells the stored y from the unrounded one); K7 and K8 with their
+   prologue (the ReLU gate and the centring on their loads) bit-equal to
+   the same kernels fed the materialised tensors, at every BN shape.
+   Device time per call by torch.profiler (CUPTI) for the kernel, its
+   plain version and one
    library call that computes the same function (cuDNN's LSTM without
    peepholes, F.conv2d without the statistics, F.batch_norm,
    torch.batch_norm_backward_reduce and torch.batch_norm_backward_elemt),
    beside the roofline bound, for the conv kernels at three ResNet-50
-   shapes each (TIMED_CONVS); for the LSTM kernels the wall time per
-   back-to-back call by CUDA events beside them, and for K1 and K3 both
+   shapes each (TIMED_CONVS); K7 and K8 with the prologue and K6 with
+   ReLU at the stem's [1605632, 64] beside their bounds; K6 and K8 at
+   [401408, 256] and at the stem for every swept variant of their
+   streaming layout (BN_SWEEP), each bit-equal to the shipped build; for
+   the LSTM kernels the wall time per back-to-back call by CUDA events
+   beside them, and for K1 and K3 both
    variants' times and the microseconds per step.
 3. Slice: full-width char-LSTM (vocab 77, hidden 200, 2 GravesLSTM
    layers, f32, weights from --seed): `output()` on a [32, 100, 77]
@@ -61,7 +69,10 @@ result lines:
    lower on its last visit than on its first, and per step 36 launches of
    K4, 17 of K5 and 53 each of K6, K7 and K8; then step p50/p99 with the
    device synced at each step, and one profiled step's busy share and
-   device time by kernel (K4 and K5 summed by name). In f32 at batch 32,
+   device time by kernel (K4 and K5 summed by name, and K6-K8); one step's
+   aten ops on BN-sized tensors, and one BN's backward at the stem's
+   shape by kernel: neither runs a centring or ReLU-gate pass of its own
+   (FOLDED_OPS). In f32 at batch 32,
    a few builtin steps in, one step with the helpers on holds to one with
    them off (the builtin torch layers) in gradients, score and the BN
    running statistics it leaves;
@@ -779,16 +790,48 @@ def conv_bn_kernel_phase(torch, F, fcb, seed):
                            rel <= SUMS_RTOL * math.sqrt(M)))
             checks.append(("bn_backward_apply", *close1(fcb.bn_backward_apply(g2, x2, *v),
                                                         fcb.bn_backward_apply_reference(g2, x2, *v))))
+            # the pullback's prologue (the ReLU gate from the saved output
+            # y and the centring x - mean_b on K7's and K8's loads): the
+            # same bits as K7 and K8 fed the materialised tensors, K7's
+            # sums at SUMS_RTOL*sqrt(M) of the exact sums of those
+            # tensors, K8 against its plain version as above
+            y2 = rnd((M, C), dtype)
+            mb = rnd((C,), dtype, scale=0.2, shift=0.3).float()
+            pro = {"gate_y2": y2, "mean_b": mb}
+            g_m = torch.where(y2 > 0, g2, torch.zeros_like(g2))
+            x_m = x2 - mb.to(dtype)
+            s_pro, s_mat = fcb.bn_backward_reduce(g2, x2, **pro), fcb.bn_backward_reduce(g_m, x_m)
+            d_pro = fcb.bn_backward_apply(g2, x2, *v, **pro)
+            d_mat = fcb.bn_backward_apply(g_m, x_m, *v)
+            same = (all(torch.equal(a, b) for a, b in zip(s_pro, s_mat))
+                    and torch.equal(d_pro, d_mat))
+            gd = g_m.double()
+            rel = sums_rel_err(torch, s_pro, (gd, gd * x_m.double()))
+            del gd, g_m, x_m, s_mat, d_mat
+            rows["bn_backward_reduce"]["stats_rel_err"] = max(
+                rows["bn_backward_reduce"]["stats_rel_err"], rel)
+            rsum = fcb.bn_backward_reduce_reference(g2, x2, **pro)
+            checks.append(("bn_backward_reduce with gate and centring (bit-equal to the "
+                           "materialised inputs)",
+                           max((a - b).abs().max().item() for a, b in zip(s_pro, rsum)),
+                           same and rel <= SUMS_RTOL * math.sqrt(M)))
+            err, ok = close1(d_pro, fcb.bn_backward_apply_reference(g2, x2, *v, **pro))
+            checks.append(("bn_backward_apply with gate and centring (bit-equal to the "
+                           "materialised inputs)", err, ok and same))
+            del d_pro
             torch.cuda.synchronize()
             for kname, err, ok in checks:
                 print(f"  {kname} {dn} [{M}, {C}] ({name}): max err {err:.3e} "
                       f"{'ok' if ok else 'OUT OF TOLERANCE'}")
                 check(ok, f"{kname} disagrees with its plain version ({dn}, {name})")
+                kname = kname.split(" ")[0]
                 rows[kname][key] = max(rows[kname][key], err)
             if dtype == torch.bfloat16 and name == "56x56x256":
-                timed["bn"] = (name, x2, g2, v)
+                timed["bn"] = (name, x2, g2, v, mb)
+            elif dtype == torch.bfloat16 and name.startswith("stem"):
+                timed["stem"] = (x2, g2, y2, mb, v)
             else:
-                del x2, g2
+                del x2, g2, y2
 
     # device times, bf16, at the timed shapes
     bf = torch.bfloat16
@@ -831,7 +874,7 @@ def conv_bn_kernel_phase(torch, F, fcb, seed):
               f"alone, no statistics) {ms['library']:.4f}; bound {row['bound_ms']:.4f} ms by "
               f"{row['bound_by']}; kernel / library {ms['kernel'] / ms['library']:.2f}")
         del args, x, w, xin, lib_x, wn
-    name, x2, g2, v = timed["bn"]
+    name, x2, g2, v, mb = timed["bn"]
     M, C = x2.shape
     wb = [t.to(bf) for t in v]
     _, smean, sinv = torch.ops.aten.native_batch_norm(x2, wb[0], wb[1], None, None,
@@ -873,7 +916,88 @@ def conv_bn_kernel_phase(torch, F, fcb, seed):
     rows["bn_backward_apply"]["library_both_passes_ms"] = both
     print(f"  K7 + K8 {rows['bn_backward_reduce']['ms'] + rows['bn_backward_apply']['ms']:.4f} "
           f"ms beside aten.native_batch_norm_backward (both passes in one call) {both:.4f} ms")
+    # the prologue at the main path's calls: every bf16 BN pullback centres
+    # on its loads (a layer without ReLU: K8 centred at [401408, 256], the
+    # function batch_norm_backward_elemt computes), and the 33 with ReLU
+    # also gate, timed at the largest of them, the stem's [1605632, 64]
+    xs, gs, ys, mbs, vs = timed.pop("stem")
+    Ms, Cs = xs.shape
+    prologue = [
+        ("bn_backward_apply", f"centred [{M}, {C}]",
+         lambda: fcb.bn_backward_apply(g2, x2, *v, mean_b=mb), 3 * 2 * M * C + 16 * C,
+         4.0 * M * C),
+        ("bn_backward_reduce", f"gated and centred [{Ms}, {Cs}]",
+         lambda: fcb.bn_backward_reduce(gs, xs, gate_y2=ys, mean_b=mbs),
+         3 * 2 * Ms * Cs + 12 * Cs, 5.0 * Ms * Cs),
+        ("bn_backward_apply", f"gated and centred [{Ms}, {Cs}]",
+         lambda: fcb.bn_backward_apply(gs, xs, *vs, gate_y2=ys, mean_b=mbs),
+         4 * 2 * Ms * Cs + 16 * Cs, 6.0 * Ms * Cs),
+        ("bn_apply", f"relu [{Ms}, {Cs}]", lambda: fcb.bn_normalize(xs, *vs, True),
+         2 * 2 * Ms * Cs + 12 * Cs, 4.0 * Ms * Cs)]
+    for kname, what, fn, nbytes, flops in prologue:
+        ms = device_ms(torch, fn)
+        b_ms, b_by = bound(nbytes, flops, BF16_FLOP_PER_S)
+        rows[kname].setdefault("prologue", {})[what] = {
+            "ms": ms, "bound_ms": b_ms, "bound_by": b_by, "of_bound": b_ms / ms}
+        print(f"  {kname} bf16 {what}: device ms {ms:.4f}; bound {b_ms:.4f} ms by "
+              f"{b_by} ({100 * b_ms / ms:.1f}% of it)")
+    sweep = stream_sweep(torch, fcb, [
+        (f"[{M}, {C}]", x2, v, False, g2, None, None),
+        (f"[{Ms}, {Cs}], K6 with ReLU, K8 gated and centred", xs, vs, True, gs, mbs, ys)])
+    del xs, gs, ys
+    for kname, by_variant in sweep.items():
+        rows[kname]["sweep"] = by_variant
     return rows
+
+
+# The streaming layout's compile-time knobs (csrc/bn_stream.cuh), each
+# built into a library of its own: row-passes per unrolled group
+# (BN_UNROLL, 4 shipped) and the grid (BN_GRID: 1 = one block per row
+# group, shipped; 0 = a persistent grid of the blocks resident at once).
+BN_SWEEP = [(("BN_GRID", 0),), (("BN_GRID", 0), ("BN_UNROLL", 8)), (("BN_UNROLL", 1),),
+            (("BN_UNROLL", 2),), (("BN_UNROLL", 8),)]
+
+
+def stream_sweep(torch, fcb, cases):
+    """K6 and K8 in bf16 for each variant of BN_SWEEP and the shipped
+    build, called through their C entries on the same inputs: device ms
+    each (torch.profiler), and every variant's output bit-equal to the
+    shipped kernel's (the knobs change the schedule, not the arithmetic).
+    A case is (label, x, [scale-like vectors], relu, g, mean_b or None,
+    gate y or None): K6 on x with ReLU as given, K8 with the prologue
+    given."""
+    from deeplearning4j_tpu_torch.ops import cuda_build
+
+    stream = torch.cuda.current_stream().cuda_stream
+    p = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    res = {"bn_apply": {}, "bn_backward_apply": {}}
+    for label, x, v, relu, g, mb, gy in cases:
+        M, C = x.shape
+        ref = {"bn_apply": fcb.bn_normalize(x, *v, relu),
+               "bn_backward_apply": fcb.bn_backward_apply(g, x, *v, mean_b=mb, gate_y2=gy)}
+        out = {k: torch.empty_like(t) for k, t in ref.items()}
+        for defines in [()] + BN_SWEEP:
+            tag = (", ".join(f"{k}={d}" for k, d in defines)
+                   or "shipped (BN_UNROLL=4, BN_GRID=1)")
+            libs = {n: (cuda_build.variant_library(n, defines) if defines
+                        else cuda_build.library(n)) for n in ("bn_apply", "bn_backward")}
+            k6 = cuda_build.entry_of(libs["bn_apply"], "bn_apply", 5, 4)
+            k8 = cuda_build.entry_of(libs["bn_backward"], "bn_backward_apply", 8, 3)
+            calls = {
+                "bn_apply": lambda: k6(1, p(x), *(p(t) for t in v), p(out["bn_apply"]), M, C,
+                                       int(relu), 1, stream),
+                "bn_backward_apply": lambda: k8(1, p(g), p(x), p(mb), p(gy), *(p(t) for t in v),
+                                                p(out["bn_backward_apply"]), M, C, 1, stream)}
+            for kname, call in calls.items():
+                check(call() == 0, f"{kname} ({tag}) did not launch")
+                torch.cuda.synchronize()
+                check(torch.equal(out[kname], ref[kname]),
+                      f"{kname} ({tag}) differs from the shipped kernel at {label}")
+                res[kname].setdefault(label, {})[tag] = device_ms(torch, call)
+        for kname, by in res.items():
+            print(f"  {kname} bf16 {label} sweep, device ms: "
+                  + "; ".join(f"{t} {ms:.4f}" for t, ms in by[label].items()))
+    return res
 
 
 LIBRARY_NOTE = {
@@ -1313,6 +1437,88 @@ GRAD_WITNESS_FACTOR = 1.5
 CONV_BN_OPS = ("conv2d", "batch_norm", "bn_backward")
 
 
+# Passes the BN pullback once ran on full-size tensors of its own, which
+# K7 and K8 now form on their loads: the centring x - bf16(mean) (aten::sub)
+# and the ReLU gate torch.where(y > 0, g, 0) (aten::where).
+FOLDED_OPS = ("aten::sub", "aten::where")
+
+
+def big_ops(prof, numel):
+    """{aten op: calls} of the ops a CPU-activity profile with input
+    shapes saw take a tensor of at least `numel` elements."""
+    out = collections.Counter()
+    for e in prof.key_averages(group_by_input_shape=True):
+        if e.key.startswith("aten::") and any(
+                len(sh) > 0 and math.prod(sh) >= numel for sh in (e.input_shapes or [])
+                if isinstance(sh, (list, tuple))):
+            out[e.key] += e.count
+    return dict(out)
+
+
+def step_ops(torch, net, data, ExistingDataSetIterator):
+    """One more training step with the profiler's CPU activity and input
+    shapes on (not timed): the aten ops that took a tensor of a BN
+    layer's size or more (the smallest, [128, 7, 7, 512]); none may be a
+    folded pass."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU], record_shapes=True) as prof:
+        net.fit(ExistingDataSetIterator(data))
+        torch.cuda.synchronize()
+    ops = big_ops(prof, RESNET_BATCH * 7 * 7 * 512)
+    folded = {k: ops[k] for k in FOLDED_OPS if k in ops}
+    print(f"  one step's aten ops on BN-sized tensors (calls): "
+          + ", ".join(f"{k[6:]} {c}" for k, c in sorted(ops.items(), key=lambda kv: -kv[1])))
+    check(not folded, f"the step still runs the folded passes: {folded}")
+    return ops
+
+
+def bn_backward_region(torch, fcb, seed):
+    """The backward of one BN with ReLU at the stem's [128, 112, 112, 64]
+    bf16 through `bn_apply` (K6 forward): device ms by kernel (CUDA
+    activity only), one launch each of K7 and K8, and no centring or gate
+    op (FOLDED_OPS) on a tensor of the BN's size (CPU activity with input
+    shapes)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 62)
+    C = 64
+    x = torch.randn((RESNET_BATCH, 112, 112, C), generator=gen, device="cuda").to(torch.bfloat16)
+    n = x.numel() // C
+    xf = x.reshape(n, C).float()
+    s1, s2 = xf.sum(0), (xf * xf).sum(0)
+    del xf
+    x.requires_grad_()
+    gamma = torch.ones(C, device="cuda", requires_grad=True)
+    beta = torch.zeros(C, device="cuda", requires_grad=True)
+    y, _, _ = fcb.bn_apply(x, s1, s2, gamma, beta, 1e-5, n, True)
+    dy = torch.randn(y.shape, generator=gen, device="cuda").to(y.dtype)
+
+    def pullback():
+        return torch.autograd.grad(y, (x, gamma, beta), dy, retain_graph=True)
+
+    by_kernel = device_by_kernel(torch, pullback, reps=5)
+    before = fcb.launch_counts()
+    with profile(activities=[ProfilerActivity.CPU], record_shapes=True) as prof:
+        pullback()
+        torch.cuda.synchronize()
+    after = fcb.launch_counts()
+    runs = {k: after[k] - before[k] for k in ("bn_apply", "bn_backward_reduce",
+                                              "bn_backward_apply")}
+    ops = big_ops(prof, n * C)
+    total = sum(by_kernel.values())
+    print(f"  one BN's backward with ReLU at [{n}, {C}] bf16: device {total:.4f} ms; launches "
+          f"{runs}; by kernel: " + ", ".join(
+              f"{k[:40]} {m:.4f}" for k, m in sorted(by_kernel.items(), key=lambda kv: -kv[1])))
+    print(f"    aten ops on [{n}, {C}]-sized tensors (calls): {ops}")
+    check(runs == {"bn_apply": 0, "bn_backward_reduce": 1, "bn_backward_apply": 1},
+          f"the BN backward did not run K7 and K8 once each: {runs}")
+    check(not any(k in ops for k in FOLDED_OPS),
+          f"the BN backward still runs a centring or gate pass: {ops}")
+    return {"shape": [n, C], "device_ms": total, "by_kernel_ms": by_kernel,
+            "launches": runs, "big_ops": ops}
+
+
 def resnet_phase(torch, F, fcb, helpers, resnet50_network, DataSet,
                  ExistingDataSetIterator, IterationListener, seed, card):
     class Scores(IterationListener):
@@ -1403,7 +1609,14 @@ def resnet_phase(torch, F, fcb, helpers, resnet50_network, DataSet,
           f"{100 * sum(conv_ms.values()) / busy_ms:.1f}% of it; device time by kernel:")
     for n, m, c in rows[:15]:
         print(f"    {m:9.3f} ms {100 * m / busy_ms:5.1f}%  x{c:<5d} {n[:70]}")
+    bn_ms = {k: sum(m for n, m, _ in rows if k in n)
+             for k in ("bn_apply_kernel", "bn_reduce_kernel", "bn_dx_kernel")}
+    st["profiled_step"]["bn_kernels_ms"] = bn_ms
+    print(f"  the BN kernels in that step: K6 {bn_ms['bn_apply_kernel']:.3f} ms, K7 (first "
+          f"pass) {bn_ms['bn_reduce_kernel']:.3f} ms, K8 {bn_ms['bn_dx_kernel']:.3f} ms")
+    st["step_ops"] = step_ops(torch, net, data[:1], ExistingDataSetIterator)
     del net, data
+    st["bn_backward_region"] = bn_backward_region(torch, fcb, seed)
 
     # helpers on vs off in f32 at batch 32 (see LOCKSTEP_BATCH)
     from deeplearning4j_tpu_torch.common.dtypes import PrecisionPolicy
@@ -1450,10 +1663,10 @@ def resnet_phase(torch, F, fcb, helpers, resnet50_network, DataSet,
         """fn() with the f32 BN pullback taken on x - mean (the same math)."""
         plain = norm_layer.bn_backward_pieces
 
-        def centered(g, x, mean, inv, gamma, n):
+        def centered(g, x, mean, inv, gamma, n, *, gate_y=None):
             if x.dtype != torch.float32:
-                return plain(g, x, mean, inv, gamma, n)
-            return plain(g, x - mean, torch.zeros_like(mean), inv, gamma, n)
+                return plain(g, x, mean, inv, gamma, n, gate_y=gate_y)
+            return plain(g, x - mean, torch.zeros_like(mean), inv, gamma, n, gate_y=gate_y)
 
         norm_layer.bn_backward_pieces = centered
         try:
@@ -1583,9 +1796,12 @@ def main(argv=None) -> int:
     print(f"[1] device: {card} ({kind}); torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}")
     t0 = time.perf_counter()
-    info = cuda_build.build_all()
+    info = cuda_build.build_all(variants=[(n, d) for n in ("bn_apply", "bn_backward")
+                                          for d in BN_SWEEP])
     print(f"  kernels built in {time.perf_counter() - t0:.2f} s")
     for name, rec in info.items():
+        if name not in cuda_build.SOURCES:
+            continue  # a swept variant: its registers are in the json record
         fn = ""
         for line in rec["log"].splitlines():
             if "Compiling entry function" in line:
@@ -1671,7 +1887,8 @@ def main(argv=None) -> int:
         "ms_source": r["ms_source"], "call_ms": r.get("call_ms"),
         "shape": r["shape"],
         **{k: r[k] for k in ("stats_rel_err", "unrounded_gap_min", "library_both_passes_ms",
-                             "shapes", "variant", "grid_ms", "us_per_step", "err_by_variant")
+                             "shapes", "variant", "grid_ms", "us_per_step", "err_by_variant",
+                             "prologue", "sweep")
            if k in r},
     } for name, r in rows.items()]
     record = {"card": card, "kind": kind, "seed": args.seed,
@@ -1679,6 +1896,7 @@ def main(argv=None) -> int:
               "train": tr,
               "train_resnet": rn,
               "build": {k: v["seconds"] for k, v in info.items()},
+              "ptxas": {k: v["log"] for k, v in info.items() if k not in cuda_build.SOURCES},
               "seconds": time.perf_counter() - t_start}
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)

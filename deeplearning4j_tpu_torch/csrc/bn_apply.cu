@@ -13,75 +13,91 @@
 // 2 * M * C * sizeof(T) bytes: 411 MB in bf16 for [128*56*56, 256], about
 // 0.12 ms at 3.35 TB/s, at 3 FLOP per element.
 //
-// Design: a grid-stride stream of 8-element vectors (16 bytes of bf16,
-// two float4 of f32) when C is a multiple of 8 and the pointers are
-// 16-byte aligned, one element at a time otherwise. One 32-bit remainder
-// per vector gives the channel; the per-channel coefficients are three
-// C-float arrays that stay in L1/L2.
-#include "conv_bn.cuh"
+// Design: bn_stream.cuh's layout. A thread owns one 16-byte unit of
+// channels (8 bf16 or 4 f32; one channel where C is not a multiple of that
+// or a pointer is not 16-byte aligned) with its mean_b, scale and shift in
+// registers, and a block takes an unrolled group of rows: all its
+// streaming loads, then the math and the streaming stores.
+#include "bn_stream.cuh"
 
 namespace {
 
-using namespace dl4j::convbn;
-
-constexpr int THREADS = 256;
+using namespace dl4j::bnstream;
 
 template <typename T, int V, bool RELU>
 __global__ void __launch_bounds__(THREADS) bn_apply_kernel(
     const T* __restrict__ x, const float* __restrict__ mean_b,
     const float* __restrict__ scale, const float* __restrict__ shift, T* __restrict__ y,
-    int units, int C) {
-  for (int u = blockIdx.x * THREADS + threadIdx.x; u < units; u += gridDim.x * THREADS) {
-    const int e = u * V;
-    const int c0 = e % C;
-    float v[V];
-    load_f32<T, V>(x + e, v);
+    Geom g) {
+  const Place p = place(g);
+  if (p.u < 0) return;
+  const int c0 = p.u * V;
+  float mb[V], sc[V], sh[V];
+  coefficients<V>(mean_b, c0, mb);
+  coefficients<V>(scale, c0, sc);
+  coefficients<V>(shift, c0, sh);
+  for (long long r0 = p.row; r0 < g.M; r0 += sweep(g)) {
+    Unit<T, V> in[UNROLL];
 #pragma unroll
-    for (int i = 0; i < V; ++i) {
-      const int c = c0 + i;
-      float r = (v[i] - mean_b[c]) * scale[c] + shift[c];
-      if (RELU) r = fmaxf(r, 0.0f);
-      v[i] = r;
+    for (int k = 0; k < UNROLL; ++k) {
+      const long long r = r0 + (long long)k * g.rows;
+      if (r < g.M) in[k].load(x + r * g.C + c0);
     }
-    store_from_f32<T, V>(y + e, v);
+#pragma unroll
+    for (int k = 0; k < UNROLL; ++k) {
+      const long long r = r0 + (long long)k * g.rows;
+      if (r < g.M) {
+        float v[V];
+        in[k].get(v);
+#pragma unroll
+        for (int i = 0; i < V; ++i) {
+          float t = fmaf(v[i] - mb[i], sc[i], sh[i]);
+          if (RELU) t = fmaxf(t, 0.0f);
+          v[i] = t;
+        }
+        Unit<T, V> out;
+        out.set(v);
+        out.store(y + r * g.C + c0);
+      }
+    }
   }
 }
 
-template <typename T, int V>
-int launch_v(const void* x, const void* mb, const void* sc, const void* sh, void* y,
-             int total, int C, int relu, cudaStream_t stream) {
-  const int units = total / V;
-  const int blocks = stream_blocks(units, THREADS);
-  const T* xp = static_cast<const T*>(x);
-  const float* mp = static_cast<const float*>(mb);
-  const float* sp = static_cast<const float*>(sc);
-  const float* hp = static_cast<const float*>(sh);
-  T* yp = static_cast<T*>(y);
-  if (relu)
-    bn_apply_kernel<T, V, true><<<blocks, THREADS, 0, stream>>>(xp, mp, sp, hp, yp, units, C);
-  else
-    bn_apply_kernel<T, V, false><<<blocks, THREADS, 0, stream>>>(xp, mp, sp, hp, yp, units, C);
+template <typename T, int V, bool RELU>
+int launch_v(const void* x, const void* mb, const void* sc, const void* sh, void* y, int M,
+             int C, cudaStream_t stream) {
+  const Geom g = geometry(M, C, V);
+  bn_apply_kernel<T, V, RELU><<<grid<bn_apply_kernel<T, V, RELU>>(g), g.rows * g.cols, 0,
+                                stream>>>(
+      static_cast<const T*>(x), static_cast<const float*>(mb), static_cast<const float*>(sc),
+      static_cast<const float*>(sh), static_cast<T*>(y), g);
   return cudaGetLastError();
 }
 
 template <typename T>
-int launch(const void* x, const void* mb, const void* sc, const void* sh, void* y,
-           int total, int C, int relu, int vec, cudaStream_t stream) {
-  if (vec) return launch_v<T, 8>(x, mb, sc, sh, y, total, C, relu, stream);
-  return launch_v<T, 1>(x, mb, sc, sh, y, total, C, relu, stream);
+int launch(const void* x, const void* mb, const void* sc, const void* sh, void* y, int M,
+           int C, int relu, int vec, cudaStream_t stream) {
+  constexpr int V = 16 / sizeof(T);
+  if (vec)
+    return relu ? launch_v<T, V, true>(x, mb, sc, sh, y, M, C, stream)
+                : launch_v<T, V, false>(x, mb, sc, sh, y, M, C, stream);
+  return relu ? launch_v<T, 1, true>(x, mb, sc, sh, y, M, C, stream)
+              : launch_v<T, 1, false>(x, mb, sc, sh, y, M, C, stream);
 }
 
 }  // namespace
 
-// x, y [total / C, C]; mean_b, scale, shift [C] f32. vec = 1 takes the
-// 8-wide path (the wrapper checks C % 8 == 0 and 16-byte alignment).
-// dtype: 0 = f32, 1 = bf16. Returns cudaGetLastError() after the launch.
+// x, y [M, C]; mean_b, scale, shift [C] f32. vec = 1 takes the 16-byte
+// units (the wrapper checks C % (16 / sizeof(T)) == 0 and 16-byte
+// alignment of x and y). dtype: 0 = f32, 1 = bf16. Returns
+// cudaGetLastError() after the launch.
 extern "C" int bn_apply(int dtype, const void* x, const void* mean_b, const void* scale,
-                        const void* shift, void* y, int total, int C, int relu, int vec,
+                        const void* shift, void* y, int M, int C, int relu, int vec,
                         void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch<float>(x, mean_b, scale, shift, y, total, C, relu, vec, s);
+  if (M < 1 || C < 1) return cudaErrorInvalidValue;
+  if (dtype == 0) return launch<float>(x, mean_b, scale, shift, y, M, C, relu, vec, s);
   if (dtype == 1)
-    return launch<__nv_bfloat16>(x, mean_b, scale, shift, y, total, C, relu, vec, s);
+    return launch<__nv_bfloat16>(x, mean_b, scale, shift, y, M, C, relu, vec, s);
   return cudaErrorInvalidValue;
 }

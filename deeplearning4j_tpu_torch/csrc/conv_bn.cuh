@@ -1,8 +1,8 @@
-// Shared pieces of the conv/BN kernels (K4-K8): the two product engines of
+// Shared pieces of the conv/BN kernels (K4, K5, K7): the two product engines of
 // K4 and K5 with their BN-statistics epilogues, used by conv1x1_stats.cu
 // and conv_kxk_stats.cu; the fixed-order column sum that combines per-tile
-// partial sums (the second stage of every statistics reduction here); and
-// vector loads for the streaming passes of bn_apply.cu and bn_backward.cu.
+// partial sums (the second stage of every statistics reduction here, K7's
+// too).
 //
 // With conv1x1_stats.cu and conv_kxk_stats.cu this replaces
 // deeplearning4j_tpu/ops/pallas_conv_bn.py `_mm_stats_call` ->
@@ -695,35 +695,6 @@ cudaError_t launch_conv_stats(int dtype, int variant, int bn, int stages, int ti
   if (e != cudaSuccess) return e;
   return launch_column_sums(part1, part2, static_cast<float*>(s1), static_cast<float*>(s2), P,
                             N, stream, /*chunk_rows=*/256);
-}
-
-// -- vector access for the streaming passes ---------------------------------
-
-template <typename T, int V>
-struct alignas(sizeof(T) * V) Vec {
-  T v[V];
-};
-
-template <typename T, int V>
-__device__ __forceinline__ void load_f32(const T* __restrict__ p, float* out) {
-  const Vec<T, V> q = *reinterpret_cast<const Vec<T, V>*>(p);
-#pragma unroll
-  for (int i = 0; i < V; ++i) out[i] = to_f32(q.v[i]);
-}
-
-template <typename T, int V>
-__device__ __forceinline__ void store_from_f32(T* __restrict__ p, const float* in) {
-  Vec<T, V> q;
-#pragma unroll
-  for (int i = 0; i < V; ++i) q.v[i] = from_f32<T>(in[i]);
-  *reinterpret_cast<Vec<T, V>*>(p) = q;
-}
-
-// Blocks for a grid-stride pass over `units` work items of NT threads.
-inline int stream_blocks(long long units, int threads) {
-  long long b = (units + threads - 1) / threads;
-  const long long cap = 132LL * 16;  // enough blocks to fill every SM
-  return (int)(b < 1 ? 1 : (b > cap ? cap : b));
 }
 
 }  // namespace convbn

@@ -94,7 +94,7 @@ def _scan_lstm(conf, params, x, ctx, peephole: bool, prefix: str = "", reverse: 
         step_helper = get_helper(
             "lstm_decode_step", peephole=peephole,
             gate_act=conf.gate_activation, cell_act=conf.activation,
-            device=x.device,
+            device=x.device, H=H, dtype=x.dtype,
         )
         if step_helper is not None:
             pv = _peepholes(params, prefix, peephole, H, x)
@@ -106,10 +106,16 @@ def _scan_lstm(conf, params, x, ctx, peephole: bool, prefix: str = "", reverse: 
             else:
                 return hF[:, None, :], (hF, cF)
 
+    # the sequence kernels' probe also needs the shape, and whether a
+    # backward will run through the call (the backward kernel's variants
+    # take fewer shapes than the forward's)
+    backward = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (xg, RW, h0, c0, *params.values()))
     helper = get_helper(
         "lstm_sequence", peephole=peephole, mask=ctx.mask,
         gate_act=conf.gate_activation, cell_act=conf.activation,
-        reverse=reverse, device=x.device,
+        reverse=reverse, device=x.device, B=bsz, H=H, dtype=x.dtype,
+        backward=backward,
     )
     if helper is not None:
         pv = _peepholes(params, prefix, peephole, H, x)

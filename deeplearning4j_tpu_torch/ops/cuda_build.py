@@ -8,6 +8,10 @@ flags, so an unchanged tree reuses its libraries and an edited one
 rebuilds. `build_all()` starts one `nvcc` per source at once and waits
 for all of them. `entry()` binds one C entry point; `require_hopper()` and
 `on_hopper()` are the device checks every kernel wrapper and probe share.
+
+A source may also be built with extra `-D` defines into a library of its
+own (`variant_library`): the compile-time knobs a kernel sweep varies
+(csrc/bn_stream.cuh). The wrappers always load the plain build.
 """
 
 from __future__ import annotations
@@ -28,7 +32,7 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 SOURCES = ("lstm_step", "lstm_sequence", "lstm_sequence_bwd", "conv1x1_stats",
            "conv_kxk_stats", "bn_apply", "bn_backward")
-_HEADERS = ("common.cuh", "conv_bn.cuh", "lstm_cluster.cuh")
+_HEADERS = ("common.cuh", "conv_bn.cuh", "bn_stream.cuh", "lstm_cluster.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -50,46 +54,58 @@ def _nvcc() -> str:
     return found
 
 
-def _lib_path(name: str) -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+def _define_flags(defines) -> list:
+    return [f"-D{k}={v}" for k, v in defines]
+
+
+def _key(name: str, defines=()) -> str:
+    """build_info's key: the source's name, with the defines of a variant."""
+    return name + "".join(f" {k}={v}" for k, v in defines)
+
+
+def _lib_path(name: str, defines=()) -> str:
+    h = hashlib.sha256(" ".join((*NVCC_FLAGS, *_define_flags(defines))).encode())
     for f in (f"{name}.cu",) + _HEADERS:
         with open(os.path.join(CSRC, f), "rb") as fh:
             h.update(fh.read())
     return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:16]}.so")
 
 
-def _start(name: str) -> Tuple[str, str, subprocess.Popen]:
-    out = _lib_path(name)
+def _start(name: str, defines=()) -> Tuple[str, str, subprocess.Popen]:
+    out = _lib_path(name, defines)
     tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, f"{name}.cu")]
+    cmd = [_nvcc(), *NVCC_FLAGS, *_define_flags(defines), "-o", tmp,
+           os.path.join(CSRC, f"{name}.cu")]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
     return out, tmp, proc
 
 
-def build_all(names=SOURCES) -> Dict[str, dict]:
-    """Build every missing library, one `nvcc` per source in parallel.
-    Raises with the compiler's output if any build fails."""
+def build_all(names=SOURCES, variants=()) -> Dict[str, dict]:
+    """Build every missing library, one `nvcc` per source (and per
+    variant: (name, ((define, value), ...))) in parallel. Raises with the
+    compiler's output if any build fails."""
     with _lock:
         os.makedirs(BUILD_DIR, exist_ok=True)
         t0 = time.perf_counter()
         running = []
-        for name in names:
-            if os.path.exists(_lib_path(name)):
-                build_info.setdefault(name, {"seconds": 0.0, "log": ""})
+        for name, defines in [(n, ()) for n in names] + [(n, tuple(d)) for n, d in variants]:
+            key = _key(name, defines)
+            if os.path.exists(_lib_path(name, defines)):
+                build_info.setdefault(key, {"seconds": 0.0, "log": ""})
             else:
-                running.append((name, *_start(name)))
+                running.append((key, *_start(name, defines)))
         errors = []
-        for name, out, tmp, proc in running:
+        for key, out, tmp, proc in running:
             try:
                 log, _ = proc.communicate()
             finally:
                 if proc.poll() is None:
                     proc.kill()
-            build_info[name] = {"seconds": time.perf_counter() - t0,
-                                "log": log}
+            build_info[key] = {"seconds": time.perf_counter() - t0,
+                               "log": log}
             if proc.returncode != 0:
-                errors.append(f"nvcc failed for {name}.cu:\n{log}")
+                errors.append(f"nvcc failed for {key}:\n{log}")
             else:
                 os.replace(tmp, out)
         if errors:
@@ -111,6 +127,18 @@ def library(name: str) -> ctypes.CDLL:
     return lib
 
 
+def variant_library(name: str, defines) -> ctypes.CDLL:
+    """`csrc/<name>.cu` built with `-D` defines ((define, value), ...) into
+    a library of its own, built first if needed. Loaded anew on each
+    call: only a sweep uses it."""
+    defines = tuple(defines)
+    build_all((), variants=((name, defines),))
+    lib = ctypes.CDLL(_lib_path(name, defines))
+    lib.dl4j_error_string.argtypes = [ctypes.c_int]
+    lib.dl4j_error_string.restype = ctypes.c_char_p
+    return lib
+
+
 def check(lib: ctypes.CDLL, code: int, what: str) -> None:
     """Raise if a C entry point returned a non-zero CUDA error code."""
     if code != 0:
@@ -127,11 +155,16 @@ def entry(lib_name: str, fn_name: str, n_ptr: int, n_int: int):
     kernel here exports: int fn(int dtype, n_ptr pointers, n_int ints,
     void* stream), returning a CUDA error code."""
     lib = library(lib_name)
+    return lib, entry_of(lib, fn_name, n_ptr, n_int)
+
+
+def entry_of(lib: ctypes.CDLL, fn_name: str, n_ptr: int, n_int: int):
+    """`entry`'s bound function, from a library already loaded."""
     fn = getattr(lib, fn_name)
     if fn.argtypes is None:
         fn.argtypes = [_I] + [_P] * n_ptr + [_I] * n_int + [_P]
         fn.restype = _I
-    return lib, fn
+    return fn
 
 
 def on_hopper(device) -> bool:

@@ -9,7 +9,10 @@ The port of the JAX package's ops/pallas_conv_bn.py. Five kernels:
   that follows needs no pass of its own over y for its statistics.
 - K6 `bn_normalize` (csrc/bn_apply.cu): the BN apply, with or without ReLU.
 - K7 `bn_backward_reduce` and K8 `bn_backward_apply` (csrc/bn_backward.cu):
-  the BN pullback's reduce and apply passes.
+  the BN pullback's reduce and apply passes. Both take the ReLU gate
+  (`gate_y2`: g where the saved output y > 0, else 0) and the bf16
+  centring (`mean_b`: x - mean_b rounded to x's dtype) as a prologue on
+  their loads, so neither tensor is materialised.
 
 Around them, as in the JAX package: `conv2d_bn_stats` (K4/K5 forward, the
 two transposed convolutions as its backward) and `bn_apply` (K6 forward;
@@ -199,17 +202,33 @@ def bn_normalize_reference(x2, mean_b, scale, shift, relu):
     return y.to(x2.dtype)
 
 
-def bn_backward_reduce_reference(g2, x2):
+def bn_backward_prologue(g2, x2, *, mean_b=None, gate_y2=None):
+    """The pullback kernels' prologue as tensors: g2 gated by the ReLU's
+    saved output (torch.where(gate_y2 > 0, g2, 0)) when `gate_y2` is
+    given, and x2 centred (x2 - mean_b, rounded to x2's dtype, as the
+    subtraction in that dtype rounds) when `mean_b` is given."""
+    if gate_y2 is not None:
+        g2 = torch.where(gate_y2 > 0, g2, torch.zeros_like(g2))
+    if mean_b is not None:
+        f = _math_dtype(x2.dtype)
+        x2 = (x2.to(f) - mean_b.to(f)).to(x2.dtype)
+    return g2, x2
+
+
+def bn_backward_reduce_reference(g2, x2, *, mean_b=None, gate_y2=None):
     """Plain version of `bn_backward_reduce`: (sum g, sum g*x) per channel
-    in the math dtype."""
+    in the math dtype, of g and x after `bn_backward_prologue`."""
+    g2, x2 = bn_backward_prologue(g2, x2, mean_b=mean_b, gate_y2=gate_y2)
     f = _math_dtype(g2.dtype)
     gf = g2.to(f)
     return gf.sum(0), (gf * x2.to(f)).sum(0)
 
 
-def bn_backward_apply_reference(g2, x2, c1, c3, c0):
-    """Plain version of `bn_backward_apply`: dx2 = c1*g2 - c3*x2 + c0,
-    math in f32 (f64), dx2 in g2's dtype."""
+def bn_backward_apply_reference(g2, x2, c1, c3, c0, *, mean_b=None, gate_y2=None):
+    """Plain version of `bn_backward_apply`: dx2 = c1*g2 - c3*x2 + c0 of g
+    and x after `bn_backward_prologue`, math in f32 (f64), dx2 in g2's
+    dtype."""
+    g2, x2 = bn_backward_prologue(g2, x2, mean_b=mean_b, gate_y2=gate_y2)
     f = _math_dtype(g2.dtype)
     dx = c1.to(f) * g2.to(f) - c3.to(f) * x2.to(f) + c0.to(f)
     return dx.to(g2.dtype)
@@ -250,16 +269,20 @@ def _launch(lib_name, fn_name, n_ptr, n_int, dev, ptrs, ints, what):
     lib, fn = cuda_build.entry(lib_name, fn_name, n_ptr, n_int)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
-        code = fn(ptrs[0], *(a.data_ptr() for a in ptrs[1:]), *ints, stream)
+        code = fn(ptrs[0], *(None if a is None else a.data_ptr() for a in ptrs[1:]),
+                  *ints, stream)
     cuda_build.check(lib, code, what)
     _bump(fn_name)
     return lib
 
 
 def _vec_ok(C: int, *tensors) -> int:
-    """1 when the 8-wide vector path applies: C % 8 == 0 and every tensor
-    16-byte aligned."""
-    return int(C % 8 == 0 and all(t.data_ptr() % 16 == 0 for t in tensors))
+    """1 when the streaming kernels' 16-byte units apply: C a multiple of
+    the channels in 16 bytes (8 bf16, 4 f32) and every given tensor
+    16-byte aligned (None: not given)."""
+    tensors = [t for t in tensors if t is not None]
+    per_unit = 16 // tensors[0].element_size()
+    return int(C % per_unit == 0 and all(t.data_ptr() % 16 == 0 for t in tensors))
 
 
 # The conv kernels' engines (csrc/conv_bn.cuh). Every tile has TILE_M rows
@@ -382,10 +405,12 @@ def bn_normalize(x2, mean_b, scale, shift, relu: bool):
         return bn_normalize_reference(x2, mean_b, scale, shift, relu)
     cuda_build.require_hopper(x2.device)
     y = torch.empty_like(x2)
-    C = x2.shape[1]
+    M, C = x2.shape
+    if y.numel() == 0:
+        return y
     _launch("bn_apply", "bn_apply", 5, 4, x2.device,
             [_DTYPE_CODES[x2.dtype], x2, mean_b, scale, shift, y],
-            [x2.numel(), C, int(bool(relu)), _vec_ok(C, x2, y)],
+            [M, C, int(bool(relu)), _vec_ok(C, x2, y)],
             "bn_apply launch")
     return y
 
@@ -396,42 +421,55 @@ def _reduce_chunks(M: int) -> int:
     return max(1, min(1024, -(-M // 64)))
 
 
-def bn_backward_reduce(g2, x2):
-    """K7. g2, x2 [M, C] in one dtype -> (sum_g, sum_gx) [C] f32."""
+def _check_prologue(g2, x2, mean_b, gate_y2, **vecs):
+    """The pullback kernels' inputs: g2 [M, C], x2 and gate_y2 (if given)
+    of the same shape and dtype, and mean_b (if given) and the other
+    per-channel vectors [C] in the math dtype."""
     if g2.dim() != 2:
         raise ValueError(f"g2 must be [M, C], got {tuple(g2.shape)}")
     M, C = g2.shape
-    _check({"g2": g2, "x2": x2}, {"x2": (M, C)})
-    _same_dtype(g2.dtype, x2=x2)
+    gate = {} if gate_y2 is None else {"gate_y2": gate_y2}
+    centre = {} if mean_b is None else {"mean_b": mean_b}
+    _check({"g2": g2, "x2": x2, **gate, **centre, **vecs}, {"x2": (M, C), "gate_y2": (M, C)})
+    _same_dtype(g2.dtype, x2=x2, **gate)
+    _per_channel_check(g2, **vecs, **centre)
+    return M, C
+
+
+def bn_backward_reduce(g2, x2, *, mean_b=None, gate_y2=None):
+    """K7. g2, x2 [M, C] in one dtype -> (sum_g, sum_gx) [C] f32, with the
+    prologue of `bn_backward_prologue` on the loads: the ReLU gate when
+    `gate_y2` [M, C] (the saved BN output) is given, the centring x2 -
+    mean_b when `mean_b` [C] (math dtype) is given."""
+    M, C = _check_prologue(g2, x2, mean_b, gate_y2)
     if not g2.is_cuda:
-        return bn_backward_reduce_reference(g2, x2)
+        return bn_backward_reduce_reference(g2, x2, mean_b=mean_b, gate_y2=gate_y2)
     cuda_build.require_hopper(g2.device)
     dev, f32 = g2.device, torch.float32
     chunks = _reduce_chunks(M)
     sg, sgx = torch.empty(C, dtype=f32, device=dev), torch.empty(C, dtype=f32, device=dev)
     part = torch.empty((2, chunks, C), dtype=f32, device=dev)
-    _launch("bn_backward", "bn_backward_reduce", 5, 3, dev,
-            [_DTYPE_CODES[g2.dtype], g2, x2, sg, sgx, part], [M, C, chunks],
-            "bn_backward_reduce launch")
+    _launch("bn_backward", "bn_backward_reduce", 7, 3, dev,
+            [_DTYPE_CODES[g2.dtype], g2, x2, mean_b, gate_y2, sg, sgx, part],
+            [M, C, chunks], "bn_backward_reduce launch")
     return sg, sgx
 
 
-def bn_backward_apply(g2, x2, c1, c3, c0):
+def bn_backward_apply(g2, x2, c1, c3, c0, *, mean_b=None, gate_y2=None):
     """K8. g2, x2 [M, C] in one dtype; c1, c3, c0 [C] f32 (f64 for f64) ->
-    dx2 = c1*g2 - c3*x2 + c0 in g2's dtype."""
-    if g2.dim() != 2:
-        raise ValueError(f"g2 must be [M, C], got {tuple(g2.shape)}")
-    M, C = g2.shape
-    _check({"g2": g2, "x2": x2, "c1": c1, "c3": c3, "c0": c0}, {"x2": (M, C)})
-    _same_dtype(g2.dtype, x2=x2)
-    _per_channel_check(g2, c1=c1, c3=c3, c0=c0)
+    dx2 = c1*g2 - c3*x2 + c0 in g2's dtype, with the prologue of
+    `bn_backward_prologue` on the loads (see `bn_backward_reduce`)."""
+    M, C = _check_prologue(g2, x2, mean_b, gate_y2, c1=c1, c3=c3, c0=c0)
     if not g2.is_cuda:
-        return bn_backward_apply_reference(g2, x2, c1, c3, c0)
+        return bn_backward_apply_reference(g2, x2, c1, c3, c0, mean_b=mean_b,
+                                           gate_y2=gate_y2)
     cuda_build.require_hopper(g2.device)
     dx = torch.empty_like(g2)
-    _launch("bn_backward", "bn_backward_apply", 6, 3, g2.device,
-            [_DTYPE_CODES[g2.dtype], g2, x2, c1, c3, c0, dx],
-            [g2.numel(), C, _vec_ok(C, g2, x2, dx)], "bn_backward_apply launch")
+    if dx.numel() == 0:
+        return dx
+    _launch("bn_backward", "bn_backward_apply", 8, 3, g2.device,
+            [_DTYPE_CODES[g2.dtype], g2, x2, mean_b, gate_y2, c1, c3, c0, dx],
+            [M, C, _vec_ok(C, g2, x2, gate_y2, dx)], "bn_backward_apply launch")
     return dx
 
 
@@ -501,7 +539,8 @@ def _bn_fwd(x, s1, s2, gamma, beta, eps, n, relu):
 class BNApply(torch.autograd.Function):
     """(y, mean, var) = BNApply.apply(x, s1, s2, gamma, beta, eps, n, relu):
     training-mode BN from the conv's raw moments, forward on K6, backward
-    (ReLU gate, then K7 + K8) through `bn_backward_pieces`. mean and var
+    (K7 + K8, with the ReLU gate on their loads) through
+    `bn_backward_pieces`. mean and var
     feed the running averages only and carry no gradient; s1 and s2 get a
     zero cotangent, since dx is the total derivative."""
 
@@ -516,10 +555,8 @@ class BNApply(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g, _dmean, _dvar):
         x, gamma, mean, inv, y = ctx.saved_tensors
-        g = g.to(x.dtype)
-        if ctx.relu:
-            g = torch.where(y > 0, g, torch.zeros_like(g))
-        dx, dgamma, dbeta = bn_backward_pieces(g, x, mean, inv, gamma, ctx.n)
+        dx, dgamma, dbeta = bn_backward_pieces(g.to(x.dtype), x, mean, inv, gamma, ctx.n,
+                                               gate_y=y if ctx.relu else None)
         return (dx, None, None, dgamma.to(gamma.dtype), dbeta.to(gamma.dtype),
                 None, None, None)
 
@@ -533,15 +570,19 @@ def bn_apply(x, s1, s2, gamma, beta, eps, n, relu):
 # -- the BN pullback ------------------------------------------------------------
 
 
-def bn_backward_fused(g, x_for_dx, center, gamma, inv, n):
+def bn_backward_fused(g, x_for_dx, center, gamma, inv, n, *, mean_b=None, gate_y=None):
     """The fused-BN pullback in two kernels (K7 reduce, K8 apply).
 
-    g: cotangent in the activation dtype (ReLU-gated already if fused);
-    x_for_dx: the tensor dx is affine in — x - bf16(mean) for bf16, raw x
-    for f32; center: the per-channel recentering constant in the math dtype
-    — delta (the mean's rounding error) for bf16, the mean for f32 — so
-    sum_gx = sum(g * x_for_dx) - center * sum(g); gamma, inv: scale and
-    rsqrt(var + eps); n: elements per channel.
+    g: cotangent in the activation dtype; x_for_dx: the tensor dx is
+    affine in — x - bf16(mean) for bf16, raw x for f32; center: the
+    per-channel recentering constant in the math dtype — delta (the mean's
+    rounding error) for bf16, the mean for f32 — so sum_gx = sum(g *
+    x_for_dx) - center * sum(g); gamma, inv: scale and rsqrt(var + eps);
+    n: elements per channel. The kernels form two inputs on their loads:
+    with `gate_y` (the saved BN output, g's shape) g is ReLU-gated,
+    where(gate_y > 0, g, 0); with `mean_b` ([C], the batch mean rounded to
+    x's dtype) the second argument is raw x and x_for_dx = x - mean_b,
+    rounded to x's dtype. Neither tensor is materialised.
 
     Returns (dx, dgamma, dbeta): dx in g's dtype, dgamma and dbeta in the
     math dtype. The coefficient algebra is the JAX package's exactly."""
@@ -549,40 +590,46 @@ def bn_backward_fused(g, x_for_dx, center, gamma, inv, n):
     acc = _math_dtype(g.dtype)
     g2 = g.contiguous().reshape(n, c)
     x2 = x_for_dx.contiguous().reshape(n, c)
-    sum_g, sgx_raw = bn_backward_reduce(g2, x2)
+    pro = {"mean_b": None if mean_b is None else mean_b.to(acc).contiguous(),
+           "gate_y2": None if gate_y is None else gate_y.contiguous().reshape(n, c)}
+    sum_g, sgx_raw = bn_backward_reduce(g2, x2, **pro)
     center = center.to(acc)
     sum_gx = sgx_raw - center * sum_g
     gamma_f = gamma.to(acc)
     c1 = gamma_f * inv
     c3 = gamma_f * inv * inv * inv * sum_gx / n
     c0 = -(c1 * sum_g / n) + c3 * center
-    dx2 = bn_backward_apply(g2, x2, c1, c3, c0)
+    dx2 = bn_backward_apply(g2, x2, c1, c3, c0, **pro)
     return dx2.reshape(g.shape), inv * sum_gx, sum_g
 
 
-def bn_backward_pieces(g, x, mean, inv, gamma, n):
-    """(x_for_dx, center) for the dtype's recentering, then the fused
-    pullback if the "bn_backward" helper engages, else the builtin
-    reductions — shared by `BNApply` and nn/layers/norm.py's builtin BN.
-    Returns (dx, dgamma, dbeta) in (x.dtype, math dtype, math dtype)."""
+def bn_backward_pieces(g, x, mean, inv, gamma, n, *, gate_y=None):
+    """The BN pullback from the saved x, shared by `BNApply` and
+    nn/layers/norm.py's builtin BN: g ReLU-gated by the saved output
+    `gate_y` when given, the dtype's recentering (bf16: x - bf16(mean) and
+    center = the mean's rounding error; f32: raw x and center = mean), then
+    the fused pullback if the "bn_backward" helper engages — which forms
+    the gated g and the centred x on its loads from raw x, `mean_b` and
+    `gate_y` — else the builtin reductions on both materialised in plain
+    torch. Returns (dx, dgamma, dbeta) in (x.dtype, math dtype, math
+    dtype)."""
     from deeplearning4j_tpu_torch.ops.helpers import HelperError, get_helper
 
     c = x.shape[-1]
     acc = _math_dtype(x.dtype)
-    if x.dtype == torch.bfloat16:
-        mean_b = mean.to(x.dtype)
-        center = mean - mean_b.to(acc)  # delta: the mean's rounding error
-        x_for_dx = x - mean_b
-    else:
-        center = mean
-        x_for_dx = x
+    mean_b = mean.to(x.dtype) if x.dtype == torch.bfloat16 else None
+    # delta (the mean's rounding error) for bf16, the mean for f32
+    center = mean if mean_b is None else mean - mean_b.to(acc)
     helper = get_helper("bn_backward", x_shape=tuple(x.shape), dtype=x.dtype,
                         training=True, device=x.device)
     if helper is not None:
         try:
-            return helper(g, x_for_dx, center, gamma, inv, n)
+            return helper(g, x, center, gamma, inv, n, mean_b=mean_b, gate_y=gate_y)
         except HelperError:
             pass  # the helper disabled itself; builtin path below
+    if gate_y is not None:
+        g = torch.where(gate_y > 0, g, torch.zeros_like(g))
+    x_for_dx = x if mean_b is None else x - mean_b
     if x.dtype == torch.bfloat16:
         # bf16 products, f32 sums: the JAX package's ones-vector dots
         g2, x2 = g.reshape(n, c), x_for_dx.reshape(n, c)

@@ -213,6 +213,9 @@ def lstm_step(xg, rw, pI, pF, pO, h0, c0):
     if not xg.is_cuda:
         return lstm_step_reference(xg, rw, pI, pF, pO, h0, c0)
     cuda_build.require_hopper(xg.device)
+    if step_smem(H) > SMEM_LIMIT:
+        raise ValueError(f"the decode-step kernel needs {step_smem(H)} bytes of "
+                         f"shared memory at H={H} (limit {SMEM_LIMIT})")
     lib, fn = cuda_build.entry("lstm_step", "lstm_step", 9, 2)
     h1, c1 = torch.empty_like(h0), torch.empty_like(c0)
     stream = torch.cuda.current_stream(xg.device).cuda_stream
@@ -225,6 +228,10 @@ def lstm_step(xg, rw, pI, pF, pO, h0, c0):
 
 
 # -- variants ---------------------------------------------------------------
+
+# the decode-step kernel (csrc/lstm_step.cu): a block owns 8 hidden units
+# (32 gate columns) of 8 batch rows
+STEP_COLS, STEP_ROWS = 32, 8
 
 # The cluster kernels (csrc/lstm_cluster.cuh): C CTAs a cluster, R batch
 # rows a cluster, U = ceil(H / C) hidden units a CTA, at most 32 (one lane
@@ -471,26 +478,62 @@ def lstm_sequence(xg, rw, pI, pF, pO, h0, c0):
 # -- probes and registration --------------------------------------------------
 
 
-def step_supported(*, peephole, gate_act, cell_act, device=None, **_):
+def step_smem(H: int) -> int:
+    """Shared memory (bytes) one block of the decode-step kernel K2 uses at
+    hidden size H: its RW column slice [H, 32] and h rows [8, H] in f32
+    (dynamic), and its gate pre-activations [8, 32] (static)."""
+    return 4 * (H * STEP_COLS + STEP_ROWS * H) + 4 * STEP_ROWS * STEP_COLS
+
+
+def _sequence_fits(B: int, H: int, backward: bool) -> bool:
+    """True where a forward sequence kernel variant takes (B, H), and a
+    backward one too when `backward` (`lstm_variant` raises where none
+    does; its choice does not depend on the dtype)."""
+    try:
+        lstm_variant(B, H, torch.float32)
+        if backward:
+            lstm_variant(B, H, torch.float32, backward=True)
+    except ValueError:
+        return False
+    return True
+
+
+def step_supported(*, peephole, gate_act, cell_act, device=None, H=None,
+                   dtype=None, **_):
     """Probe for the decode-step kernel: sigmoid gates + tanh cell,
-    peepholes optional, on a CUDA device of compute capability >= 9.0.
+    peepholes optional, f32 or bf16, hidden size H within K2's shared
+    memory (`step_smem`), on a CUDA device of compute capability >= 9.0.
     The call site consults it only for unmasked stateful inference
-    steps."""
+    steps, and gives H and dtype (a probe without them checks neither)."""
     del peephole
     if gate_act not in ("sigmoid",) or cell_act not in ("tanh",):
+        return False
+    if dtype is not None and dtype not in _DTYPE_CODES:
+        return False
+    if H is not None and step_smem(H) > SMEM_LIMIT:
         return False
     return cuda_build.on_hopper(device)
 
 
-def supported(*, peephole, mask, gate_act, cell_act, reverse, device=None, **_):
+def supported(*, peephole, mask, gate_act, cell_act, reverse, device=None,
+              B=None, H=None, dtype=None, backward=False, **_):
     """Probe for the sequence kernels: sigmoid gates + tanh cell, forward
     direction, no time mask, on a CUDA device of compute capability
-    >= 9.0 — the JAX probe's scope. Calls that need gradients are taken
-    too: `LSTMSequence` runs their backward on the backward kernel."""
+    >= 9.0, at a batch B and hidden size H that a forward kernel variant
+    takes, and a backward variant too when `backward` (the call records a
+    graph that a backward will run through). The call site gives B, H,
+    dtype and `backward` (a probe without them checks none of them).
+    Where no variant takes the shape the probe
+    declines and the layer runs its builtin loop; a kernel that is chosen
+    and fails still raises."""
     del peephole
     if reverse or mask is not None:
         return False
     if gate_act not in ("sigmoid",) or cell_act not in ("tanh",):
+        return False
+    if dtype is not None and dtype not in _DTYPE_CODES:
+        return False
+    if B is not None and H is not None and not _sequence_fits(B, H, backward):
         return False
     return cuda_build.on_hopper(device)
 

@@ -134,6 +134,133 @@ def test_bn_backward_fused_matches_jax(dtype):
         _close(p, r, "float32" if dtype == "float32" else dtype)
 
 
+def _pullback_inputs(seed, c, dtype):
+    """g, x, the saved BN output y (about half <= 0), mean_b (the mean
+    rounded to dtype, as f32), center, gamma, inv: numpy, n = 48 rows."""
+    rng = np.random.default_rng(seed)
+    shape = (3, 4, 4, c)
+    g, x, y = (rng.standard_normal(shape) for _ in range(3))
+    x = x * 0.5 + 0.3
+    y[0, 0, 0, :2] = 0.0  # y == 0 is gated too
+    mean = (rng.standard_normal(c) * 0.2 + 0.3).astype(np.float32)
+    mean_b = _np(torch.from_numpy(mean).to(DTYPES[dtype][1])).astype(np.float32)
+    center = (rng.standard_normal(c) * 0.01).astype(np.float32)
+    gamma = (rng.standard_normal(c) * 0.2 + 1.0).astype(np.float32)
+    inv = (rng.random(c) + 0.5).astype(np.float32)
+    return g, x, y, mean_b, center, gamma, inv
+
+
+@pytest.mark.parametrize("c", [8, 37, 64])
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_bn_pullback_with_gate_and_centring_matches_jax(dtype, c):
+    """K7 and K8's plain versions and `bn_backward_fused` with the ReLU
+    gate (gate_y) and the centring (mean_b) on their loads, against the
+    JAX package's kernels fed the gate and the centring composed in JAX."""
+    g, x, y, mean_b, center, gamma, inv = _pullback_inputs(5, c, dtype)
+    n = 48
+    (jg, tg), (jx, tx), (jy, ty) = (_both(a, dtype) for a in (g, x, y))
+    jd = DTYPES[dtype][0]
+    jg_gated = jnp.where(jy > 0, jg, jnp.zeros_like(jg))
+    jxc = jx - jnp.broadcast_to(jnp.asarray(mean_b).astype(jd), jx.shape)
+    vec = [jnp.asarray(a) for a in (center, gamma, inv)]
+    jout = pcb.bn_backward_fused(jg_gated, jxc, *vec, n)
+    tout = fcb.bn_backward_fused(tg, tx, *(torch.from_numpy(a) for a in (center, gamma, inv)),
+                                 n, mean_b=torch.from_numpy(mean_b), gate_y=ty)
+    assert tout[0].dtype == tg.dtype
+    _close(tout[0], jout[0], dtype)
+    for p, r in zip(tout[1:], jout[1:]):  # dgamma, dbeta: f32 sums
+        _close(p, r, "float32" if dtype == "float32" else dtype)
+    # the two kernels' plain versions on their own
+    jg2, jx2 = jg_gated.reshape(n, c), jxc.reshape(n, c)
+    pro = dict(mean_b=torch.from_numpy(mean_b), gate_y2=ty.reshape(n, c))
+    tg2, tx2 = tg.reshape(n, c), tx.reshape(n, c)
+    for p, r in zip(fcb.bn_backward_reduce_reference(tg2, tx2, **pro),
+                    pcb._bnb_reduce_call(jg2, jx2)):
+        _close(p, r[0], "float32" if dtype == "float32" else dtype)
+    coef = [(np.random.default_rng(6).standard_normal(c) * 0.5 + 1.0).astype(np.float32)
+            for _ in range(3)]
+    _close(fcb.bn_backward_apply_reference(tg2, tx2, *(torch.from_numpy(a) for a in coef),
+                                           **pro),
+           pcb._bnb_apply_call(jg2, jx2, *(jnp.asarray(a)[None, :] for a in coef)), dtype)
+
+
+@pytest.mark.parametrize("c", [8, 37])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float64"])
+def test_bn_pullback_prologue_equals_the_materialised_tensors(dtype, c):
+    """With `gate_y`/`mean_b` given, the port's plain path gives the same
+    tensors, bit for bit, as with them left None and the gated g
+    (torch.where(y > 0, g, 0)) and the centred x (x - mean_b in x's dtype)
+    materialised: K7, K8 (wrapper and plain version) and
+    `bn_backward_fused`."""
+    td = getattr(torch, dtype)
+    g, x, y, mean_b, center, gamma, inv = _pullback_inputs(7, c, "bfloat16")
+    tg, tx, ty = (torch.from_numpy(a).to(td) for a in (g, x, y))
+    acc = torch.promote_types(td, torch.float32)
+    mb = torch.from_numpy(mean_b).to(acc)
+    g_gated = torch.where(ty > 0, tg, torch.zeros_like(tg))
+    x_centred = tx - mb.to(td)
+    n = 48
+    g2, x2, y2 = (t.reshape(n, c) for t in (tg, tx, ty))
+    gm2, xm2 = g_gated.reshape(n, c), x_centred.reshape(n, c)
+    coef = [torch.from_numpy(np.random.default_rng(8).standard_normal(c) + 1.0).to(acc)
+            for _ in range(3)]
+    for fn in (fcb.bn_backward_reduce, fcb.bn_backward_reduce_reference):
+        for p, r in zip(fn(g2, x2, mean_b=mb, gate_y2=y2), fn(gm2, xm2)):
+            assert torch.equal(p, r)
+    for fn in (fcb.bn_backward_apply, fcb.bn_backward_apply_reference):
+        assert torch.equal(fn(g2, x2, *coef, mean_b=mb, gate_y2=y2), fn(gm2, xm2, *coef))
+    # each keyword alone
+    assert torch.equal(fcb.bn_backward_apply(g2, x2, *coef, gate_y2=y2),
+                       fcb.bn_backward_apply(gm2, x2, *coef))
+    assert torch.equal(fcb.bn_backward_apply(g2, x2, *coef, mean_b=mb),
+                       fcb.bn_backward_apply(g2, xm2, *coef))
+    vec = [torch.from_numpy(a).to(acc) for a in (center, gamma, inv)]
+    for p, r in zip(fcb.bn_backward_fused(tg, tx, *vec, n, mean_b=mb, gate_y=ty),
+                    fcb.bn_backward_fused(g_gated, x_centred, *vec, n)):
+        assert torch.equal(p, r)
+
+
+def test_bn_pullback_helper_gets_raw_x_mean_b_and_the_gate(fused_cpu_path, monkeypatch):
+    """On the helper path `BNApply`'s backward hands the kernels raw x,
+    mean_b and the saved output y, and materialises neither the gated g
+    nor the centred x; its gradients equal the builtin path's, which
+    forms both in plain torch."""
+    rng = np.random.default_rng(9)
+    x = torch.from_numpy(rng.standard_normal((2, 5, 5, 8)).astype(np.float32) + 0.2)
+    x = x.to(torch.bfloat16).requires_grad_()
+    x2 = x.detach().reshape(50, 8).float()
+    s1, s2 = x2.sum(0), (x2 * x2).sum(0)
+    gamma, beta = torch.ones(8, requires_grad=True), torch.zeros(8, requires_grad=True)
+    r = torch.from_numpy(rng.standard_normal((2, 5, 5, 8)).astype(np.float32)).to(torch.bfloat16)
+    seen = []
+    h = helpers._HELPERS["bn_backward"]
+    fused = h.fn
+
+    def spy(g, x_in, *a, **kw):
+        seen.append((x_in, kw))
+        return fused(g, x_in, *a, **kw)
+
+    monkeypatch.setattr(h, "fn", spy)
+
+    def grads():
+        y, _, _ = fcb.bn_apply(x, s1, s2, gamma, beta, 1e-5, 50, True)
+        return torch.autograd.grad((y * r).sum(), (x, gamma, beta)), y
+
+    (got, y) = grads()
+    (x_in, kw), = seen
+    assert torch.equal(x_in, x.detach())  # raw x, not x - mean_b
+    assert kw["gate_y"] is not None and torch.equal(kw["gate_y"], y.detach())
+    assert kw["mean_b"].dtype == torch.bfloat16
+    helpers.set_helper_enabled("bn_backward", False)
+    try:
+        ref, _ = grads()
+    finally:
+        helpers.set_helper_enabled("bn_backward", True)
+    assert len(seen) == 1
+    for p, q in zip(got, ref):
+        _close(p, q, "bfloat16")
+
+
 def _conv_bn_loss_jax(x, w, gamma, beta, r, strides, relu):
     y, s1, s2 = pcb.conv2d_bn_stats(x, w, strides)
     n = y.size // y.shape[-1]
@@ -212,6 +339,19 @@ def test_wrappers_raise_on_bad_dtype_shape_and_layout(call):
     for fn in bad:
         with pytest.raises((TypeError, ValueError)):
             fn()
+
+
+@pytest.mark.parametrize("kernel", ["k7", "k8"])
+def test_pullback_prologue_arguments_are_checked(kernel):
+    g2, x2, c = torch.randn(10, 4), torch.randn(10, 4), torch.zeros(4)
+    fn = (fcb.bn_backward_reduce if kernel == "k7"
+          else lambda *a, **k: fcb.bn_backward_apply(*a, c, c, c, **k))
+    for kw in ({"gate_y2": torch.randn(10, 3)}, {"gate_y2": torch.randn(10, 4).double()},
+               {"gate_y2": torch.randn(4, 10).t()}, {"mean_b": torch.zeros(5)},
+               {"mean_b": torch.zeros(4, dtype=torch.bfloat16)}):
+        with pytest.raises((TypeError, ValueError)):
+            fn(g2, x2, **kw)
+    fn(g2, x2, gate_y2=torch.randn(10, 4), mean_b=torch.zeros(4))  # the shapes it takes
 
 
 def test_probes_need_a_hopper_gpu_and_the_structural_scope(monkeypatch):

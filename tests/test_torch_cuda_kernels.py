@@ -348,3 +348,81 @@ def test_conv_bn_functions_run_the_kernels_under_autograd():
     torch.testing.assert_close(out.cpu(), outr.detach(), rtol=1e-4, atol=1e-4)
     for a, b in zip((x, w, gamma, beta), refs):
         torch.testing.assert_close(a.grad.cpu(), b.grad, rtol=1e-3, atol=1e-3 * b.grad.abs().max().item())
+
+
+def _bn_step(dt):
+    """K6 and K8 against their plain versions: f32 1e-5 (fma against a
+    separate multiply and add), bf16 one rounding step."""
+    return (dict(rtol=1e-5, atol=1e-5) if dt == torch.float32
+            else dict(rtol=2 ** -7, atol=2 ** -7))
+
+
+def _misaligned(t):
+    """A copy of t whose storage starts one element past a 16-byte
+    boundary: the streaming kernels' one-channel path."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+# [M, C] of the streaming layout (csrc/bn_stream.cuh): the ragged
+# channels (37: one channel a thread), rows per block 32, 8 and 1 (C = 64,
+# 256, 2048 in bf16; 2048 f32 spans two column tiles), a bf16 row in
+# three column tiles (4104: 513 units), each with ragged M.
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("M,C", [(1003, 37), (4099, 64), (1001, 256), (67, 2048), (35, 4104)])
+def test_streaming_bn_kernels_match_plain_versions_at_ragged_shapes(dtype, M, C):
+    _require_hopper()
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng(24)
+    x, g, y = _t(rng, (M, C), dt, shift=0.3), _t(rng, (M, C), dt), _t(rng, (M, C), dt)
+    v = [_t(rng, (C,), torch.float32, scale=0.5, shift=1.0) for _ in range(3)]
+    mb = _t(rng, (C,), dt, scale=0.2, shift=0.3).float()
+    step = _bn_step(dt)
+    for xs in (x, _misaligned(x)):
+        before = fcb.launch_counts()
+        for relu in (False, True):
+            torch.testing.assert_close(fcb.bn_normalize(xs, *v, relu).float(),
+                                       fcb.bn_normalize_reference(xs, *v, relu).float(), **step)
+        for kw in ({}, {"gate_y2": y}, {"mean_b": mb}, {"gate_y2": y, "mean_b": mb}):
+            torch.testing.assert_close(fcb.bn_backward_apply(g, xs, *v, **kw).float(),
+                                       fcb.bn_backward_apply_reference(g, xs, *v, **kw).float(),
+                                       **step)
+        torch.cuda.synchronize()
+        after = fcb.launch_counts()
+        assert [after[k] - before[k] for k in ("bn_apply", "bn_backward_apply")] == [2, 4]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("M,C", [(4096, 64), (1003, 37), (1001, 256)])
+def test_pullback_prologue_gives_the_bits_of_the_materialised_inputs(dtype, M, C):
+    """K7 and K8 with the ReLU gate and the centring on their loads give
+    the same bits as the same kernels fed torch.where(y > 0, g, 0) and x -
+    mean_b; K7 stays deterministic; one launch per call."""
+    _require_hopper()
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng(25)
+    x, g, y = _t(rng, (M, C), dt, shift=0.3), _t(rng, (M, C), dt), _t(rng, (M, C), dt)
+    y[:3] = 0.0
+    v = [_t(rng, (C,), torch.float32, scale=0.5, shift=1.0) for _ in range(3)]
+    mb = _t(rng, (C,), dt, scale=0.2, shift=0.3).float()
+    g_m = torch.where(y > 0, g, torch.zeros_like(g))
+    x_m = x - mb.to(dt)
+    before = fcb.launch_counts()
+    for kw, gi, xi in (({"gate_y2": y, "mean_b": mb}, g_m, x_m), ({"gate_y2": y}, g_m, x),
+                       ({"mean_b": mb}, g, x_m)):
+        sums = fcb.bn_backward_reduce(g, x, **kw)
+        again = fcb.bn_backward_reduce(g, x, **kw)
+        mat = fcb.bn_backward_reduce(gi, xi)
+        for a, b, c in zip(sums, again, mat):
+            assert torch.equal(a, b) and torch.equal(a, c)
+        assert torch.equal(fcb.bn_backward_apply(g, x, *v, **kw),
+                           fcb.bn_backward_apply(gi, xi, *v))
+    torch.cuda.synchronize()
+    after = fcb.launch_counts()
+    assert [after[k] - before[k] for k in ("bn_backward_reduce", "bn_backward_apply")] == [9, 6]
+    gd = g_m.double()
+    _sums_close(fcb.bn_backward_reduce(g, x, gate_y2=y, mean_b=mb), (gd, gd * x_m.double()), M)

@@ -144,3 +144,80 @@ def test_cpu_wrappers_take_the_plain_version_whatever_the_variant(variant):
         assert torch.equal(o, r)
     assert fl.launch_counts()["lstm_sequence"] == 0
     assert fl.launch_counts()["lstm_sequence_backward"] == 0
+
+
+# -- the probes decline shapes no kernel variant takes -------------------------
+
+_PROBE = dict(peephole=True, mask=None, gate_act="sigmoid", cell_act="tanh",
+              reverse=False, dtype=torch.float32)
+
+
+@pytest.fixture
+def on_hopper(monkeypatch):
+    """Route as a Hopper GPU would: the probes' device check passes."""
+    from deeplearning4j_tpu_torch.ops import cuda_build
+
+    monkeypatch.setattr(cuda_build, "on_hopper", lambda device=None: True)
+
+
+@pytest.mark.parametrize("B,H,backward,takes", [
+    (32, 200, True, True),     # char-LSTM training: the cluster variants
+    (32, 200, False, True),
+    (32, 560, True, False),    # past the grid backward's shared memory
+    (32, 560, False, True),    # ... which the forward alone fits
+    (32, 1500, False, False),  # past the grid forward's shared memory
+    (4096, 300, True, False),  # the grid backward's per-block carry grows with B
+    (4096, 300, False, True),
+], ids=["char_lstm_train", "char_lstm_infer", "bwd_560", "fwd_560", "fwd_1500",
+        "bwd_b4096", "fwd_b4096"])
+def test_sequence_probe_declines_where_no_variant_takes_the_shape(on_hopper, B, H,
+                                                                  backward, takes):
+    dev = torch.device("cuda")
+    assert fl.supported(**_PROBE, device=dev, B=B, H=H, backward=backward) is takes
+    try:
+        fl.lstm_variant(B, H, torch.float32)
+        if backward:
+            fl.lstm_variant(B, H, torch.float32, backward=True)
+        fits = True
+    except ValueError:
+        fits = False
+    assert fits is takes  # the probe says what lstm_variant says
+
+
+@pytest.mark.parametrize("H,takes", [(200, True), (1446, True), (1447, False), (2000, False)])
+def test_step_probe_declines_past_the_step_kernels_shared_memory(on_hopper, H, takes):
+    # K2 holds its RW slice [H, 32] and h rows [8, H] in f32, plus 1 KB
+    assert fl.step_smem(H) == 160 * H + 1024
+    assert fl.step_supported(peephole=True, gate_act="sigmoid", cell_act="tanh",
+                             device=torch.device("cuda"), H=H,
+                             dtype=torch.float32) is takes
+    assert not fl.step_supported(peephole=True, gate_act="sigmoid", cell_act="tanh",
+                                 device=torch.device("cuda"), H=200,
+                                 dtype=torch.float64)
+
+
+@pytest.mark.parametrize("H,kernel", [(600, False), (24, True)], ids=["H600", "H24"])
+def test_graves_lstm_at_an_untaken_shape_runs_its_builtin_loop(on_hopper, monkeypatch,
+                                                               H, kernel):
+    """A GravesLSTM training at B = 32, H = 600 (the backward kernel's grid
+    variant stops near H = 550) gets the layer's builtin loop, not the
+    helper; at a shape the kernels take, the helper runs."""
+    from deeplearning4j_tpu_torch.nn.conf import layers as TL
+    from deeplearning4j_tpu_torch.nn.layers.registry import LayerContext
+    from deeplearning4j_tpu_torch.nn.layers.registry import forward_layer, init_layer_params
+    from deeplearning4j_tpu_torch.ops import helpers
+
+    calls = []
+    h = helpers._HELPERS["lstm_sequence"]
+    plain_fn = h.fn
+    monkeypatch.setattr(h, "fn", lambda *a: calls.append(a[0].shape) or plain_fn(*a))
+    conf = TL.GravesLSTM(n_in=3, n_out=H, activation="tanh", weight_init="xavier")
+    params = init_layer_params(torch.Generator().manual_seed(0), conf, torch.float32)
+    params = {k: v.requires_grad_() for k, v in params.items()}
+    x = torch.from_numpy(np.random.default_rng(5).standard_normal((32, 2, 3))
+                         .astype(np.float32))
+    y, _ = forward_layer(conf, params, x, LayerContext(training=True))
+    y.square().sum().backward()
+    assert tuple(y.shape) == (32, 2, H)
+    assert all(p.grad is not None for p in params.values())
+    assert calls == ([(2, 32, 4 * H)] if kernel else [])
