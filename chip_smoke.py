@@ -13,8 +13,15 @@ result lines:
    (ptxas -v), and the HGMMA (wgmma) instructions in the SASS of every
    bf16 conv kernel (cuobjdump).
 2. Kernels: each hand-written kernel against its plain PyTorch version on
-   the card, at the shapes the main path gives it, in f32 and bf16. The
-   LSTM kernels with and without peepholes; the sequence kernels K1 and
+   the card, at the shapes the main path gives it, in f32 and bf16. K2,
+   the decode step, with and without peepholes at every STEP_B x STEP_H
+   shape (up to its largest H), its rows bit-equal across B = 1, 8, 64
+   and slot index, its device time at 1, 8 and 64 slots, and the sweep
+   of its compile-time knobs (STEP_SWEEP: units a block, k chunks,
+   programmatic dependent launch), each variant held against the plain
+   version and timed alone, and as (input projection, K2) pairs eager
+   and replayed from a CUDA graph. The
+   sequence kernels K1 and
    K3 (K3 on the forward kernel's stashes) on both variants, cluster and
    grid (see FWD_SHAPES, BWD_SHAPES), with two launches bit-equal, and
    their launch geometry; the conv/BN kernels K4-K8 at the largest
@@ -46,9 +53,15 @@ result lines:
 4. Serve: `DecodeEngine(n_slots=8)`, two tenants weighted 3:1, 24
    requests (prompts of 1-32 tokens, 32-64 new tokens) with one weight
    swap halfway, once with one step per iteration and once with
-   `set_fused_steps(4)`. Every request's tokens equal the port's own
-   sequential greedy `rnn_time_step` loop; the books conserve; the decode
-   step went through the step kernel.
+   `set_fused_steps(4)`: each engine captures one CUDA graph per
+   parameter set (two, at its warm-up) and replays one a step or a
+   window. Every request's tokens equal the port's own sequential greedy
+   `rnn_time_step` loop, and K=4's equal K=1's; the books conserve; the
+   K2 launches and `helper_hit_total{op="lstm_decode_step"}` count every
+   replay and warm-up. The graphed carry after 6 replays, on both
+   parameter sets, is bit-equal to as many eager steps. One more pass at
+   each K under torch.profiler gives the device's busy share and the K2
+   nodes' device time inside the graph.
 5. Train: the same full-width char-LSTM (TBPTT 50, RMSProp; lr 0.01, see
    TRAIN_LR) fits 3 batches of [32, 1000, 77] windows of SURVEY.md (60
    optimizer steps): tokens/s, first and last score (the last must be
@@ -179,6 +192,9 @@ def cuda_ms(torch, fn, reps=20, rounds=5) -> float:
     return statistics.median(vals)
 
 
+PROFILE_TRIES = 3
+
+
 def device_ms(torch, fn, reps=20):
     """Device time per call: the CUDA kernels, copies and memsets that
     `reps` calls put on the card, summed by torch.profiler (CUPTI), over
@@ -198,18 +214,27 @@ def device_by_kernel(torch, fn, reps=20):
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
     out = {}
-    for e in prof.key_averages():
-        t = getattr(e, "self_device_time_total", 0.0)
-        if t > 0:
-            name = e.key.replace("void ", "").replace("(anonymous namespace)::", "")
-            name = name.split("<")[0].split("(")[0]
-            out[name] = out.get(name, 0.0) + t / 1e3 / reps
+    for _ in range(PROFILE_TRIES):  # a profile that saw nothing is taken again
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        for e in prof.key_averages():
+            t = getattr(e, "self_device_time_total", 0.0)
+            if t > 0:
+                name = e.key.replace("void ", "").replace("(anonymous namespace)::", "")
+                name = name.split("<")[0].split("(")[0]
+                out[name] = out.get(name, 0.0) + t / 1e3 / reps
+        if out:
+            break
     return out
+
+
+def opt(ms, spec=".4f") -> str:
+    """A time that may be missing (None: the profiler saw no device time
+    for a yardstick), formatted."""
+    return "not measured" if ms is None else format(ms, spec)
 
 
 def bound(nbytes: float, flops: float, peak: float = F32_FLOP_PER_S) -> tuple:
@@ -290,8 +315,9 @@ def kernel_inputs(torch, gen, dtype, T, B, H, peephole):
     return [xg, rw, *p, mk(B, H, scale=0.5), mk(B, H, scale=0.5)]
 
 
-def compare(torch, outs, refs, dtype):
-    """(max abs err, max rel err, within tolerance) over paired outputs."""
+def compare(torch, outs, refs, dtype, atol=F32_ATOL):
+    """(max abs err, max rel err, within tolerance) over paired outputs:
+    f32 to `atol`, bf16 to one rounding step."""
     err = rel = 0.0
     ok = True
     for o, r in zip(outs, refs):
@@ -301,38 +327,179 @@ def compare(torch, outs, refs, dtype):
         err = max(err, d.max().item())
         rel = max(rel, (d.max() / r.abs().max().clamp_min(1e-30)).item())
         if dtype == torch.float32:
-            ok &= bool((d <= F32_ATOL).all())
+            ok &= bool((d <= atol).all())
         else:
             ok &= bool((d <= BF16_ULP * r.abs().clamp_min(1.0)).all())
     return err, rel, ok
 
 
+# K2 (csrc/lstm_step.cu) is held at every (B, H) here, f32 and bf16,
+# peepholes on and off: 1, 8 and 64 slots and a ragged 70 (its last block
+# of 8 rows part full); char-LSTM's H = 200, a small and a larger H, and
+# its largest (where fused_lstm.step_smem reaches the H100's 227 KB: f32
+# 2398, not a multiple of K2's 4 units a block, so RW is staged by plain
+# loads; bf16 3596, by cp.async). f32 to F32_ATOL * sqrt(H): a sum of H
+# products in another order.
+STEP_B = (1, 8, 64, 70)
+STEP_H = (24, 200, 300, "limit")
+STEP_TIMED_B = (1, 8, 64)
+# K2's compile-time knobs (csrc/lstm_step.cu): units a block STEP_U, k
+# chunks STEP_S, programmatic dependent launch STEP_PDL; the shipped build
+# is U = 4, S = 4, PDL on. Each variant is built by
+# cuda_build.variant_library and called through the same C entry.
+STEP_SWEEP = ([(("STEP_U", u), ("STEP_S", sp)) for u in (2, 4, 8) for sp in (1, 2, 4)
+               if (u, sp) != (4, 4)] + [(("STEP_S", 8),), (("STEP_PDL", 0),)])
+# launches of (input projection, K2) pairs in one captured graph, for the
+# chain timing of the sweep
+CHAIN_REPS = 20
+
+
+def step_limit(torch, fl, dtype) -> int:
+    H = 1
+    while fl.step_smem(H + 1, dtype) <= fl.SMEM_LIMIT:
+        H += 1
+    return H
+
+
+def step_rows_hold(torch, fl, gen, dtype):
+    """Each row of a B = 8 call has the bits of the same row alone at B =
+    1, of the same row at another slot index within B = 8, and in the last
+    row block of a B = 64 call. Returns the number of rows compared."""
+    a = kernel_inputs(torch, gen, dtype, None, 8, HIDDEN, True)
+    h8, c8 = fl.lstm_step(*a)
+    n = 0
+    for b in range(8):
+        idx = [b]
+        h1, c1 = fl.lstm_step(a[0][idx].contiguous(), *a[1:5], a[5][idx].contiguous(),
+                              a[6][idx].contiguous())
+        check(torch.equal(h1[0], h8[b]) and torch.equal(c1[0], c8[b]),
+              f"lstm_step row {b} at B=1 differs from B=8 ({dtype})")
+        n += 1
+    perm = torch.roll(torch.arange(8), 3)
+    hp, cp = fl.lstm_step(a[0][perm].contiguous(), *a[1:5], a[5][perm].contiguous(),
+                          a[6][perm].contiguous())
+    check(torch.equal(hp, h8[perm]) and torch.equal(cp, c8[perm]),
+          f"lstm_step rows change bits with their slot index ({dtype})")
+    big = kernel_inputs(torch, gen, dtype, None, 64, HIDDEN, True)
+    for t, src in ((big[0], a[0]), (big[5], a[5]), (big[6], a[6])):
+        t[56:] = src
+    h64, c64 = fl.lstm_step(big[0], *a[1:5], big[5], big[6])
+    torch.cuda.synchronize()
+    check(torch.equal(h64[56:], h8) and torch.equal(c64[56:], c8),
+          f"lstm_step rows at slots 56-63 of B=64 differ from B=8 ({dtype})")
+    return n + 16
+
+
+def step_sweep(torch, fl, seed):
+    """K2 for each variant of STEP_SWEEP and the shipped build, at B = 8,
+    H = 200, f32, through the same C entry: held against the plain
+    version; device time alone (torch.profiler); and the wall time per
+    (input projection, K2) pair by CUDA events, eager back-to-back and
+    replayed from one captured graph of CHAIN_REPS pairs, where K2's
+    predecessor is the projection (addmm) that writes its xg."""
+    from deeplearning4j_tpu_torch.ops import cuda_build
+
+    gen = torch.Generator().manual_seed(seed + 7)
+    B, H = 8, HIDDEN
+    a = kernel_inputs(torch, gen, torch.float32, None, B, H, True)
+    x = torch.randn(B, VOCAB, generator=gen).cuda()
+    W = (torch.randn(VOCAB, 4 * H, generator=gen) * 0.1).cuda()
+    bias = torch.randn(4 * H, generator=gen).cuda()
+    xg, h1, c1 = a[0], torch.empty_like(a[5]), torch.empty_like(a[6])
+    p = lambda t: t.data_ptr()  # noqa: E731
+    res = {}
+    for defines in [()] + STEP_SWEEP:
+        tag = (", ".join(f"{k}={d}" for k, d in defines)
+               or f"shipped (STEP_U={fl.STEP_UNITS}, STEP_S={fl.STEP_SPLIT}, STEP_PDL=1)")
+        lib = (cuda_build.variant_library("lstm_step", defines) if defines
+               else cuda_build.library("lstm_step"))
+        fn = cuda_build.entry_of(lib, "lstm_step", 9, 2)
+
+        def k2():
+            return fn(0, *(p(t) for t in (xg, *a[1:7], h1, c1)), B, H,
+                      torch.cuda.current_stream().cuda_stream)
+
+        def pair():
+            torch.addmm(bias, x, W, out=xg)
+            check(k2() == 0, f"lstm_step ({tag}) did not launch")
+
+        torch.addmm(bias, x, W, out=xg)
+        refp = fl.lstm_step_reference(*a)
+        check(k2() == 0, f"lstm_step ({tag}) did not launch")
+        torch.cuda.synchronize()
+        err, _, ok = compare(torch, (h1, c1), refp, torch.float32, F32_ATOL * H ** 0.5)
+        check(ok, f"lstm_step ({tag}) disagrees with its plain version: {err:.3e}")
+        alone = device_ms(torch, k2)
+        check(alone is not None, f"the profiler saw no device time for lstm_step ({tag})")
+        eager = cuda_ms(torch, pair)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            pair()
+        torch.cuda.current_stream().wait_stream(side)
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            for _ in range(CHAIN_REPS):
+                pair()
+        graphed = cuda_ms(torch, g.replay, reps=5) / CHAIN_REPS
+        nodes = device_by_kernel(torch, g.replay, reps=5)
+        k2_node = sum(v for k, v in nodes.items() if "lstm_step_kernel" in k) / CHAIN_REPS
+        res[tag] = {"max_abs_err": err, "ms": alone, "pair_eager_ms": eager,
+                    "pair_graph_ms": graphed, "k2_node_ms": k2_node}
+        print(f"    {tag}: max abs {err:.2e}; K2 alone {alone * 1e3:.3f} us (profiler); "
+              f"(addmm, K2) pair {eager * 1e3:.3f} us eager, {graphed * 1e3:.3f} us from a "
+              f"graph (events), K2 node {k2_node * 1e3:.3f} us (profiler)")
+    return res
+
+
 def kernel_phase(torch, fl, seed):
-    """K2, the decode step, at char-LSTM's width and 1, 8, 64 slots."""
+    """K2, the decode step: held at every STEP_B x STEP_H shape, rows
+    bit-equal across B and slot index, device time at 1, 8 and 64 slots,
+    and the sweep of its compile-time knobs."""
     gen = torch.Generator().manual_seed(seed)
-    H = HIDDEN
     errs = {torch.float32: 0.0, torch.bfloat16: 0.0}
     for dtype in (torch.float32, torch.bfloat16):
-        for B in (1, 8, 64):
-            for peep in (True, False):
-                a = kernel_inputs(torch, gen, dtype, None, B, H, peep)
-                outs = fl.lstm_step(*a)
-                torch.cuda.synchronize()
-                refs = fl.lstm_step_reference(*a)
-                err, rel, ok = compare(torch, outs, refs, dtype)
-                print(f"  lstm_step {str(dtype)[6:]} B={B} peepholes={peep}: max abs "
-                      f"{err:.3e} rel {rel:.3e} {'ok' if ok else 'OUT OF TOLERANCE'}")
-                check(ok, f"lstm_step disagrees with its plain version "
-                          f"({dtype}, B={B}, peepholes={peep})")
-                errs[dtype] = max(errs[dtype], err)
+        limit = step_limit(torch, fl, dtype)
+        for H in STEP_H:
+            H = limit if H == "limit" else H
+            worst = 0.0
+            for B in STEP_B:
+                for peep in (True, False):
+                    a = kernel_inputs(torch, gen, dtype, None, B, H, peep)
+                    outs = fl.lstm_step(*a)
+                    torch.cuda.synchronize()
+                    refs = fl.lstm_step_reference(*a)
+                    err, rel, ok = compare(torch, outs, refs, dtype, F32_ATOL * H ** 0.5)
+                    check(ok, f"lstm_step disagrees with its plain version "
+                              f"({dtype}, B={B}, H={H}, peepholes={peep}): {err:.3e}")
+                    worst = max(worst, err)
+                    if H == HIDDEN:
+                        errs[dtype] = max(errs[dtype], err)
+            print(f"  lstm_step {str(dtype)[6:]} H={H} B={STEP_B} peepholes on/off: max abs "
+                  f"{worst:.3e} (tolerance {F32_ATOL * H ** 0.5:.2e} f32, one step bf16)"
+                  + (" [the largest H]" if H == limit else ""))
+        n = step_rows_hold(torch, fl, gen, dtype)
+        print(f"  lstm_step {str(dtype)[6:]}: {n} rows bit-equal across B = 1, 8, 64 and "
+              f"slot index")
+    H = HIDDEN
+    by_b = {}
+    for B in STEP_TIMED_B:
+        a = kernel_inputs(torch, gen, torch.float32, None, B, H, True)
+        nin = sum(t.numel() for t in a)
+        b_ms, b_by = bound(4 * (nin + 2 * B * H), 2.0 * B * H * 4 * H)
+        by_b[B] = {"ms": device_ms(torch, lambda: fl.lstm_step(*a)), "bound_ms": b_ms,
+                   "bound_by": b_by, "blocks": -(-H // fl.STEP_UNITS) * -(-B // fl.STEP_ROWS)}
+        check(by_b[B]["ms"] is not None, f"the profiler saw no device time for lstm_step "
+                                         f"at B={B}")
+        print(f"  lstm_step B={B} f32: device time per call {by_b[B]['ms'] * 1e3:.3f} us "
+              f"(profiler), bound {b_ms * 1e3:.4f} us by {b_by}, {by_b[B]['blocks']} blocks")
     B = 8
     a = kernel_inputs(torch, gen, torch.float32, None, B, H, True)
     call = {"kernel": cuda_ms(torch, lambda: fl.lstm_step(*a)),
             "plain": cuda_ms(torch, lambda: fl.lstm_step_reference(*a), reps=3)}
     dev = {"kernel": device_ms(torch, lambda: fl.lstm_step(*a)),
            "plain": device_ms(torch, lambda: fl.lstm_step_reference(*a), reps=3)}
-    nin = sum(t.numel() for t in a)
-    b_ms, b_by = bound(4 * (nin + 2 * B * H), 2.0 * B * H * 4 * H)
+    b_ms, b_by = by_b[B]["bound_ms"], by_b[B]["bound_by"]
     # the library yardstick computes the same function without
     # peepholes: input weights = identity on the 4H projections
     z = [torch.zeros(H, device="cuda") for _ in range(3)]
@@ -355,10 +522,14 @@ def kernel_phase(torch, fl, seed):
           f"back-to-back call (events) kernel {call['kernel']:.5f} ms, plain "
           f"{call['plain']:.5f} ms, library {call['library']:.5f} ms; library vs "
           f"kernel without peepholes: max abs {lib_diff:.2e}")
+    print("  lstm_step sweep (STEP_SWEEP), B=8 H=200 f32:")
+    sweep = step_sweep(torch, fl, seed)
     return {"lstm_step": dict(
         err_f32=errs[torch.float32], err_bf16=errs[torch.bfloat16], ms=ms["kernel"],
         plain_ms=ms["plain"], library_ms=ms["library"], ms_source=source,
-        call_ms=call, bound_ms=b_ms, bound_by=b_by, shape={"B": B, "H": H})}
+        call_ms=call, bound_ms=b_ms, bound_by=b_by, shape={"B": B, "H": H},
+        by_batch=by_b, sweep=sweep,
+        limits={str(d)[6:]: step_limit(torch, fl, d) for d in (torch.float32, torch.bfloat16)})}
 
 
 # K1 and K3 are held at these (T, B, H), on every variant that takes the
@@ -870,9 +1041,10 @@ def conv_bn_kernel_phase(torch, F, fcb, seed):
             rows[kname].update({k: v for k, v in row.items() if k != "variant"})
         print(f"  {kname} bf16 {name} ({row['variant']['producer']}, BN "
               f"{row['variant']['bn']}, {row['variant']['stages']} stages): device ms kernel "
-              f"{ms['kernel']:.4f}, plain {ms['plain']:.4f}, library F.conv2d (cuDNN, the conv "
-              f"alone, no statistics) {ms['library']:.4f}; bound {row['bound_ms']:.4f} ms by "
-              f"{row['bound_by']}; kernel / library {ms['kernel'] / ms['library']:.2f}")
+              f"{ms['kernel']:.4f}, plain {opt(ms['plain'])}, library F.conv2d (cuDNN, the "
+              f"conv alone, no statistics) {opt(ms['library'])}; bound {row['bound_ms']:.4f} ms "
+              f"by {row['bound_by']}; kernel / library "
+              f"{opt(ms['library'] and ms['kernel'] / ms['library'], '.2f')}")
         del args, x, w, xin, lib_x, wn
     name, x2, g2, v, mb = timed["bn"]
     M, C = x2.shape
@@ -908,14 +1080,14 @@ def conv_bn_kernel_phase(torch, F, fcb, seed):
               "library": device_ms(torch, lib)}
         rows[kname].update(bound_and_times(ms, nbytes, flops, f"[{M}, {C}]"))
         print(f"  {kname} bf16 [{M}, {C}]: device ms kernel {ms['kernel']:.4f}, plain "
-              f"{ms['plain']:.4f}, library {LIBRARY_NOTE[kname]} {ms['library']:.4f}; "
+              f"{opt(ms['plain'])}, library {LIBRARY_NOTE[kname]} {opt(ms['library'])}; "
               f"bound {rows[kname]['bound_ms']:.4f} ms by {rows[kname]['bound_by']}")
     # beside them, the library's whole BN backward in one call (both passes)
     both = device_ms(torch, lambda: torch.ops.aten.native_batch_norm_backward(
         g2, x2, wb[0], None, None, smean, sinv, True, 1e-5, [True, True, True]))
     rows["bn_backward_apply"]["library_both_passes_ms"] = both
     print(f"  K7 + K8 {rows['bn_backward_reduce']['ms'] + rows['bn_backward_apply']['ms']:.4f} "
-          f"ms beside aten.native_batch_norm_backward (both passes in one call) {both:.4f} ms")
+          f"ms beside aten.native_batch_norm_backward (both passes in one call) {opt(both)} ms")
     # the prologue at the main path's calls: every bf16 BN pullback centres
     # on its loads (a layer without ReLU: K8 centred at [401408, 256], the
     # function batch_norm_backward_elemt computes), and the 33 with ReLU
@@ -936,6 +1108,7 @@ def conv_bn_kernel_phase(torch, F, fcb, seed):
          2 * 2 * Ms * Cs + 12 * Cs, 4.0 * Ms * Cs)]
     for kname, what, fn, nbytes, flops in prologue:
         ms = device_ms(torch, fn)
+        check(ms is not None, f"the profiler saw no device time for {kname} {what}")
         b_ms, b_by = bound(nbytes, flops, BF16_FLOP_PER_S)
         rows[kname].setdefault("prologue", {})[what] = {
             "ms": ms, "bound_ms": b_ms, "bound_by": b_by, "of_bound": b_ms / ms}
@@ -996,7 +1169,7 @@ def stream_sweep(torch, fcb, cases):
                 res[kname].setdefault(label, {})[tag] = device_ms(torch, call)
         for kname, by in res.items():
             print(f"  {kname} bf16 {label} sweep, device ms: "
-                  + "; ".join(f"{t} {ms:.4f}" for t, ms in by[label].items()))
+                  + "; ".join(f"{t} {opt(ms)}" for t, ms in by[label].items()))
     return res
 
 
@@ -1066,15 +1239,29 @@ def greedy_reference(torch, net, prompt, max_new):
     return toks
 
 
-def serve(torch, DecodeEngine, metrics, net, waves, v2, fused):
-    """Both waves through one engine, the weight swap between them.
-    Returns (tokens per request, stats)."""
+def decode_hits(metrics) -> float:
+    """helper_hit_total{op="lstm_decode_step"}, all labels summed."""
+    fam = metrics.get_registry().get("helper_hit_total")
+    return 0.0 if fam is None else sum(c.value for labels, c in fam.children()
+                                       if labels[0] == "lstm_decode_step")
+
+
+def serve(torch, DecodeEngine, metrics, net, waves, v2, fused, prof=None):
+    """Both waves through one engine, the weight swap between them, after
+    the engine's warm-up (its graph captures, timed apart). Returns
+    (tokens per request, stats). With `prof`, a torch.profiler over the
+    serving part."""
     metrics.get_registry().unregister("decode_step_seconds")
     eng = DecodeEngine(net, n_slots=8, tenant_weights={"a": 3.0, "b": 1.0},
                        component_prefix=f"smoke_k{fused}")
     eng.set_fused_steps(fused)
     try:
         outs = []
+        t0 = time.perf_counter()
+        eng.warmup()  # the two captures, each after one eager run
+        t_capture = time.perf_counter() - t0
+        if prof is not None:
+            prof.start()
         t0 = time.perf_counter()
         for w, wave in enumerate(waves):
             if w == 1:
@@ -1083,6 +1270,9 @@ def serve(torch, DecodeEngine, metrics, net, waves, v2, fused):
                     for p, m, t in wave]
             outs += [f.result(timeout=300) for f in futs]
         wall = time.perf_counter() - t0
+        if prof is not None:
+            torch.cuda.synchronize()
+            prof.stop()
         m = eng.metrics()
     finally:
         eng.shutdown()
@@ -1091,12 +1281,73 @@ def serve(torch, DecodeEngine, metrics, net, waves, v2, fused):
           and m["failed"] == 0, f"books do not conserve: {m['tenants']}")
     check(m["swaps"] == 1 and m["version"] == v, f"weight swap not served: {m}")
     check(m["program_cache_size"] == 2, f"step functions rebuilt: {m}")
+    check(m["captures"] == {fused: 2},
+          f"the engine captured {m['captures']} graphs, not one per parameter set")
     hist = metrics.get_registry().get("decode_step_seconds").labels()
     stats = {"fused_steps": fused, "tokens": m["tokens"], "seconds": wall,
              "tokens_per_s": m["tokens"] / wall, "steps": m["steps"],
+             "captures": m["captures"], "capture_s": t_capture,
              "step_p50_s": hist.percentile(50), "step_p99_s": hist.percentile(99),
              "tenants": {t: b["completed"] for t, b in m["tenants"].items()}}
     return outs, stats
+
+
+def graph_carry_hold(torch, fl, DecodeEngine, net, K, seed, steps=6):
+    """The engine's captured program replayed `steps` times, from a random
+    carry, on both parameter sets in turn, against as many eager calls of
+    the model's decode step on the same tokens: the carry and the tokens
+    must be bit-equal. Returns the replays' launches of K2."""
+    rng = np.random.default_rng(seed + 3 + K)
+    n = 8
+    feeds = rng.integers(0, VOCAB, size=(steps, K, n)).astype(np.int32)
+    force = rng.random((steps, K, n)) < 0.5
+    force[:, 0] = True
+    eng = DecodeEngine(net, n_slots=n, component_prefix=f"smoke_hold_k{K}").set_fused_steps(K)
+    try:
+        eng.warmup()
+        for st in eng._carry.values():
+            for a in st.values():
+                a.copy_(torch.from_numpy(rng.standard_normal(tuple(a.shape))
+                                         .astype(np.float32) * 0.3))
+        start = {i: {k: a.clone() for k, a in st.items()} for i, st in eng._carry.items()}
+        fl.reset_launch_counts()
+        got = []
+        for s in range(steps):
+            eng._live = s % 2  # both sets hold the model's weights
+            io = eng._io[K]
+            if K == 1:
+                io["feed"].copy_(torch.from_numpy(feeds[s, 0]))
+            else:
+                io["toks"].copy_(torch.from_numpy(feeds[s]))
+                io["force"].copy_(torch.from_numpy(force[s]))
+            got.append(eng._run_program())
+        torch.cuda.synchronize()
+        launches = fl.launch_counts()["lstm_step"]
+        graphed = {i: {k: a.clone() for k, a in st.items()} for i, st in eng._carry.items()}
+    finally:
+        eng.shutdown()
+    step = net.rnn_decode_step_fn()
+    ref = start
+    with torch.no_grad():
+        for s in range(steps):
+            prev = torch.from_numpy(feeds[s, 0]).cuda()
+            toks = []
+            for t in range(K):
+                tok = torch.where(torch.from_numpy(force[s, t]).cuda(),
+                                  torch.from_numpy(feeds[s, t]).cuda(), prev)
+                x = torch.nn.functional.one_hot(tok.long(), VOCAB).to(torch.float32)
+                ref, out = step(net.params_list, net.state_list, ref, x)
+                prev = torch.argmax(out, dim=-1).to(torch.int32)
+                toks.append(prev.cpu().numpy())
+            check(np.array_equal(got[s].reshape(-1, n), np.stack(toks)),
+                  f"K={K}: replay {s} emitted other tokens than the eager step")
+    for i in ref:
+        for k in ref[i]:
+            check(torch.equal(graphed[i][k], ref[i][k]),
+                  f"K={K}: the graphed carry {i}/{k} differs from the eager step's bits")
+    check(launches == LAYERS * K * steps,
+          f"K={K}: {launches} K2 launches counted for {steps} replays")
+    return launches
 
 
 def serve_phase(torch, fl, DecodeEngine, metrics, net, seed, card):
@@ -1108,12 +1359,19 @@ def serve_phase(torch, fl, DecodeEngine, metrics, net, seed, card):
     v1 = net.params_list
     v2 = [{k: t * 1.01 for k, t in p.items()} for p in v1]
     fl.reset_launch_counts()
+    hits0 = decode_hits(metrics)
     out1, st1 = serve(torch, DecodeEngine, metrics, net, waves, v2, 1)
     out4, st4 = serve(torch, DecodeEngine, metrics, net, waves, v2, 4)
     torch.cuda.synchronize()
     launches = fl.launch_counts()
-    check(launches["lstm_step"] >= 1,
-          f"the decode engine did not launch the step kernel: {launches}")
+    hits = decode_hits(metrics) - hits0
+    # every step is one replay of K steps; each capture follows one eager
+    # warm-up run of its program
+    want = sum(LAYERS * st["fused_steps"] * (st["steps"] + sum(st["captures"].values()))
+               for st in (st1, st4))
+    check(launches["lstm_step"] == want and hits == want,
+          f"K2 launches {launches['lstm_step']} and lstm_decode_step hits {hits} are not "
+          f"the {want} that the replays and warm-ups ran")
     check(out4 == out1, "set_fused_steps(4) changed the emitted tokens")
     refs = [greedy_reference(torch, net, p, m) for p, m, _ in waves[0]]
     net.params_list = v2
@@ -1125,26 +1383,48 @@ def serve_phase(torch, fl, DecodeEngine, metrics, net, seed, card):
     check(not bad, f"engine tokens differ from the sequential loop for "
                    f"requests {bad}")
     for st in (st1, st4):
-        print(f"  K={st['fused_steps']}: {st['tokens']} tokens in "
+        print(f"  K={st['fused_steps']} ({st['captures'][st['fused_steps']]} graphs captured in "
+              f"{st['capture_s']:.3f} s): {st['tokens']} tokens in "
               f"{st['seconds']:.3f} s = {st['tokens_per_s']:.1f} tokens/s, "
               f"{st['steps']} steps, decode_step_seconds p50 "
               f"{st['step_p50_s']:.6f} p99 {st['step_p99_s']:.6f} on {card}")
-    print(f"  24 requests equal the sequential rnn_time_step loop; launches "
-          f"{launches}")
-    # one more K=1 pass under the profiler: the device's busy share while
-    # serving (device time of everything it ran over the pass's wall time)
+    print(f"  24 requests equal the sequential rnn_time_step loop; K2 launches {want} = "
+          f"replays + warm-ups, as many lstm_decode_step hits; launches {launches}")
+    hold = {f"k{K}": graph_carry_hold(torch, fl, DecodeEngine, net, K, seed) for K in (1, 4)}
+    print(f"  graphed carry bit-equal to the eager step after 6 replays at K=1 and K=4, "
+          f"both parameter sets; replay launches {hold}")
+    # one more pass each under the profiler: the device's busy share while
+    # serving (device time of everything it ran over the pass's wall time),
+    # and the K2 nodes' device time inside the graph
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        outp, stp = serve(torch, DecodeEngine, metrics, net, waves, v2, 1)
-    check(outp == out1, "the profiled pass emitted other tokens")
-    busy_s = sum(getattr(e, "self_device_time_total", 0.0)
-                 for e in prof.key_averages()) / 1e6
-    busy = busy_s / stp["seconds"]
-    print(f"  K=1 under the profiler: device busy {busy_s:.4f} s of "
-          f"{stp['seconds']:.3f} s wall = busy share {busy:.4f}")
-    return {"launches": launches, "k1": st1, "k4": st4,
-            "profiled_k1": {**stp, "device_busy_s": busy_s, "busy_share": busy}}
+    prof_stats = {}
+    for K, want_out in ((1, out1), (4, out4)):
+        prof = profile(activities=[ProfilerActivity.CUDA])
+        outp, stp = serve(torch, DecodeEngine, metrics, net, waves, v2, K, prof=prof)
+        check(outp == want_out, f"the profiled K={K} pass emitted other tokens")
+        busy_s = k2_s = 0.0
+        k2_n = 0
+        for e in prof.key_averages():
+            t = getattr(e, "self_device_time_total", 0.0) / 1e6
+            busy_s += t
+            if "lstm_step_kernel" in e.key:
+                k2_s += t
+                k2_n += e.count
+        busy = busy_s / stp["seconds"]
+        # the profiler slows the host: the same device work over the wall
+        # of the unprofiled pass at this K
+        busy_free = busy_s / (st1 if K == 1 else st4)["seconds"]
+        node_us = k2_s / max(k2_n, 1) * 1e6
+        print(f"  K={K} under the profiler: device busy {busy_s:.4f} s of "
+              f"{stp['seconds']:.3f} s wall = busy share {busy:.4f} "
+              f"({busy_free:.4f} of the unprofiled pass's wall); {k2_n} K2 graph nodes, "
+              f"{node_us:.3f} us each on average; {stp['tokens_per_s']:.1f} tokens/s, "
+              f"step p50 {stp['step_p50_s']:.6f} p99 {stp['step_p99_s']:.6f}")
+        prof_stats[f"profiled_k{K}"] = {**stp, "device_busy_s": busy_s, "busy_share": busy,
+                                       "busy_share_of_unprofiled_wall": busy_free,
+                                       "k2_launches": k2_n, "k2_node_us": node_us}
+    return {"launches": launches, "k1": st1, "k4": st4, "carry_hold": hold, **prof_stats}
 
 
 # -- phase 5: train -----------------------------------------------------------
@@ -1770,6 +2050,12 @@ def main(argv=None) -> int:
     ap.add_argument("--out", default=os.path.join("chiprun_out", "chip_smoke.json"))
     args = ap.parse_args(argv)
 
+    # The script profiles CUDA graph replays (phases 2 and 4) and profiles
+    # again after them. CUPTI's teardown between profiles does not work
+    # well with CUDA graphs (torch.profiler's own note where it sets this
+    # for compiled graphs): a later profile can miss a kernel. Keep CUPTI
+    # set up for the process instead.
+    os.environ.setdefault("DISABLE_CUPTI_LAZY_REINIT", "1")
     import torch
 
     if not torch.cuda.is_available():
@@ -1797,7 +2083,8 @@ def main(argv=None) -> int:
           f"CUDA {torch.version.cuda}")
     t0 = time.perf_counter()
     info = cuda_build.build_all(variants=[(n, d) for n in ("bn_apply", "bn_backward")
-                                          for d in BN_SWEEP])
+                                          for d in BN_SWEEP]
+                                + [("lstm_step", d) for d in STEP_SWEEP])
     print(f"  kernels built in {time.perf_counter() - t0:.2f} s")
     for name, rec in info.items():
         if name not in cuda_build.SOURCES:
@@ -1888,7 +2175,7 @@ def main(argv=None) -> int:
         "shape": r["shape"],
         **{k: r[k] for k in ("stats_rel_err", "unrounded_gap_min", "library_both_passes_ms",
                              "shapes", "variant", "grid_ms", "us_per_step", "err_by_variant",
-                             "prologue", "sweep")
+                             "prologue", "sweep", "by_batch", "limits")
            if k in r},
     } for name, r in rows.items()]
     record = {"card": card, "kind": kind, "seed": args.seed,

@@ -34,6 +34,7 @@ versions also take f64 (math in f64), for gradient checks.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import threading
 from typing import Dict, Tuple
@@ -61,9 +62,39 @@ def reset_launch_counts() -> None:
             _LAUNCHES[k] = 0
 
 
+# a thread's launch tally while a CUDA graph captures (see `recording_launches`)
+_recording = threading.local()
+
+
 def _bump(name: str) -> None:
+    tally = getattr(_recording, "tally", None)
+    if tally is not None:
+        tally[name] = tally.get(name, 0) + 1
+        return
     with _count_lock:
         _LAUNCHES[name] += 1
+
+
+@contextlib.contextmanager
+def recording_launches():
+    """While a CUDA graph captures on this thread, the wrappers' launches
+    go into the yielded dict (name -> launches) instead of the counts: a
+    capture records its kernels and launches none. The graph's owner adds
+    the tally with `add_launches` on every replay, so `launch_counts()`
+    stays a count of launches."""
+    prev = getattr(_recording, "tally", None)
+    _recording.tally = tally = {}
+    try:
+        yield tally
+    finally:
+        _recording.tally = prev
+
+
+def add_launches(tally: Dict[str, int]) -> None:
+    """Add a recorded tally to the counts: one replay of a captured graph."""
+    with _count_lock:
+        for name, n in tally.items():
+            _LAUNCHES[name] += n
 
 
 # -- plain versions -----------------------------------------------------------
@@ -208,14 +239,17 @@ def _check_bwd(acts, hprev, cprev, rw, pI, pF, pO, dy, dcF) -> Tuple[int, int, i
 def lstm_step(xg, rw, pI, pF, pO, h0, c0):
     """One decode timestep, fused. xg: [B, 4H] input projection + bias;
     rw: [H, 4H]; pI/pF/pO: [H] peepholes (zeros for plain LSTM); h0/c0:
-    [B, H]. Returns (h1, c1) in xg's dtype. Inference only."""
+    [B, H]. Returns (h1, c1) in xg's dtype. Inference only. The kernel
+    starts staging rw before the kernel launched just before it has
+    finished (programmatic dependent launch), so rw must not be that
+    kernel's output; xg, h0, c0 and the peepholes may be."""
     _, B, H = _check(xg, rw, pI, pF, pO, h0, c0, seq=False)
     if not xg.is_cuda:
         return lstm_step_reference(xg, rw, pI, pF, pO, h0, c0)
     cuda_build.require_hopper(xg.device)
-    if step_smem(H) > SMEM_LIMIT:
-        raise ValueError(f"the decode-step kernel needs {step_smem(H)} bytes of "
-                         f"shared memory at H={H} (limit {SMEM_LIMIT})")
+    if step_smem(H, xg.dtype) > SMEM_LIMIT:
+        raise ValueError(f"the decode-step kernel needs {step_smem(H, xg.dtype)} bytes "
+                         f"of shared memory at H={H} (limit {SMEM_LIMIT})")
     lib, fn = cuda_build.entry("lstm_step", "lstm_step", 9, 2)
     h1, c1 = torch.empty_like(h0), torch.empty_like(c0)
     stream = torch.cuda.current_stream(xg.device).cuda_stream
@@ -229,9 +263,11 @@ def lstm_step(xg, rw, pI, pF, pO, h0, c0):
 
 # -- variants ---------------------------------------------------------------
 
-# the decode-step kernel (csrc/lstm_step.cu): a block owns 8 hidden units
-# (32 gate columns) of 8 batch rows
-STEP_COLS, STEP_ROWS = 32, 8
+# the decode-step kernel (csrc/lstm_step.cu): a block owns STEP_UNITS
+# hidden units (4 * STEP_UNITS gate columns) of STEP_ROWS batch rows, and
+# sums each (row, column) in STEP_SPLIT chunks of k
+STEP_UNITS, STEP_SPLIT, STEP_ROWS = 4, 4, 8
+STEP_COLS = 4 * STEP_UNITS
 
 # The cluster kernels (csrc/lstm_cluster.cuh): C CTAs a cluster, R batch
 # rows a cluster, U = ceil(H / C) hidden units a CTA, at most 32 (one lane
@@ -478,11 +514,26 @@ def lstm_sequence(xg, rw, pI, pF, pO, h0, c0):
 # -- probes and registration --------------------------------------------------
 
 
-def step_smem(H: int) -> int:
+def _align16(n: int) -> int:
+    return (n + 15) // 16 * 16
+
+
+def step_h_stride(H: int) -> int:
+    """K2's h row stride in shared memory (floats): H rounded up to a
+    multiple of 4, and to an odd number of 16-byte units."""
+    hp = -(-H // 4) * 4
+    return hp if (hp // 4) % 2 else hp + 4
+
+
+def step_smem(H: int, dtype=torch.float32) -> int:
     """Shared memory (bytes) one block of the decode-step kernel K2 uses at
-    hidden size H: its RW column slice [H, 32] and h rows [8, H] in f32
-    (dynamic), and its gate pre-activations [8, 32] (static)."""
-    return 4 * (H * STEP_COLS + STEP_ROWS * H) + 4 * STEP_ROWS * STEP_COLS
+    hidden size H, all of it dynamic: its RW column slice [H, 16] in RW's
+    dtype (16-byte aligned), its h rows [8, step_h_stride(H)] in f32 and
+    the f32 partial sums [4 chunks, 8, 16]. The C entry `lstm_step_smem`
+    computes the same."""
+    itemsize = 2 if dtype == torch.bfloat16 else 4
+    return (_align16(H * STEP_COLS * itemsize) + 4 * STEP_ROWS * step_h_stride(H)
+            + 4 * STEP_SPLIT * STEP_ROWS * STEP_COLS)
 
 
 def _sequence_fits(B: int, H: int, backward: bool) -> bool:
@@ -510,7 +561,7 @@ def step_supported(*, peephole, gate_act, cell_act, device=None, H=None,
         return False
     if dtype is not None and dtype not in _DTYPE_CODES:
         return False
-    if H is not None and step_smem(H) > SMEM_LIMIT:
+    if H is not None and step_smem(H, dtype or torch.float32) > SMEM_LIMIT:
         return False
     return cuda_build.on_hopper(device)
 

@@ -15,15 +15,21 @@ for the builtin path behind the caller's back.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import logging
-from typing import Callable, Dict, Optional
+import threading
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
 from deeplearning4j_tpu_torch.utils import metrics as _metrics
 
 logger = logging.getLogger("deeplearning4j_tpu_torch")
+
+
+# a thread's SPI events while a CUDA graph captures (see `recording_events`)
+_recording = threading.local()
 
 
 def _count(metric: str, op: str, helper: str, family: str,
@@ -33,6 +39,10 @@ def _count(metric: str, op: str, helper: str, family: str,
     the kernel FAMILY so per-family hit rates are scrape-able. Family
     values come from the registration's `family(**ctx)` callable, which
     must return a bounded slug set."""
+    events = getattr(_recording, "events", None)
+    if events is not None:
+        events.append((metric, op, helper, family, reason))
+        return
     reg = _metrics.get_registry()
     if reason is None:
         reg.counter(metric, "Helper SPI events",
@@ -42,6 +52,27 @@ def _count(metric: str, op: str, helper: str, family: str,
         reg.counter(metric, "Helper SPI events",
                     ("op", "helper", "family",
                      "reason")).labels(op, helper, family, reason).inc()
+
+
+@contextlib.contextmanager
+def recording_events():
+    """While a CUDA graph captures on this thread, the SPI's events go into
+    the yielded list instead of the registry: the consults run once, at
+    capture, and the graph then replays their choice. The graph's owner
+    calls `replay_events` on every replay, so `helper_hit_total` and the
+    fallback counters count the calls that ran."""
+    prev = getattr(_recording, "events", None)
+    _recording.events = events = []
+    try:
+        yield events
+    finally:
+        _recording.events = prev
+
+
+def replay_events(events: List[Tuple]) -> None:
+    """Count recorded SPI events once more: one replay of a captured graph."""
+    for event in events:
+        _count(*event)
 
 
 class HelperError(RuntimeError):

@@ -18,24 +18,35 @@ different times. The engine does **iteration-level scheduling**
   that slot's h/c rows in place.
 * Finished sequences (EOS / max-len / deadline) free their slot the
   same step; emitted tokens stream back per-request via `on_token`.
-* **Weight swap**: `load_version(params)` copies v+1 onto the device
-  BESIDE v on the caller's thread and waits for the copy, then the
-  engine flips its param reference between steps; v is freed when the
-  last step holding it is done.
+* **Weight swap**: the engine keeps two parameter sets, the live one
+  and the one beside it. `load_version(params)` copies v+1 into the set
+  that is not live on the caller's thread and waits for the copy, then
+  the engine flips to that set between steps. A version still pending
+  when the next one arrives is overwritten in place.
 * **Fused steps**: `set_fused_steps(K)` runs K steps per engine
-  iteration as a loop that feeds the on-device argmax back with
+  iteration as one program that feeds the on-device argmax back with
   `torch.where` — no host sync inside the window.
 * **Multi-tenant admission**: per-tenant deadline defaults and
   weighted-fair slot allocation (stride scheduling over per-tenant
   virtual time); per-tenant books obey
   `admitted == completed + shed + failed`.
 
-PyTorch runs eagerly, so the JAX package's jit and buffer donation have
-no counterpart: the step function is called as is. On a Hopper GPU each
-LSTM layer's step is the fused CUDA step kernel
-(ops/fused_lstm.lstm_step). The JAX engine's tracing, fault-injection,
-health, lock-audit, resource-meter and run-ledger hooks are not ported
-yet; its metrics are.
+The step program — one token (K = 1) or a fused window of K — runs on
+static buffers: the h/c carry of each recurrent layer, which the program
+reads and, by a `copy_` at its end, writes back; the input tokens (and
+the window's force mask); the output tokens; and the two parameter sets.
+On a CUDA device each (K, parameter set) program is captured once as a
+CUDA graph, after one eager warm-up run on a side stream, and every step
+replays it: one graph a step or a window, the counterpart of the JAX
+engine's one jitted program. A weight swap selects the other set's
+graph, so it never captures. On the CPU the same program runs eagerly on
+the same buffers. On a Hopper GPU each LSTM layer's step inside the
+program is the fused CUDA step kernel (ops/fused_lstm.lstm_step). A
+capture records the kernel launches and helper-SPI hits it makes, and
+each replay adds them to `fused_lstm.launch_counts()` and
+`helper_hit_total`, so both count what ran. The JAX engine's tracing,
+fault-injection, health, lock-audit, resource-meter and run-ledger
+hooks are not ported yet; its metrics are.
 """
 
 from __future__ import annotations
@@ -54,6 +65,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from deeplearning4j_tpu_torch.ops import fused_lstm, helpers
 from deeplearning4j_tpu_torch.parallel.inference import (
     _WAIT_SHED_GRACE,
     DEFAULT_TENANT,
@@ -159,21 +171,31 @@ class DecodeEngine:
         self._weights = dict(tenant_weights or {})
         self._tenant_deadline_ms = dict(tenant_deadline_ms or {})
 
-        # -- device-resident state -------------------------------------------
-        self._params = model.params_list         # the version the step reads
+        # -- device-resident state: the step program's static buffers -------
+        # two parameter sets, the engine's own copies (a swap never writes
+        # the model's tensors): the live one and the one a load fills
+        self._sets = [_clone_params(model.params_list) for _ in range(2)]
+        self._live = 0
         self._states = model.state_list
+        # the static carry: the program's input and, copied back, its output
         self._carry = model.rnn_zero_carry(self.n_slots)
         self._version = 0
-        self._pending_swap = None                # (version, placed params)
+        self._pending_swap = None                # (version, parameter set)
         self._swaps = 0
+        self._load_lock = threading.Lock()       # one load_version at a time
         # host mirror of the per-slot input token fed next step
         self._feed = np.zeros(self.n_slots, np.int32)
 
-        # -- step functions (built lazily) -----------------------------------
+        # -- step programs (built lazily) ------------------------------------
         self._step_fn = None
         self._reset_fn = None
         self._fused_steps = 1
         self._step_k = 1
+        self._io: Dict[int, dict] = {}           # K -> static inputs/outputs
+        self._graphs: Dict[tuple, tuple] = {}    # (K, set) -> graph + tallies
+        self._captures: Dict[int, int] = {}      # K -> graphs captured
+        self._capture_stream = None
+        self._build_lock = threading.Lock()
 
         # -- host scheduling state -------------------------------------------
         self._lock = threading.Lock()
@@ -325,47 +347,58 @@ class DecodeEngine:
 
     def load_version(self, params) -> int:
         """Commit a new parameter version BESIDE the live one and ask the
-        engine to flip to it between steps. The copy onto the live
-        tensors' device and dtype, and the wait for it, run on THIS
-        thread — the step loop never blocks on the swap. Shapes are
-        validated here: a swap must not change the step. Returns the new
-        version number.
+        engine to flip to it between steps. The copy into the parameter
+        set that is not live (on the live tensors' device and dtype), and
+        the wait for it, run on THIS thread — the step loop never blocks
+        on the swap. Shapes are validated first: a swap must not change
+        the step. Returns the new version number.
 
         Versions are MONOTONE but not every one serves: a version loaded
         while another was still pending is superseded (warned, never
-        served). A deployer confirming a rollout must therefore wait for
-        `metrics()["version"] >= returned`, not `==`."""
-        def place(new, old):
-            a = (new if torch.is_tensor(new)
-                 else torch.as_tensor(np.asarray(new)))
-            a = a.to(device=old.device, dtype=old.dtype, copy=True)
-            if a.shape != old.shape:
-                raise ValueError(
-                    f"load_version shape mismatch: {tuple(a.shape)} vs live "
-                    f"{tuple(old.shape)} — a swap must not change the step")
-            return a
-
-        if len(params) != len(self._params):
+        served) and overwritten in place. A deployer confirming a rollout
+        must therefore wait for `metrics()["version"] >= returned`, not
+        `==`."""
+        ref = self._sets[0]  # both sets have the model's shapes
+        if len(params) != len(ref):
             raise ValueError(
                 f"load_version: {len(params)} layers, live model has "
-                f"{len(self._params)}")
-        placed = []
-        for new, old in zip(params, self._params):
+                f"{len(ref)}")
+        sources = []
+        for new, old in zip(params, ref):
             if set(new) != set(old):
                 raise ValueError(
                     f"load_version: parameters {sorted(new)} != live "
                     f"{sorted(old)}")
-            placed.append({k: place(new[k], old[k]) for k in old})
-        if self.device.type == "cuda":
-            torch.cuda.current_stream(self.device).synchronize()
-        with self._lock:
-            if self._pending_swap is not None:
-                logger.warning(
-                    "decode load_version: pending version %d superseded "
-                    "before it was served", self._pending_swap[0])
-            v = self._version + self._swaps_pending_locked() + 1
-            self._pending_swap = (v, placed)
-            self._wake.notify_all()
+            src = {k: (v if torch.is_tensor(v) else torch.as_tensor(np.asarray(v)))
+                   for k, v in new.items()}
+            for k, a in src.items():
+                if a.shape != old[k].shape:
+                    raise ValueError(
+                        f"load_version shape mismatch: {tuple(a.shape)} vs "
+                        f"live {tuple(old[k].shape)} — a swap must not "
+                        f"change the step")
+            sources.append(src)
+        with self._load_lock:
+            with self._lock:
+                if self._pending_swap is not None:
+                    logger.warning(
+                        "decode load_version: pending version %d superseded "
+                        "before it was served", self._pending_swap[0])
+                v = self._version + self._swaps_pending_locked() + 1
+                # the engine flips only to a pending set: while this copy
+                # runs, none is pending, so the target stays unread. Its
+                # last reader, a step before the engine flipped away from
+                # it, ended in a host sync on its output.
+                self._pending_swap = None
+                target = 1 - self._live
+            for src, dst in zip(sources, self._sets[target]):
+                for k, a in dst.items():
+                    a.copy_(src[k])
+            if self.device.type == "cuda":
+                torch.cuda.current_stream(self.device).synchronize()
+            with self._lock:
+                self._pending_swap = (v, target)
+                self._wake.notify_all()
         return v
 
     def set_fused_steps(self, k: int) -> "DecodeEngine":
@@ -384,6 +417,13 @@ class DecodeEngine:
             if k != self._fused_steps:
                 self._fused_steps = k
                 self._step_fn = None  # rebuilt lazily at the next step
+        return self
+
+    def warmup(self) -> "DecodeEngine":
+        """Build the step program now (on a CUDA device: run it once and
+        capture its graphs) rather than at the first step that has work,
+        so no request waits for it. Returns self."""
+        self._ensure_programs()
         return self
 
     def _swaps_pending_locked(self) -> int:
@@ -414,6 +454,9 @@ class DecodeEngine:
                 "version": self._version,
                 "swaps": self._swaps,
                 "tenants": self._books.per_tenant(),
+                # CUDA graphs captured, by K: at most 2 each (one per
+                # parameter set) for the engine's lifetime; none on the CPU
+                "captures": dict(self._captures),
                 "conservation_ok": self._books.conservation_ok(),
                 **self._books.totals(),
             }
@@ -536,49 +579,114 @@ class DecodeEngine:
 
     # -- the engine loop -------------------------------------------------------
 
+    def _ensure_programs(self):
+        with self._build_lock:
+            if self._step_fn is None:
+                self._build_programs()
+
     def _build_programs(self):
+        """The step program for the current K and the slot reset. On a
+        CUDA device, capture the program as a graph for each parameter
+        set that has none for this K yet."""
         base = self.model.rnn_decode_step_fn()
         vocab = self.vocab
+        states = self._states
         K = self._fused_steps
 
-        def one(params, states, carry, tokens):
+        def one(params, carry, tokens):
             # token ids -> exact one-hot rows (the same rows a
             # rnn_time_step caller feeds), one step, greedy argmax
             x = F.one_hot(tokens.long(), vocab).to(torch.float32)
             new_carry, out = base(params, states, carry, x)
             return new_carry, torch.argmax(out, dim=-1).to(torch.int32)
 
-        if K == 1:
-            self._step_fn = one
-        else:
-            def fused(params, states, carry, feed_toks, feed_force):
+        def program(params, carry, io):
+            if K == 1:
+                new, toks = one(params, carry, io["feed"])
+            else:
                 # K steps, no host sync: teacher-forced positions (prompt
                 # prefill; always step 0, whose token the host staged in
-                # _feed) take feed_toks, the rest feed the previous
-                # argmax back on the device — the same per-step inputs
-                # the k=1 step sees, so tokens are identical
-                prev = feed_toks[0]
-                toks = []
-                for t in range(feed_toks.shape[0]):
-                    tok = torch.where(feed_force[t], feed_toks[t], prev)
-                    carry, prev = one(params, states, carry, tok)
-                    toks.append(prev)
-                return carry, torch.stack(toks)  # toks: [K, slots]
-
-            self._step_fn = fused
-        self._step_k = K  # the K the live step was built for
-        self.model._note_compile("decode_step")
+                # _feed) take toks, the rest feed the previous argmax back
+                # on the device — the same per-step inputs the k=1 step
+                # sees, so tokens are identical
+                new, prev, out = carry, io["toks"][0], []
+                for t in range(K):
+                    tok = torch.where(io["force"][t], io["toks"][t], prev)
+                    new, prev = one(params, new, tok)
+                    out.append(prev)
+                toks = torch.stack(out)  # [K, slots]
+            for i, st in carry.items():
+                for name, a in st.items():
+                    a.copy_(new[i][name])
+            io["out"].copy_(toks)
 
         def reset(carry, idx):
-            # zero ONE slot's h/c rows, in place: the carry tensors are
-            # the engine's own (each step returns fresh ones)
+            # zero ONE slot's h/c rows of the static carry, in place
             for st in carry.values():
                 for a in st.values():
                     a[idx].zero_()
-            return carry
 
+        if K not in self._io:
+            dev, n = self.device, self.n_slots
+            self._io[K] = ({"feed": torch.zeros(n, dtype=torch.int32, device=dev),
+                            "out": torch.zeros(n, dtype=torch.int32, device=dev)}
+                           if K == 1 else
+                           {"toks": torch.zeros((K, n), dtype=torch.int32, device=dev),
+                            "force": torch.zeros((K, n), dtype=torch.bool, device=dev),
+                            "out": torch.zeros((K, n), dtype=torch.int32, device=dev)})
+        if self.device.type == "cuda":
+            for s in range(len(self._sets)):
+                if (K, s) not in self._graphs:
+                    self._capture(program, K, s)
+        else:
+            self.model._note_compile("decode_step")
+        self._step_fn = program
+        self._step_k = K  # the K the live step was built for
         self._reset_fn = reset
         self.model._note_compile("decode_admit")
+
+    def _capture(self, program, K: int, s: int):
+        """Capture `program` on parameter set `s` as a CUDA graph: one
+        eager warm-up run on a side stream first (the kernels' build,
+        their attribute calls and cuBLAS's workspace happen outside the
+        capture), on copies of the carry and outputs, so the serving state
+        does not move. The launches and SPI events the capture makes are
+        recorded, to be counted on every replay."""
+        params, io = self._sets[s], self._io[K]
+        if self._capture_stream is None:
+            self._capture_stream = torch.cuda.Stream(self.device)
+        side = self._capture_stream
+        side.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.no_grad(), torch.cuda.stream(side):
+            program(params, {i: {k: a.clone() for k, a in st.items()}
+                             for i, st in self._carry.items()},
+                    {k: a.clone() for k, a in io.items()})
+        torch.cuda.current_stream(self.device).wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with fused_lstm.recording_launches() as launches, \
+                helpers.recording_events() as events, torch.no_grad(), \
+                torch.cuda.graph(graph, stream=side,
+                                 capture_error_mode="thread_local"):
+            program(params, self._carry, io)
+        self._graphs[(K, s)] = (graph, launches, events)
+        with self._lock:
+            self._captures[K] = self._captures.get(K, 0) + 1
+        self.model._note_compile("decode_step")
+
+    def _run_program(self):
+        """One step or window on the static buffers, with the live
+        parameter set: a graph replay on a CUDA device, the program itself
+        on the CPU. Returns the output tokens on the host."""
+        io = self._io[self._step_k]
+        if self.device.type == "cuda":
+            graph, launches, events = self._graphs[(self._step_k, self._live)]
+            graph.replay()
+            fused_lstm.add_launches(launches)
+            helpers.replay_events(events)
+        else:
+            with torch.no_grad():
+                self._step_fn(self._sets[self._live], self._carry, io)
+        return io["out"].to("cpu", copy=True).numpy()
 
     def _step_once(self):
         """One continuous-batching iteration: swap-if-pending, admit,
@@ -588,14 +696,12 @@ class DecodeEngine:
         with self._lock:
             pending = self._pending_swap
             self._pending_swap = None
-        if pending is not None:
-            v, placed = pending
-            self._params = placed
-            with self._lock:
-                self._version = v
+            if pending is not None:
+                self._version, self._live = pending
                 self._swaps += 1
+        if pending is not None:
             self._m_swaps.inc()
-            logger.info("decode engine flipped to weight version %d", v)
+            logger.info("decode engine flipped to weight version %d", pending[0])
         # 2. admission into free slots
         now = time.monotonic()
         with self._lock:
@@ -613,26 +719,22 @@ class DecodeEngine:
             with self._wake:
                 self._wake.wait(_IDLE_WAIT)
             return True
-        if self._step_fn is None:
-            self._build_programs()
         # 3. ONE step (or one fused window) over the whole pool
-        t0 = time.perf_counter()
-        K = self._step_k
         try:
+            self._ensure_programs()
+            t0 = time.perf_counter()
+            K = self._step_k
+            io = self._io[K]
             with torch.no_grad():
                 for idx in admitted:
-                    self._carry = self._reset_fn(self._carry, idx)
+                    self._reset_fn(self._carry, idx)
                 if K == 1:
-                    feed = torch.as_tensor(self._feed).to(self.device)
-                    self._carry, nxt = self._step_fn(
-                        self._params, self._states, self._carry, feed)
+                    io["feed"].copy_(torch.from_numpy(self._feed))
                 else:
                     toks, force = self._fused_feed_window(K, active)
-                    self._carry, nxt = self._step_fn(
-                        self._params, self._states, self._carry,
-                        torch.as_tensor(toks).to(self.device),
-                        torch.as_tensor(force).to(self.device))
-                nxt_host = nxt.cpu().numpy()
+                    io["toks"].copy_(torch.from_numpy(toks))
+                    io["force"].copy_(torch.from_numpy(force))
+            nxt_host = self._run_program()
         except Exception as e:
             self._fail_active(e)
             return True
@@ -790,8 +892,16 @@ class DecodeEngine:
                        RuntimeError(f"decode step failed: "
                                     f"{type(exc).__name__}: {exc}"),
                        slot.req.tenant)
-        # rebuild the carry so the next admission starts clean
-        self._carry = self.model.rnn_zero_carry(self.n_slots)
+        # zero the static carry in place (graphs hold its addresses); each
+        # admission zeroes its own rows anyway
+        try:
+            with torch.no_grad():
+                for st in self._carry.values():
+                    for a in st.values():
+                        a.zero_()
+        except Exception:
+            logger.exception("decode: zeroing the carry after a failed step "
+                             "raised")
         logger.warning("decode step failed (%s); %d active sequence(s) "
                        "failed, engine continues", exc, len(victims))
 
@@ -814,6 +924,10 @@ class DecodeEngine:
                            req.tenant)
         finally:
             self._stopped.set()
+
+
+def _clone_params(params_list) -> list:
+    return [{k: v.detach().clone() for k, v in p.items()} for p in params_list]
 
 
 # -- the decode smoke ----------------------------------------------------------

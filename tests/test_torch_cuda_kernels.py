@@ -59,6 +59,222 @@ def test_kernel_matches_plain_version_and_counts_one_launch(dtype, seq):
         torch.testing.assert_close(o.float(), r.float(), **tol)
 
 
+# K2's largest hidden size: its shared memory at H + 1 passes the H100's
+# 227 KB (fused_lstm.step_smem)
+STEP_LIMIT = {"float32": 2398, "bfloat16": 3596}
+
+
+def _step_inputs(seed, B, H, dtype, peephole):
+    a = _inputs(seed, None, B, H, dtype)
+    if not peephole:
+        a[2:5] = [torch.zeros_like(p) for p in a[2:5]]
+    return a
+
+
+def _step_close(outs, refs, dtype, H):
+    """f32: 1e-5 * sqrt(H) absolute (a sum of H products taken in another
+    order); bf16: one bf16 rounding step, 2^-7 * max(1, |plain|)."""
+    for o, r in zip(outs, refs):
+        o, r = o.float(), r.float()
+        assert bool(torch.isfinite(o).all())
+        d = (o - r).abs()
+        lim = (torch.full_like(r, 1e-5 * H ** 0.5) if dtype == torch.float32
+               else 2 ** -7 * r.abs().clamp_min(1.0))
+        assert bool((d <= lim).all()), f"max abs err {d.max().item():.3e}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("peephole", [True, False], ids=["peep", "nopeep"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("H", [24, 200, 300, "limit"])
+@pytest.mark.parametrize("B", [1, 8, 64, 70])
+def test_step_kernel_matches_plain_version_at_every_shape(B, H, dtype, peephole):
+    """K2 at 1, 8 and 64 slots and a ragged 70 (the last block of rows
+    part full), at char-LSTM's H = 200, a small and a larger H, and its
+    largest H (f32 2398, not a multiple of its 4 units a block: the
+    plain-load staging path), one launch per call."""
+    _require_hopper()
+    dt = getattr(torch, dtype)
+    H = STEP_LIMIT[dtype] if H == "limit" else H
+    a = _step_inputs(9, B, H, dt, peephole)
+    before = fl.launch_counts()["lstm_step"]
+    outs = fl.lstm_step(*a)
+    torch.cuda.synchronize()
+    assert fl.launch_counts()["lstm_step"] == before + 1
+    _step_close(outs, fl.lstm_step_reference(*a), dt, H)
+
+
+@pytest.mark.cuda
+def test_step_kernel_shared_memory_and_geometry_agree_with_the_probe():
+    _require_hopper()
+    import ctypes
+
+    from deeplearning4j_tpu_torch.ops import cuda_build
+
+    lib = cuda_build.library("lstm_step")
+    lib.lstm_step_smem.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.lstm_step_smem.restype = ctypes.c_longlong
+    for code, dt in ((0, torch.float32), (1, torch.bfloat16)):
+        for H in (1, 2, 3, 16, 24, 199, 200, 300, 2398, 3596):
+            assert lib.lstm_step_smem(code, H) == fl.step_smem(H, dt)
+    geo = [ctypes.c_int() for _ in range(4)]
+    lib.lstm_step_geometry(*(ctypes.byref(g) for g in geo))
+    assert [g.value for g in geo[:3]] == [fl.STEP_UNITS, fl.STEP_SPLIT, fl.STEP_ROWS]
+    for dtype, H in STEP_LIMIT.items():
+        dt = getattr(torch, dtype)
+        assert fl.step_smem(H, dt) <= fl.SMEM_LIMIT < fl.step_smem(H + 1, dt)
+    with pytest.raises(ValueError, match="shared memory"):
+        fl.lstm_step(*_step_inputs(1, 1, STEP_LIMIT["float32"] + 1, torch.float32, True))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_step_rows_are_bit_equal_across_batch_size_and_slot_index(dtype):
+    """Each row of a B = 8 call has the bits of the same row launched
+    alone at B = 1, and of the same row at another slot index (rows
+    rolled within B = 8, and placed in the last row block of B = 64)."""
+    _require_hopper()
+    dt = getattr(torch, dtype)
+    a = _step_inputs(13, 8, 200, dt, True)
+    h8, c8 = fl.lstm_step(*a)
+    rows = lambda t, idx: t[idx].contiguous()  # noqa: E731
+    for b in range(8):
+        h1, c1 = fl.lstm_step(rows(a[0], [b]), *a[1:5], rows(a[5], [b]), rows(a[6], [b]))
+        assert torch.equal(h1[0], h8[b]) and torch.equal(c1[0], c8[b])
+    perm = torch.roll(torch.arange(8), 3)
+    hp, cp = fl.lstm_step(rows(a[0], perm), *a[1:5], rows(a[5], perm), rows(a[6], perm))
+    assert torch.equal(hp, h8[perm]) and torch.equal(cp, c8[perm])
+    big = _step_inputs(14, 64, 200, dt, True)
+    for t, src in ((big[0], a[0]), (big[5], a[5]), (big[6], a[6])):
+        t[56:] = src
+    h64, c64 = fl.lstm_step(*big[:1], *a[1:5], *big[5:])
+    torch.cuda.synchronize()
+    assert torch.equal(h64[56:], h8) and torch.equal(c64[56:], c8)
+
+
+def _graphed_engine(K, n_slots=8):
+    from deeplearning4j_tpu_torch.models.charlstm import char_lstm_network
+    from deeplearning4j_tpu_torch.serving.decode import DecodeEngine
+
+    net = char_lstm_network(vocab_size=77, hidden=200, layers=2, seed=3)
+    eng = DecodeEngine(net, n_slots=n_slots,
+                       component_prefix=f"cuda_graph_k{K}").set_fused_steps(K)
+    return net, eng
+
+
+def _hits(op="lstm_decode_step"):
+    from deeplearning4j_tpu_torch.utils import metrics
+
+    fam = metrics.get_registry().get("helper_hit_total")
+    return 0.0 if fam is None else sum(c.value for labels, c in fam.children()
+                                       if labels[0] == op)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [1, 4])
+def test_graphed_engine_carry_is_bit_equal_to_eager_steps_and_counts_replays(K):
+    """N replays of the captured program leave the static carry with the
+    bits of N eager calls of the model's decode step on the same tokens;
+    each replay counts its 2 K launches of K2 and its 2 K SPI hits, and
+    the engine captured one graph per parameter set."""
+    _require_hopper()
+    net, eng = _graphed_engine(K)
+    n, steps = eng.n_slots, 5
+    rng = np.random.default_rng(K)
+    feeds = rng.integers(0, 77, size=(steps, K, n)).astype(np.int32)
+    force = rng.random((steps, K, n)) < 0.5
+    force[:, 0] = True
+    try:
+        eng.warmup()
+        assert eng.metrics()["captures"] == {K: 2} and eng.program_cache_size() == 2
+        for st in eng._carry.values():
+            for a in st.values():
+                a.copy_(torch.from_numpy(rng.standard_normal(tuple(a.shape))
+                                         .astype(np.float32) * 0.3))
+        start = {i: {k: a.clone() for k, a in st.items()} for i, st in eng._carry.items()}
+        fl.reset_launch_counts()
+        hits0 = _hits()
+        got = []
+        for s in range(steps):
+            eng._live = s % 2  # both sets hold the model's weights
+            if K == 1:
+                eng._io[1]["feed"].copy_(torch.from_numpy(feeds[s, 0]))
+            else:
+                eng._io[K]["toks"].copy_(torch.from_numpy(feeds[s]))
+                eng._io[K]["force"].copy_(torch.from_numpy(force[s]))
+            got.append(eng._run_program())
+        torch.cuda.synchronize()
+        assert fl.launch_counts()["lstm_step"] == 2 * K * steps
+        assert _hits() - hits0 == 2 * K * steps
+        graphed = {i: {k: a.clone() for k, a in st.items()} for i, st in eng._carry.items()}
+    finally:
+        eng.shutdown()
+    step = net.rnn_decode_step_fn()
+    ref = start
+    with torch.no_grad():
+        for s in range(steps):
+            prev = torch.from_numpy(feeds[s, 0]).cuda()
+            toks = []
+            for t in range(K):
+                tok = torch.where(torch.from_numpy(force[s, t]).cuda(),
+                                  torch.from_numpy(feeds[s, t]).cuda(), prev)
+                x = torch.nn.functional.one_hot(tok.long(), 77).to(torch.float32)
+                ref, out = step(net.params_list, net.state_list, ref, x)
+                prev = torch.argmax(out, dim=-1).to(torch.int32)
+                toks.append(prev.cpu().numpy())
+            np.testing.assert_array_equal(got[s].reshape(-1, n), np.stack(toks))
+    for i in ref:
+        for k in ref[i]:
+            assert torch.equal(graphed[i][k], ref[i][k])
+
+
+@pytest.mark.cuda
+def test_graphed_engine_serves_the_sequential_loops_tokens_across_a_swap():
+    """Small width, K = 1 and K = 4: the tokens of the sequential
+    rnn_time_step loop before and after a weight swap, with no capture
+    after the first step's two."""
+    _require_hopper()
+    from deeplearning4j_tpu_torch.models.charlstm import char_lstm_network
+    from deeplearning4j_tpu_torch.serving.decode import DecodeEngine
+
+    net = char_lstm_network(vocab_size=13, hidden=16, layers=2, seed=4)
+    v1 = net.params_list
+    v2 = [{k: t * 1.4 for k, t in p.items()} for p in v1]
+    eye = np.eye(13, dtype=np.float32)
+
+    def loop(params, prompt, mx):
+        net.params_list = params
+        net.clear_rnn_state()
+        try:
+            for t in prompt:
+                out = net.rnn_time_step(eye[[t]])
+            toks = []
+            while len(toks) < mx:
+                toks.append(int(torch.argmax(out[0]).item()))
+                out = net.rnn_time_step(eye[[toks[-1]]])
+        finally:
+            net.params_list = v1
+            net.clear_rnn_state()
+        return toks
+
+    rng = np.random.default_rng(8)
+    reqs = [(rng.integers(0, 13, size=1 + i % 4).tolist(), 4 + i % 3) for i in range(6)]
+    for K in (1, 4):
+        eng = DecodeEngine(net, n_slots=3, component_prefix=f"cuda_swap_k{K}").set_fused_steps(K)
+        try:
+            out1 = [f.result(120) for f in [eng.generate(p, max_new_tokens=m) for p, m in reqs]]
+            caps = eng.metrics()["captures"]
+            eng.load_version(v2)
+            out2 = [f.result(120) for f in [eng.generate(p, max_new_tokens=m) for p, m in reqs]]
+            m = eng.metrics()
+        finally:
+            eng.shutdown()
+        assert caps == {K: 2} and m["captures"] == {K: 2} and m["program_cache_size"] == 2
+        assert m["version"] == 1 and m["failed"] == 0
+        assert out1 == [loop(v1, p, mx) for p, mx in reqs]
+        assert out2 == [loop(v2, p, mx) for p, mx in reqs]
+
+
 def _backward_inputs(seed, T, B, H, dtype):
     """The forward kernel's stashes plus random cotangents."""
     a = _inputs(seed, T, B, H, dtype)

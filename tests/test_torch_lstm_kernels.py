@@ -56,6 +56,18 @@ def test_step_reference_matches_pallas_step(peephole):
     _close(tc1, c1)
 
 
+@pytest.mark.parametrize("B,H", [(1, 24), (5, 40), (8, 200)])
+@pytest.mark.parametrize("peephole", [False, True])
+def test_step_reference_matches_pallas_step_at_one_to_eight_slots(peephole, B, H):
+    """One slot (a lone request), a ragged batch, and the decode engine's
+    8 slots at char-LSTM's H = 200."""
+    a = _inputs(1, None, B, H, peephole)
+    h1, c1 = pallas_lstm.lstm_step(*(jnp.asarray(x) for x in a))
+    th1, tc1 = fl.lstm_step_reference(*(torch.from_numpy(x) for x in a))
+    _close(th1, h1)
+    _close(tc1, c1)
+
+
 @pytest.mark.parametrize("peephole", [False, True])
 def test_sequence_reference_matches_pallas_forward(peephole):
     a = _inputs(1, 6, 4, 16, peephole)

@@ -184,16 +184,32 @@ def test_sequence_probe_declines_where_no_variant_takes_the_shape(on_hopper, B, 
     assert fits is takes  # the probe says what lstm_variant says
 
 
-@pytest.mark.parametrize("H,takes", [(200, True), (1446, True), (1447, False), (2000, False)])
-def test_step_probe_declines_past_the_step_kernels_shared_memory(on_hopper, H, takes):
-    # K2 holds its RW slice [H, 32] and h rows [8, H] in f32, plus 1 KB
-    assert fl.step_smem(H) == 160 * H + 1024
+def _step_probe_case(H, dtype, takes):
+    # K2 holds its RW slice [H, 16] in RW's dtype, its h rows [8, hp] in
+    # f32 (hp: H rounded up to a multiple of 4 and to an odd number of
+    # 16-byte units) and the partial sums [4, 8, 16] in f32
+    itemsize = 2 if dtype == torch.bfloat16 else 4
+    hp = -(-H // 4) * 4
+    hp += 4 if (hp // 4) % 2 == 0 else 0
+    assert fl.step_h_stride(H) == hp
+    assert fl.step_smem(H, dtype) == 16 * itemsize * H + 32 * hp + 2048
+    assert (fl.step_smem(H, dtype) <= fl.SMEM_LIMIT) is takes
     assert fl.step_supported(peephole=True, gate_act="sigmoid", cell_act="tanh",
-                             device=torch.device("cuda"), H=H,
-                             dtype=torch.float32) is takes
+                             device=torch.device("cuda"), H=H, dtype=dtype) is takes
+
+
+@pytest.mark.parametrize("H,takes", [(200, True), (2398, True), (2399, False), (3000, False)])
+def test_step_probe_declines_past_the_step_kernels_shared_memory(on_hopper, H, takes):
+    _step_probe_case(H, torch.float32, takes)
     assert not fl.step_supported(peephole=True, gate_act="sigmoid", cell_act="tanh",
                                  device=torch.device("cuda"), H=200,
                                  dtype=torch.float64)
+
+
+@pytest.mark.parametrize("H,takes", [(2399, True), (3596, True), (3597, False)])
+def test_step_probe_takes_bf16_to_its_own_shared_memory_limit(on_hopper, H, takes):
+    """bf16 RW takes half the slice: the limit is H = 3596, not 2398."""
+    _step_probe_case(H, torch.bfloat16, takes)
 
 
 @pytest.mark.parametrize("H,kernel", [(600, False), (24, True)], ids=["H600", "H24"])
