@@ -92,6 +92,34 @@ result lines:
    at init, where the f32 gradient is ill-conditioned, the kernels'
    gradients stand no further from the builtin step in f64 than the
    builtin f32 gradients do (within a factor: see LOCKSTEP_BATCH).
+7. Checkpoint, resume, evaluate, serve from a zip (in `_ckpt_smoke/`,
+   removed at the end). 7a: the full-width char-LSTM of phase 5 fits 3
+   batches of SURVEY.md windows through a shuffling ListDataSetIterator
+   for 2 epochs (120 steps); the same fit runs in a child process (this
+   script with --child) under an async CheckpointListener that saves at
+   each epoch's end and on SIGTERM; the child is SIGKILLed once
+   latest.json names the epoch-0 checkpoint and epoch 1 runs, and a fresh
+   net's fit(resume_from=...) gives scores, parameters and RMSProp state
+   bit-equal to the uninterrupted run's, with 2 launches each of K1 and
+   K3 a resumed step. Then SIGTERM mid-batch: the fit holds it until
+   the running segment's step is whole, and the preemption save counts
+   the batch consumed (the reference's TBPTT rule) and the resume is
+   held bit-equal to a run that skips the same segments. 7b: ResNet-50
+   (bf16, batch 128, Nesterovs lr 0.01) on 4 batches a epoch for 2
+   epochs: whether two uninterrupted runs are bit-equal with cuDNN's
+   default algorithms; then, with cudnn.deterministic on for this part
+   only, an async listener saving every 3 iterations (one save at
+   batch_in_epoch 3 of 4), a crash after that save is flushed, and a
+   fresh net resumed bit-equal in scores, parameters, Nesterovs state and
+   BN running statistics, with phase 6's launches a step; and step
+   p50/p99 with the async listener beside without it, with the
+   checkpoint_save_seconds snapshot and write phases. 7c: save_model of
+   both trained nets, verify_checkpoint, load_model on the card with
+   output() bit-equal to the writer's (K1), evaluate() of the loaded
+   ResNet-50 equal to an Evaluation of output() in numpy, a
+   DecodeEngine(n_slots=8) on the loaded char-LSTM equal to the
+   sequential loop (K2), and restore_latest skipping a corrupted newest
+   checkpoint (checkpoint_integrity_failures_total rises).
 The last three lines of standard output are the kernels JSON line, the
 card line, and {"ok": true, "device": {...}}. Imports nothing of JAX.
 """
@@ -2044,11 +2072,570 @@ def resnet_phase(torch, F, fcb, helpers, resnet50_network, DataSet,
     return {"launches": launches, "lr": RESNET_LR, **st}
 
 
+# -- phase 7: checkpoint, resume, evaluate, serve from a zip -------------------
+
+# scratch for phase 7's checkpoint directories and zips, inside the
+# checkout (gitignored), removed when the phase ends
+CKPT_DIR = os.path.join(HERE, "_ckpt_smoke")
+CKPT_EPOCHS = 2
+SEGMENTS = TRAIN_T // TBPTT          # TBPTT segments per char-LSTM batch
+EPOCH_STEPS = TRAIN_BATCHES * SEGMENTS  # 60 optimizer steps per epoch
+# the child's pause after printing a step: widens the window in which the
+# parent's signal lands inside epoch 1 (the work does not change)
+CHILD_STEP_SLEEP = 0.02
+# 7a's SIGTERM goes out after this step: three quarters into epoch 1's
+# first batch
+SIGTERM_STEP = EPOCH_STEPS + (3 * SEGMENTS) // 4
+RESUME_BATCHES = 4   # ResNet-50 batches per epoch in 7b
+RESUME_EVERY = 3     # 7b saves after iterations 4 and 7 (batch 3 of 4 in epoch 1)
+RESUME_CRASH = 6     # ... and crashes after that second save is flushed
+DECODE_PROMPTS = 4   # 7c's requests to the decode engine on the loaded zip
+
+
+def resume_windows(DataSet, seed):
+    """7a's data: TRAIN_BATCHES batches' worth of SURVEY.md windows as one
+    DataSet, dealt by a shuffling iterator."""
+    bs = corpus_batches(DataSet, seed + 70, TRAIN_BATCHES)
+    return DataSet(np.concatenate([b.features for b in bs]),
+                   np.concatenate([b.labels for b in bs]))
+
+
+def resume_charlstm(char_lstm_network, seed):
+    return char_lstm_network(vocab_size=VOCAB, hidden=HIDDEN, layers=LAYERS,
+                             tbptt_length=TBPTT, seed=seed, learning_rate=TRAIN_LR)
+
+
+def charlstm_child(ckpt_dir: str, seed: int) -> int:
+    """The killed run of 7a, in a process of its own: the full-width
+    char-LSTM fits 2 epochs with an async checkpoint listener that saves
+    at each epoch's end and on SIGTERM, and prints one flushed
+    "STEP <iteration> <score>" line a step."""
+    import torch
+
+    if not torch.cuda.is_available():
+        return 2
+    sys.path.insert(0, HERE)
+    from deeplearning4j_tpu_torch.common.dtypes import default_policy
+    from deeplearning4j_tpu_torch.data import DataSet, ListDataSetIterator
+    from deeplearning4j_tpu_torch.models.charlstm import char_lstm_network
+    from deeplearning4j_tpu_torch.train.checkpoint import CheckpointListener
+    from deeplearning4j_tpu_torch.train.listeners import IterationListener
+
+    class Printer(IterationListener):
+        def iteration_done(self, model, iteration, info):
+            print(f"STEP {iteration} {float(info['score']()):.17g}", flush=True)
+            time.sleep(CHILD_STEP_SLEEP)
+
+    default_policy().apply()
+    net = resume_charlstm(char_lstm_network, seed)
+    lst = CheckpointListener(ckpt_dir, every_n_epochs=1, every_n_iterations=None,
+                             async_save=True, save_on_preemption=True)
+    net.set_listeners(lst, Printer())
+    net.fit(ListDataSetIterator(resume_windows(DataSet, seed), TRAIN_B, shuffle=True,
+                                seed=seed), epochs=CKPT_EPOCHS)
+    print("FIT DONE", flush=True)
+    return 0
+
+
+def run_child(ckpt_dir, seed, sig, fire):
+    """Start the 7a child and read its steps; send `sig` at the first step
+    where `fire(iteration, latest.json or None)` holds. Returns (exit code,
+    {iteration: score}, the iteration after which the signal went out)."""
+    import signal
+
+    err = open(os.path.join(CKPT_DIR, f"child_{sig}.err"), "w")
+    proc = subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--child", "charlstm",
+         "--ckpt-dir", ckpt_dir, "--seed", str(seed)],
+        cwd=HERE, stdout=subprocess.PIPE, stderr=err, text=True)
+    steps, sent = {}, None
+    try:
+        for line in proc.stdout:
+            if line.startswith("STEP "):
+                _, it, score = line.split()
+                steps[int(it)] = float(score)
+                latest = None
+                try:
+                    with open(os.path.join(ckpt_dir, "latest.json")) as f:
+                        latest = json.load(f)
+                except (OSError, ValueError):
+                    pass
+                if fire(int(it), latest):
+                    proc.send_signal(sig)
+                    sent = int(it)
+                    break
+            elif line.startswith("FIT DONE"):
+                break
+        rc = proc.wait(timeout=300)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        proc.stdout.close()
+        err.close()
+    if sent is None or rc != -sig:
+        with open(err.name) as f:
+            tail = f.read()[-3000:]
+        raise SmokeFailure(f"child (signal {sig}) ended with {rc} after step "
+                           f"{max(steps, default=None)}, signal sent after {sent}: {tail}")
+    return rc, steps, sent
+
+
+def leaves_of(tree):
+    from deeplearning4j_tpu_torch.utils.model_serializer import tree_leaves
+
+    return [t.detach().clone() for t in tree_leaves(tree)]
+
+
+def same_leaves(a, b) -> bool:
+    return len(a) == len(b) and all(torch_equal(x, y) for x, y in zip(a, b))
+
+
+def torch_equal(x, y) -> bool:
+    return x.shape == y.shape and x.dtype == y.dtype and bool((x == y).all())
+
+
+class StepScores:
+    """Each step's score kept as a device tensor, read after the fit (no
+    per-step sync); with `clock`, the host clock after a device sync at
+    each step."""
+
+    def __init__(self, torch, clock=False):
+        self.torch, self.clock = torch, clock
+        self.scores, self.times = {}, [time.perf_counter()]
+
+    def iteration_done(self, model, iteration, info):
+        if self.clock:
+            self.torch.cuda.synchronize()
+            self.times.append(time.perf_counter())
+        self.scores[iteration] = info["score"]()
+
+    def on_epoch_start(self, model, epoch):
+        pass
+
+    def on_epoch_end(self, model, epoch):
+        pass
+
+    def values(self):
+        return {i: float(s) for i, s in self.scores.items()}
+
+
+class Crash(RuntimeError):
+    """7b's simulated crash."""
+
+
+def truncating_iterator(DataSetIterator, base, epoch, batch, segments):
+    """The reference of a SIGTERM resume: `base`, with batch `batch` of
+    epoch `epoch` cut to its first `segments` TBPTT segments — the
+    segments the preempted run trained before its save counted the batch
+    as consumed."""
+
+    class Truncate(DataSetIterator):
+        def __init__(self):
+            self.epoch = 0
+
+        def __iter__(self):
+            for i, ds in enumerate(base):
+                if self.epoch == epoch and i == batch:
+                    cut = slice(0, segments * TBPTT)
+                    ds = type(ds)(ds.features[:, cut], ds.labels[:, cut])
+                yield ds
+            self.epoch += 1
+
+        def reset(self):
+            base.reset()
+
+    return Truncate()
+
+
+def charlstm_resume_phase(torch, fl, char_lstm_network, DataSet, DataSetIterator,
+                          ListDataSetIterator, ckpt, ms, seed):
+    """7a: SIGKILL and SIGTERM a full-width char-LSTM fit in a child
+    process, resume it here, and hold the resumed run bit-equal to an
+    uninterrupted one."""
+    import signal
+
+    data = resume_windows(DataSet, seed)
+
+    def iterator():
+        return ListDataSetIterator(data, TRAIN_B, shuffle=True, seed=seed)
+
+    def fit(it, resume_from=None):
+        net = resume_charlstm(char_lstm_network, seed)
+        log = StepScores(torch)
+        net.set_listeners(log)
+        before = fl.launch_counts()
+        net.fit(it, epochs=CKPT_EPOCHS, resume_from=resume_from)
+        torch.cuda.synchronize()
+        launches = {k: v - before[k] for k, v in fl.launch_counts().items()}
+        return net, log.values(), launches
+
+    t0 = time.perf_counter()
+    ref_net, ref, _ = fit(iterator())
+    ref_wall = time.perf_counter() - t0
+    steps = CKPT_EPOCHS * EPOCH_STEPS
+    check(sorted(ref) == list(range(steps)), f"the reference ran {len(ref)} steps")
+    ref_p, ref_r = leaves_of(ref_net.params_list), leaves_of(ref_net.upd_state)
+    del ref_net
+    out = {"reference_seconds": ref_wall}
+
+    # SIGKILL once the epoch-0 checkpoint is published and epoch 1 runs
+    kdir = os.path.join(CKPT_DIR, "charlstm_kill")
+    rc, seen, sent = run_child(
+        kdir, seed, signal.SIGKILL,
+        lambda it, latest: it >= EPOCH_STEPS and latest is not None
+        and latest.get("iteration") == EPOCH_STEPS)
+    for f in os.listdir(kdir):
+        if ".tmp" in f:
+            os.remove(os.path.join(kdir, f))
+    bad = [i for i, sc in seen.items() if sc != ref[i]]
+    check(not bad, f"the child's steps differ from the reference at {bad[:5]}")
+    path, meta = ckpt.latest_checkpoint(kdir)
+    check(meta["iteration"] == EPOCH_STEPS,
+          f"the newest checkpoint after the kill is {meta}")
+    net, res, launches = fit(iterator(), resume_from=kdir)
+    bad = [i for i, sc in res.items() if sc != ref[i]]
+    p_eq = same_leaves(leaves_of(net.params_list), ref_p)
+    r_eq = same_leaves(leaves_of(net.upd_state), ref_r)
+    n = len(res)
+    print(f"  SIGKILL after step {sent} (latest.json: iteration {meta['iteration']}, "
+          f"epoch {meta['epoch']}); resumed {n} steps from iteration {min(res)}: scores "
+          f"bit-equal {not bad}, parameters bit-equal {p_eq}, RMSProp r bit-equal {r_eq}; "
+          f"launches {launches}")
+    check(min(res) == EPOCH_STEPS and n == steps - EPOCH_STEPS,
+          f"resumed at {min(res)} for {n} steps")
+    check(not bad, f"resumed scores differ from the uninterrupted run at {bad[:5]}")
+    check(p_eq and r_eq, "resumed parameters or RMSProp state differ")
+    for k in ("lstm_sequence", "lstm_sequence_backward"):
+        check(launches[k] == LAYERS * n,
+              f"{k} launched {launches[k]} times in {n} resumed steps")
+    out["sigkill"] = {"signal_after_step": sent, "checkpoint_iteration": meta["iteration"],
+                      "resumed_steps": n, "scores_equal": not bad, "params_equal": p_eq,
+                      "rmsprop_equal": r_eq, "launches": launches}
+    del net
+
+    # SIGTERM mid-batch: the preemption save lands between segments
+    tdir = os.path.join(CKPT_DIR, "charlstm_term")
+    rc, seen, sent = run_child(tdir, seed, signal.SIGTERM,
+                               lambda it, latest: it >= SIGTERM_STEP)
+    path, meta = ckpt.latest_checkpoint(tdir)
+    ts = ms.read_train_state(path)
+    check(meta.get("reason") == "preemption", f"no preemption save: {meta}")
+    it_saved, ep, b = meta["iteration"], ts["epoch"], ts["batch_in_epoch"]
+    done = it_saved - (ep * TRAIN_BATCHES + b - 1) * SEGMENTS
+    check(0 < done <= SEGMENTS, f"inconsistent preemption save: {meta} {ts}")
+    net, res, launches = fit(iterator(), resume_from=tdir)
+    tref_net, tref, _ = fit(
+        truncating_iterator(DataSetIterator, iterator(), ep, b - 1, done))
+    bad = [i for i, sc in res.items() if sc != tref[i]]
+    p_eq = same_leaves(leaves_of(net.params_list), leaves_of(tref_net.params_list))
+    r_eq = same_leaves(leaves_of(net.upd_state), leaves_of(tref_net.upd_state))
+    del tref_net
+    print(f"  SIGTERM after step {sent}: the preemption save holds iteration {it_saved} "
+          f"(epoch {ep}, batch_in_epoch {b}: batch {b - 1} counted consumed after "
+          f"{done} of its {SEGMENTS} segments); the resume skips its other "
+          f"{SEGMENTS - done} segments and runs {len(res)} steps from iteration "
+          f"{min(res)}; against a reference that skips the same segments: scores "
+          f"bit-equal {not bad}, parameters {p_eq}, RMSProp r {r_eq}")
+    check(min(res) == it_saved, f"resumed at {min(res)}, saved at {it_saved}")
+    check(not bad and p_eq and r_eq,
+          f"SIGTERM resume differs from its reference (scores at {bad[:5]})")
+    out["sigterm"] = {"signal_after_step": sent, "checkpoint_iteration": it_saved,
+                      "epoch": ep, "batch_in_epoch": b, "segments_done": done,
+                      "resumed_steps": len(res), "scores_equal": not bad,
+                      "params_equal": p_eq, "rmsprop_equal": r_eq}
+    return net, data, out
+
+
+def resnet_resume_phase(torch, F, fcb, resnet50_network, DataSet, ListDataSetIterator,
+                        ckpt, metrics, seed, card):
+    """7b: ResNet-50 saves asynchronously mid-epoch, crashes, and a fresh
+    net resumes bit-equal (with cuDNN's deterministic algorithms); then
+    the step time with the async listener beside one without it."""
+    g = torch.Generator(device="cuda").manual_seed(seed + 70)
+    n = RESUME_BATCHES * RESNET_BATCH
+    x = torch.randn((n, 224, 224, 3), generator=g, device="cuda")
+    lab = torch.randint(0, 1000, (n,), generator=g, device="cuda")
+    data = DataSet(x, F.one_hot(lab, 1000).float())
+    steps = CKPT_EPOCHS * RESUME_BATCHES
+
+    class CrashAfterFlush:
+        def __init__(self, lst):
+            self.lst = lst
+
+        def iteration_done(self, model, iteration, info):
+            if iteration == RESUME_CRASH:
+                self.lst.flush()
+                raise Crash(f"simulated crash after iteration {iteration}")
+
+        def on_epoch_start(self, model, epoch):
+            pass
+
+        def on_epoch_end(self, model, epoch):
+            pass
+
+    def run(listeners=(), resume_from=None, clock=False):
+        net = resnet50_network(precision="bf16", seed=seed, learning_rate=RESNET_LR)
+        log = StepScores(torch, clock=clock)
+        net.set_listeners(*listeners[:1], log, *listeners[1:])
+        before = fcb.launch_counts()
+        try:
+            net.fit(ListDataSetIterator(data, RESNET_BATCH, shuffle=True, seed=seed),
+                    epochs=CKPT_EPOCHS, resume_from=resume_from)
+        except Crash:
+            pass
+        torch.cuda.synchronize()
+        launches = {k: v - before[k] for k, v in fcb.launch_counts().items()}
+        return net, log, launches
+
+    def state(net):
+        return (leaves_of(net.params_list), leaves_of(net.upd_state),
+                leaves_of(net.state_list))
+
+    old = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    out = {"cudnn_default": {"deterministic": old[0], "benchmark": old[1]}}
+    # two uninterrupted runs with the setting every other phase uses
+    a_net, a, _ = run()
+    sa = state(a_net)
+    del a_net
+    b_net, b, _ = run()
+    sb = state(b_net)
+    del b_net
+    av, bv = a.values(), b.values()
+    repro = (av == bv, all(same_leaves(p, q) for p, q in zip(sa, sb)))
+    print(f"  two uninterrupted runs ({steps} steps, cudnn.deterministic={old[0]}, "
+          f"benchmark={old[1]}): scores bit-equal {repro[0]}, parameters, Nesterovs v "
+          f"and BN running stats bit-equal {repro[1]}")
+    out["reproducible_without_deterministic"] = {"scores": repro[0], "state": repro[1]}
+    del sa, sb
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        ref_net, ref, _ = run()
+        sr = state(ref_net)
+        del ref_net
+        rdir = os.path.join(CKPT_DIR, "resnet")
+        lst = ckpt.CheckpointListener(rdir, every_n_iterations=RESUME_EVERY,
+                                      every_n_epochs=None, async_save=True)
+        crashed, _, _ = run(listeners=(lst, CrashAfterFlush(lst)))
+        check(crashed.iteration == RESUME_CRASH + 1, f"crash at {crashed.iteration}")
+        lst.close()
+        del crashed
+        path, meta = ckpt.latest_checkpoint(rdir)
+        ts = ckpt_train_state(path)
+        net, res, launches = run(resume_from=rdir)
+        rv, refv = res.values(), ref.values()
+        bad = [i for i in rv if rv[i] != refv[i]]
+        eq = [same_leaves(p, q) for p, q in zip(state(net), sr)]
+        print(f"  cudnn.deterministic=True: crash after iteration {RESUME_CRASH}; the "
+              f"newest checkpoint holds iteration {meta['iteration']} (epoch "
+              f"{ts['epoch']}, batch_in_epoch {ts['batch_in_epoch']} of "
+              f"{RESUME_BATCHES}); resumed {len(rv)} step(s) from iteration "
+              f"{min(rv)}: scores bit-equal {not bad}, parameters {eq[0]}, Nesterovs "
+              f"v {eq[1]}, BN running stats {eq[2]}; launches {launches}")
+        check(ts["batch_in_epoch"] == 3 and ts["epoch"] == 1,
+              f"the mid-epoch save records {ts}")
+        check(min(rv) == meta["iteration"] and len(rv) == steps - meta["iteration"],
+              f"resumed {sorted(rv)}")
+        check(not bad and all(eq), "the resumed ResNet-50 differs from the "
+              "uninterrupted run")
+        for k, per in RESNET_PER_STEP.items():
+            check(launches[k] == per * len(rv),
+                  f"{k} launched {launches[k]} times in {len(rv)} resumed steps")
+        out["resume"] = {"checkpoint_iteration": meta["iteration"], "train_state": ts,
+                         "resumed_steps": len(rv), "scores_equal": not bad,
+                         "params_equal": eq[0], "nesterovs_equal": eq[1],
+                         "bn_stats_equal": eq[2], "launches": launches}
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = old
+    del sr
+
+    # step time: the async listener saving every 3 steps, beside none
+    hist = metrics.get_registry().histogram(
+        "checkpoint_save_seconds", "", ("phase",))
+    times = {}
+    for name in ("without", "with"):
+        sdir = os.path.join(CKPT_DIR, "resnet_timed")
+        lst = (ckpt.CheckpointListener(sdir, every_n_iterations=RESUME_EVERY,
+                                       every_n_epochs=None, async_save=True, keep_last=1)
+               if name == "with" else None)
+        t_net, log, _ = run(listeners=(lst,) if lst else (), clock=True)
+        if lst is not None:
+            lst.close()
+        del t_net
+        dt = np.diff(log.times)[1:]  # the first step's warm-up left out
+        times[name] = {"step_p50_s": float(np.percentile(dt, 50)),
+                       "step_p99_s": float(np.percentile(dt, 99)), "steps": len(dt)}
+    snap, write = hist.labels("snapshot"), hist.labels("write")
+    saves = {"snapshot_p50_s": snap.percentile(50), "snapshot_max_s": snap.percentile(100),
+             "write_p50_s": write.percentile(50), "write_max_s": write.percentile(100),
+             "snapshots": snap.count, "writes": write.count}
+    print(f"  ResNet-50 step, synced per step, steps 2-{steps} of {steps}: without a "
+          f"listener p50 {times['without']['step_p50_s']:.4f} s p99 "
+          f"{times['without']['step_p99_s']:.4f} s; with the async listener saving every "
+          f"{RESUME_EVERY} steps p50 {times['with']['step_p50_s']:.4f} s p99 "
+          f"{times['with']['step_p99_s']:.4f} s (host clock) on {card}")
+    print(f"  checkpoint_save_seconds over {saves['writes']} ResNet-50 saves: snapshot "
+          f"p50 {saves['snapshot_p50_s']:.4f} s max {saves['snapshot_max_s']:.4f} s; write "
+          f"p50 {saves['write_p50_s']:.3f} s max {saves['write_max_s']:.3f} s on {card}")
+    out["step_time"] = times
+    out["checkpoint_save_seconds"] = saves
+    return net, data, out
+
+
+def ckpt_train_state(path):
+    from deeplearning4j_tpu_torch.utils.model_serializer import read_train_state
+
+    return read_train_state(path)
+
+
+def zip_phase(torch, fl, DecodeEngine, metrics, ckpt, ms, Evaluation,
+              ListDataSetIterator, lstm_net, windows, resnet_net, images, seed, card):
+    """7c: save both trained nets, verify, load on the card, compare
+    outputs, evaluate, serve the loaded char-LSTM, and fall back past a
+    corrupted newest checkpoint."""
+    out = {}
+    loaded = {}
+    for name, net in (("charlstm", lstm_net), ("resnet50", resnet_net)):
+        path = os.path.join(CKPT_DIR, f"{name}.zip")
+        t0 = time.perf_counter()
+        ms.save_model(net, path)
+        save_s = time.perf_counter() - t0
+        v = ms.verify_checkpoint(path)
+        check(v["ok"] and not v["legacy"], f"{name}.zip does not verify: {v}")
+        t0 = time.perf_counter()
+        back = ms.load_model(path)
+        load_s = time.perf_counter() - t0
+        check(back.device.type == "cuda", f"{name} loaded on {back.device}")
+        mb = os.path.getsize(path) / 1e6
+        out[name] = {"zip_mb": mb, "save_s": save_s, "load_s": load_s,
+                     "entries": sorted(v["entries"])}
+        loaded[name] = back
+        print(f"  {name}: zip {mb:.2f} MB, save_model {save_s:.3f} s, verify ok, "
+              f"load_model {load_s:.3f} s on {card}")
+
+    # outputs of the loaded nets, bit-equal to the writers'
+    x = windows.features[:TRAIN_B, :100]
+    k1 = fl.launch_counts()["lstm_sequence"]
+    want = lstm_net.output(x)
+    got = loaded["charlstm"].output(x)
+    torch.cuda.synchronize()
+    k1 = fl.launch_counts()["lstm_sequence"] - k1
+    check(torch.equal(got, want), "the loaded char-LSTM's output differs from the writer's")
+    check(k1 >= 2 * LAYERS, f"output() launched K1 {k1} times for two nets")
+    xi = images.features[:RESNET_BATCH]
+    check(torch.equal(loaded["resnet50"].output(xi), resnet_net.output(xi)),
+          "the loaded ResNet-50's output differs from the writer's")
+    print(f"  output() of each loaded zip bit-equal to the writer's ([{TRAIN_B}, 100, "
+          f"{VOCAB}] windows, K1 launched; [{RESNET_BATCH}, 224, 224, 3] images)")
+
+    # evaluate() against an Evaluation built in numpy from output()
+    it = ListDataSetIterator(images, RESNET_BATCH)
+    ev = loaded["resnet50"].evaluate(it)
+    ref = Evaluation()
+    counts = np.zeros((1000, 1000), np.int64)
+    for ds in ListDataSetIterator(images, RESNET_BATCH):
+        o = loaded["resnet50"].output(ds.features).cpu().numpy()
+        y = ds.labels.cpu().numpy()
+        ref.eval_batch(y, o)
+        np.add.at(counts, (y.argmax(-1), o.argmax(-1)), 1)
+    check(np.array_equal(ev.confusion, ref.confusion) and np.array_equal(ev.confusion, counts)
+          and ev.stats() == ref.stats(), "evaluate() differs from the numpy Evaluation")
+    print(f"  evaluate() of the loaded ResNet-50 on its {RESUME_BATCHES} batches equals "
+          f"the numpy Evaluation of output(): accuracy {ev.accuracy():.4f}, "
+          f"{int(ev.confusion.sum())} examples")
+    out["evaluate"] = {"accuracy": ev.accuracy(), "examples": int(ev.confusion.sum())}
+
+    # serve the loaded char-LSTM
+    rng = np.random.default_rng(seed + 71)
+    reqs = [([int(t) for t in rng.integers(0, VOCAB, int(rng.integers(1, 17)))],
+             int(rng.integers(8, 25))) for _ in range(DECODE_PROMPTS)]
+    want = [greedy_reference(torch, loaded["charlstm"], p, m) for p, m in reqs]
+    k2 = fl.launch_counts()["lstm_step"]
+    eng = DecodeEngine(loaded["charlstm"], n_slots=8, component_prefix="smoke_zip")
+    try:
+        got = [f.result(timeout=300) for f in
+               [eng.generate(p, max_new_tokens=m) for p, m in reqs]]
+    finally:
+        eng.shutdown()
+    torch.cuda.synchronize()
+    k2 = fl.launch_counts()["lstm_step"] - k2
+    check(got == want, "the decode engine on the loaded zip differs from the sequential loop")
+    check(k2 > 0, "the decode engine on the loaded zip launched no K2")
+    print(f"  DecodeEngine(n_slots=8) on the loaded char-LSTM: {DECODE_PROMPTS} requests, "
+          f"{sum(len(t) for t in got)} tokens equal to the sequential rnn_time_step "
+          f"loop's; K2 launched {k2} times")
+    out["decode"] = {"requests": DECODE_PROMPTS, "tokens": sum(len(t) for t in got),
+                     "k2_launches": k2}
+
+    # a corrupted newest checkpoint is skipped, counted, and the previous loads
+    rdir = os.path.join(CKPT_DIR, "resnet")
+    cks = ckpt.scan_checkpoints(rdir)
+    check(len(cks) >= 2, f"7b left {cks}")
+    newest = os.path.join(rdir, cks[-1][1])
+    damaged = ckpt.corrupt_zip_entry(newest)
+    fam = metrics.get_registry().counter("checkpoint_integrity_failures_total", "")
+    before = fam.labels().value
+    net2, meta = ckpt.CheckpointListener.restore_latest(rdir)
+    after = fam.labels().value
+    load_h = metrics.get_registry().histogram("checkpoint_load_seconds", "").labels()
+    check(meta["file"] == cks[-2][1] and net2.iteration == cks[-2][0],
+          f"restore_latest took {meta} after {newest} was corrupted")
+    check(after == before + 1, f"checkpoint_integrity_failures_total {before} -> {after}")
+    print(f"  corrupted {damaged} of {cks[-1][1]}: restore_latest skipped it and loaded "
+          f"{meta['file']} (iteration {net2.iteration}); "
+          f"checkpoint_integrity_failures_total {before:.0f} -> {after:.0f}; "
+          f"checkpoint_load_seconds {load_h.percentile(100):.3f} s on {card}")
+    out["corrupt_fallback"] = {"damaged_entry": damaged, "loaded": meta["file"],
+                               "integrity_failures": after - before,
+                               "checkpoint_load_seconds": load_h.percentile(100)}
+    return out
+
+
+def checkpoint_phase(torch, F, fl, fcb, char_lstm_network, resnet50_network,
+                     DecodeEngine, metrics, seed, card):
+    """Phase 7: 7a, 7b and 7c in turn, in a scratch directory of the
+    checkout that the phase removes at its end."""
+    import shutil
+
+    from deeplearning4j_tpu_torch.data import DataSet, DataSetIterator, ListDataSetIterator
+    from deeplearning4j_tpu_torch.train import checkpoint as ckpt
+    from deeplearning4j_tpu_torch.train.evaluation import Evaluation
+    from deeplearning4j_tpu_torch.utils import model_serializer as ms
+
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    os.makedirs(CKPT_DIR)
+    try:
+        fl.reset_launch_counts()
+        fcb.reset_launch_counts()
+        print("  7a: char-LSTM, kill and resume")
+        lstm_net, windows, a = charlstm_resume_phase(
+            torch, fl, char_lstm_network, DataSet, DataSetIterator,
+            ListDataSetIterator, ckpt, ms, seed)
+        print("  7b: ResNet-50, crash and resume")
+        resnet_net, images, b = resnet_resume_phase(
+            torch, F, fcb, resnet50_network, DataSet, ListDataSetIterator, ckpt,
+            metrics, seed, card)
+        print("  7c: zip round trip on the card")
+        c = zip_phase(torch, fl, DecodeEngine, metrics, ckpt, ms, Evaluation,
+                      ListDataSetIterator, lstm_net, windows, resnet_net, images,
+                      seed, card)
+        torch.cuda.synchronize()
+        launches = {**fl.launch_counts(), **fcb.launch_counts()}
+    finally:
+        shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    return {"launches": launches, "charlstm": a, "resnet50": b, "zip": c}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default=os.path.join("chiprun_out", "chip_smoke.json"))
+    ap.add_argument("--child", choices=["charlstm"], default=None,
+                    help="run phase 7a's killed fit (started by the script itself)")
+    ap.add_argument("--ckpt-dir", default=None, help="the child's checkpoint directory")
     args = ap.parse_args(argv)
+    if args.child is not None:
+        return charlstm_child(args.ckpt_dir, args.seed)
 
     # The script profiles CUDA graph replays (phases 2 and 4) and profiles
     # again after them. CUPTI's teardown between profiles does not work
@@ -2140,9 +2727,15 @@ def main(argv=None) -> int:
                       ExistingDataSetIterator, IterationListener, args.seed, card)
     rn["launches"] = {**rn["launches"], **fl.launch_counts()}
 
+    print(f"[7] checkpoint, resume, evaluate, serve from a zip: char-LSTM and "
+          f"ResNet-50 at full width, {CKPT_EPOCHS} epochs each")
+    ck = checkpoint_phase(torch, F, fl, fcb, char_lstm_network, resnet50_network,
+                          DecodeEngine, metrics, args.seed, card)
+
     # each main path's count, read just after it ran from zero
     by_path = {"output": sl["launches"], "serve": sv["launches"],
-               "train": tr["launches"], "train_resnet": rn["launches"]}
+               "train": tr["launches"], "train_resnet": rn["launches"],
+               "checkpoint": ck["launches"]}
     main_launches = {name: sum(c[name] for c in by_path.values())
                      for name in rows}
     meta = {
@@ -2182,6 +2775,7 @@ def main(argv=None) -> int:
               "kernels": kernels, "hgmma_per_kernel": hgmma, "slice": sl, "serve": sv,
               "train": tr,
               "train_resnet": rn,
+              "checkpoint": ck,
               "build": {k: v["seconds"] for k, v in info.items()},
               "ptxas": {k: v["log"] for k, v in info.items() if k not in cuda_build.SOURCES},
               "seconds": time.perf_counter() - t_start}

@@ -11,8 +11,9 @@ the conf DSL and its JSON (graphs included), layer forwards (dense,
 LSTM, conv, pooling, batch norm), `MultiLayerNetwork` inference and
 `fit` with truncated BPTT, `ComputationGraph` training and inference
 (losses, updaters, data iterators, listeners), and the
-continuous-batching decode engine, with every kernel of the JAX
-package: the fused LSTM step, sequence and sequence-backward kernels,
+continuous-batching decode engine, the model zip (both packages load
+each other's), checkpointing with mid-epoch resume, evaluation and early
+stopping, with every kernel of the JAX package: the fused LSTM step, sequence and sequence-backward kernels,
 and the conv + BN-statistics, BN apply and BN backward kernels.
 """
 

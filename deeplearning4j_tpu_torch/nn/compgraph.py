@@ -22,8 +22,7 @@ package reaches the same kernel count through XLA's dead-code
 elimination, which eager PyTorch does not have.
 
 Not ported yet: the scan over identical blocks (`set_block_scan`), TBPTT,
-fused multi-step fits, `rnn_time_step`, `evaluate` and the center-loss
-head.
+fused multi-step fits, `rnn_time_step` and the center-loss head.
 """
 
 from __future__ import annotations
@@ -60,6 +59,10 @@ from deeplearning4j_tpu_torch.nn.multilayer import (
 )
 from deeplearning4j_tpu_torch.nn.netbase import NetworkBase, _layer_seed
 from deeplearning4j_tpu_torch.ops.losses import loss_value, masked_example_mean
+from deeplearning4j_tpu_torch.train.evaluation import (
+    Evaluation,
+    RegressionEvaluation,
+)
 from deeplearning4j_tpu_torch.train.updaters import updater_from_conf
 
 
@@ -246,12 +249,14 @@ class ComputationGraph(NetworkBase):
     # -- fit -----------------------------------------------------------------
 
     def fit(self, data, labels=None, *, epochs: int = 1, batch_size: int = 32,
-            async_prefetch: bool = True):
+            async_prefetch: bool = True, hang_timeout: float = None,
+            resume_from: str = None, run_ledger=None):
         """Train. Accepts (features, labels) arrays, a DataSet/MultiDataSet,
         or a DataSetIterator/MultiDataSetIterator (reference:
         ComputationGraph.fit overloads :857-867). `async_prefetch` is
         accepted for the JAX package's signature; batches are read and moved
-        to the device inline either way."""
+        to the device inline either way. `hang_timeout`, `resume_from` and
+        `run_ledger` as in MultiLayerNetwork.fit."""
         del async_prefetch
         self._require_init()
         if self.upd_state is None:
@@ -265,7 +270,8 @@ class ComputationGraph(NetworkBase):
         else:
             iterator = ListDataSetIterator(
                 DataSet(np.asarray(data), np.asarray(labels)), batch_size)
-        return self._run_fit(iterator, epochs)
+        return self._run_fit(iterator, epochs, hang_timeout=hang_timeout,
+                             resume_from=resume_from, run_ledger=run_ledger)
 
     def _fit_dataset(self, ds):
         mds = _as_multidataset(ds)
@@ -280,7 +286,7 @@ class ComputationGraph(NetworkBase):
         self.state_list, _ = self._fit_step(
             self._data_list(mds.features), self._data_list(mds.labels),
             self._data_list(mds.features_masks), self._data_list(mds.labels_masks))
-        self._notify(mds.num_examples())
+        self._notify(mds.num_examples(), ds)
 
     def score(self, data, labels=None) -> float:
         """Loss on a dataset without updating (inference-mode forward)."""
@@ -295,6 +301,43 @@ class ComputationGraph(NetworkBase):
                 self._data_list(mds.labels), self._data_list(mds.features_masks),
                 self._data_list(mds.labels_masks), rng=None, training=False)
         return float(s)
+
+    def evaluate(self, data, labels=None, batch_size: int = 256,
+                 output_index: int = 0) -> Evaluation:
+        """Classification evaluation; multi-input graphs evaluate on all
+        features, multi-output graphs on the head selected by
+        output_index (reference: ComputationGraph.evaluate)."""
+        ev = Evaluation()
+        for out, y, lm in self._eval_outputs(data, labels, batch_size,
+                                             output_index):
+            ev.eval_batch(y, out, lm)
+        return ev
+
+    def evaluate_regression(self, data, labels=None, batch_size: int = 256,
+                            output_index: int = 0) -> RegressionEvaluation:
+        ev = RegressionEvaluation()
+        for out, y, lm in self._eval_outputs(data, labels, batch_size,
+                                             output_index):
+            ev.eval_batch(y, out, lm)
+        return ev
+
+    def _eval_outputs(self, data, labels, batch_size, output_index):
+        """(output, labels, labels mask) of the selected head per batch."""
+        if isinstance(data, (DataSetIterator, MultiDataSetIterator)):
+            batches = data
+        elif isinstance(data, (DataSet, MultiDataSet)):
+            batches = [data]
+        else:
+            batches = DataSet(np.asarray(data),
+                              np.asarray(labels)).split_batches(batch_size)
+        for b in batches:
+            mds = _as_multidataset(b)
+            out = self.output(*mds.features, input_masks=mds.features_masks)
+            if isinstance(out, list):
+                out = out[output_index]
+            lm = (None if mds.labels_masks is None
+                  else mds.labels_masks[output_index])
+            yield out, mds.labels[output_index], lm
 
     # -- inference -----------------------------------------------------------
 

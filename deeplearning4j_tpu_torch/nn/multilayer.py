@@ -13,8 +13,8 @@ gradients (through the fused LSTM kernels' autograd Function on a Hopper
 GPU), and the updater adds its deltas to the parameters in place. The
 JAX package's single-dispatch programs (fused TBPTT, `set_fused_steps`)
 and the line-search solvers are not ported: they are XLA dispatch
-devices around the same math as the loop here. evaluate and pretraining
-are not ported yet.
+devices around the same math as the loop here. Pretraining is not
+ported yet.
 
 Parameters are a list of per-layer dicts of tensors on the network's
 device; the flattened view comes from nn/params.py. Mutable
@@ -52,6 +52,10 @@ from deeplearning4j_tpu_torch.nn.layers.registry import (
 )
 from deeplearning4j_tpu_torch.nn.netbase import NetworkBase, _layer_seed
 from deeplearning4j_tpu_torch.ops.losses import loss_value, masked_example_mean
+from deeplearning4j_tpu_torch.train.evaluation import (
+    Evaluation,
+    RegressionEvaluation,
+)
 from deeplearning4j_tpu_torch.train.updaters import updater_from_conf
 
 logger = logging.getLogger("deeplearning4j_tpu_torch")
@@ -202,19 +206,31 @@ class MultiLayerNetwork(NetworkBase):
     # -- fit -----------------------------------------------------------------
 
     def fit(self, data, labels=None, *, epochs: int = 1, batch_size: int = 32,
-            async_prefetch: bool = True):
+            async_prefetch: bool = True, hang_timeout: float = None,
+            resume_from: str = None, run_ledger=None):
         """Train. Accepts (features, labels) arrays, a DataSet, or a
         DataSetIterator (reference: MultiLayerNetwork.fit overloads :1019).
         `async_prefetch` is accepted for the JAX package's signature; the
         staged prefetch pipeline is not ported yet, so batches are read
-        and moved to the device inline either way."""
+        and moved to the device inline either way. `hang_timeout`
+        (seconds) arms the hang watchdog: a step making no progress for
+        that long raises utils.health.StepHangError carrying a
+        flight-recorder dump path. `resume_from` names a checkpoint
+        directory (train/checkpoint.CheckpointListener): the newest good
+        checkpoint is loaded into this net, the iterator is fast-forwarded
+        to the saved mid-epoch position, and training continues to the
+        loss curve of an uninterrupted run; an empty directory starts
+        fresh. `epochs` stays the TOTAL target. `run_ledger` raises
+        NotImplementedError: the run ledger is not ported yet."""
         del async_prefetch
         self._require_init()
         if self.upd_state is None:
             self.upd_state = self.updater_def.init_tree(self.params_list)
         if self.conf.pretrain:
             raise NotImplementedError("layerwise pretraining is not ported yet")
-        return self._run_fit(self._as_iterator(data, labels, batch_size), epochs)
+        return self._run_fit(self._as_iterator(data, labels, batch_size),
+                             epochs, hang_timeout=hang_timeout,
+                             resume_from=resume_from, run_ledger=run_ledger)
 
     def _as_iterator(self, data, labels, batch_size) -> DataSetIterator:
         if isinstance(data, DataSetIterator):
@@ -237,7 +253,7 @@ class MultiLayerNetwork(NetworkBase):
             self._fit_tbptt(ds, *data)
         else:
             self.state_list, _ = self._fit_step(*data)
-            self._notify(ds.num_examples())
+            self._notify(ds.num_examples(), ds)
 
     def _fit_tbptt(self, ds, x, y, f_mask, l_mask):
         """Truncated BPTT: split time into segments of tbptt_fwd_length and
@@ -268,7 +284,7 @@ class MultiLayerNetwork(NetworkBase):
             else:
                 states, _ = self._fit_step(*cut(slice(start, end)),
                                            stateful_states=states)
-            self._notify(ds.num_examples())
+            self._notify(ds.num_examples(), ds)
         # persist only non-RNN state; the RNN carry is per batch
         self.state_list = [
             st if not _is_recurrent(conf) else self.state_list[i]
@@ -287,6 +303,32 @@ class MultiLayerNetwork(NetworkBase):
                                              ds.features_mask, ds.labels_mask)),
                 rng=None, training=False)
         return float(s)
+
+    def evaluate(self, data, labels=None, batch_size: int = 256) -> Evaluation:
+        """Classification evaluation (reference: evaluate/doEvaluation
+        :2605-2646). Each batch's output moves to the host once."""
+        ev = Evaluation()
+        for ds in self._eval_batches(data, labels, batch_size):
+            out = self.output(ds.features)
+            ev.eval_batch(ds.labels, out, ds.labels_mask)
+        return ev
+
+    def evaluate_regression(self, data, labels=None,
+                            batch_size: int = 256) -> RegressionEvaluation:
+        ev = RegressionEvaluation()
+        for ds in self._eval_batches(data, labels, batch_size):
+            out = self.output(ds.features)
+            ev.eval_batch(ds.labels, out, ds.labels_mask)
+        return ev
+
+    def _eval_batches(self, data, labels, batch_size):
+        if isinstance(data, DataSetIterator):
+            yield from data
+        elif isinstance(data, DataSet):
+            yield from data.split_batches(batch_size)
+        else:
+            yield from DataSet(np.asarray(data),
+                               np.asarray(labels)).split_batches(batch_size)
 
     # -- inference -----------------------------------------------------------
 

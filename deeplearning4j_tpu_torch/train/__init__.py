@@ -1,2 +1,3 @@
-"""Training stack: updaters, gradient normalization and listeners (the
-port of the JAX package's train/)."""
+"""Training stack: updaters, gradient normalization, listeners,
+checkpointing, evaluation and early stopping (the port of the JAX
+package's train/)."""

@@ -14,6 +14,12 @@ applied per leaf over the list of per-layer parameter dicts:
 update to its parameter and writes the new state into the old state's
 tensors, in place, under torch.no_grad().
 
+Because the update is in place, anything that keeps the state of one
+step while later steps run must copy it: a checkpoint snapshot clones
+every leaf (utils/model_serializer.py `ModelSnapshot.capture`), where
+the JAX package may hold references to its immutable arrays. A later
+multi-tensor updater keeps that rule.
+
 Learning-rate schedules are computed on the host per step and passed in
 as the scalar `lr`.
 """

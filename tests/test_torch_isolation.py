@@ -66,3 +66,25 @@ def test_entry_points_refuse_to_run_on_cpu_silently(monkeypatch):
     net = char_lstm_network(vocab_size=5, hidden=4, layers=1, device="cpu")
     assert net.device.type == "cpu"
     assert all(t.device.type == "cpu" for p in net.params_list for t in p.values())
+
+
+def test_zip_loaders_refuse_to_run_on_cpu_silently(monkeypatch, tmp_path):
+    """load_model, restore_* and restore_latest default to "cuda" and
+    raise without a GPU; device="cpu" loads on the CPU."""
+    from deeplearning4j_tpu_torch.models.charlstm import char_lstm_network
+    from deeplearning4j_tpu_torch.train.checkpoint import CheckpointListener
+    from deeplearning4j_tpu_torch.utils import model_serializer as ms
+
+    ckdir = str(tmp_path / "ck")
+    net = char_lstm_network(vocab_size=5, hidden=4, layers=1, device="cpu")
+    path = CheckpointListener(ckdir).save(net, reason="manual")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for load in (ms.load_model, ms.restore_multi_layer_network,
+                 ms.restore_computation_graph):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            load(path)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        CheckpointListener.restore_latest(ckdir)
+    assert ms.load_model(path, device="cpu").device.type == "cpu"
+    back, meta = CheckpointListener.restore_latest(ckdir, device="cpu")
+    assert back.device.type == "cpu" and meta["iteration"] == 0
