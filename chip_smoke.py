@@ -120,6 +120,25 @@ result lines:
    DecodeEngine(n_slots=8) on the loaded char-LSTM equal to the
    sequential loop (K2), and restore_latest skipping a corrupted newest
    checkpoint (checkpoint_integrity_failures_total rises).
+8. The fused dispatch as CUDA graphs (nn/netbase.py `_run_fused`), each
+   against the eager loop from the same start (a no-op listener, the JAX
+   package's switch to the loop). 8a: the full-width char-LSTM fits
+   SURVEY.md batches with no listener: each batch's 20 TBPTT steps are one
+   graph (the first batch warms up eagerly, the second is captured), then
+   set_fused_steps(4): 80 steps a graph; scores, parameters and RMSProp r
+   bit-equal, 40 (160) launches each of K1 and K3 recorded per replay and
+   the same counts as the loop's, the replay's profile showing the
+   cluster kernels; synced dispatch p50/p99 and tokens/s of both, each
+   one's device time and busy share under the profiler, the capture's
+   seconds and graph pool. 8b: ResNet-50 (bf16, batch 128, Nesterovs lr
+   0.01) with set_fused_steps(2), cudnn.deterministic: 10 steps bit-equal
+   in scores, parameters, Nesterovs v and BN statistics, 36 K4, 17 K5 and
+   53 each of K6-K8 a step per replay; then 3 repeats of 20 steps each way
+   for step p50/p99 (synced at each dispatch) and images/s, one profiled
+   dispatch each (device ms a step, busy share), the capture's seconds,
+   the graph pool and the peak memory. 8c: the graphed char-LSTM fit of 6
+   host batches with the device prefetch pipeline on and off, bit-equal,
+   with tokens/s.
 The last three lines of standard output are the kernels JSON line, the
 card line, and {"ok": true, "device": {...}}. Imports nothing of JAX.
 """
@@ -2626,6 +2645,290 @@ def checkpoint_phase(torch, F, fl, fcb, char_lstm_network, resnet50_network,
     return {"launches": launches, "charlstm": a, "resnet50": b, "zip": c}
 
 
+# -- phase 8: the fused dispatch as CUDA graphs ------------------------------------
+
+# 8a: one fused TBPTT program a batch (20 segment steps): the first batch
+# warms up eagerly, the second is captured and replayed, the rest replay
+FUSED_LSTM_BATCHES = 6
+# then set_fused_steps(4): 4 batches (80 steps) a graph, 5 groups (warm-up,
+# capture + replay, 3 replays)
+FUSED_LSTM_K, FUSED_LSTM_GROUPS = 4, 5
+# 8b: ResNet-50 set_fused_steps(2); the hold runs 5 groups (10 steps) on
+# 4 batches, the timing 3 repeats of 20 steps each
+FUSED_RESNET_K, FUSED_RESNET_BATCHES = 2, 4
+FUSED_HOLD_STEPS, FUSED_REPEATS, FUSED_REPEAT_STEPS = 10, 3, 20
+
+
+class SyncClock:
+    """Iterates `batches` `epochs` times and, before handing out each
+    batch, synchronises the device and reads the host clock: with prefetch
+    off the fit pulls a batch only after dispatching the previous one (or
+    the previous fused group of `per`), so the gaps are synced dispatch
+    times. With `net`, each fused group's step scores are kept as it
+    ends."""
+
+    def __init__(self, torch, DataSetIterator, batches, epochs=1, net=None, per=1):
+        self.torch, self.batches, self.epochs = torch, batches, epochs
+        self.net, self.per = net, per
+        self.times, self.scores = [], []
+        self.it = type("Clocked", (DataSetIterator,), {"__iter__": lambda _: self._gen()})()
+
+    def _tick(self):
+        self.torch.cuda.synchronize()
+        self.times.append(time.perf_counter())
+        n = len(self.times) - 1
+        if self.net is not None and n and n % self.per == 0:
+            self.scores += self.net._fused_scores.tolist()
+
+    def _gen(self):
+        for _ in range(self.epochs):
+            for b in self.batches:
+                self._tick()
+                yield b
+        self._tick()
+
+
+def dispatch_times(clock, per):
+    """Synced seconds of each dispatch of `per` batches."""
+    t = clock.times
+    return [t[i + per] - t[i] for i in range(0, len(t) - 1, per)]
+
+
+def profiled(torch, fn):
+    """(device busy seconds, wall seconds, device ms by kernel) of one call
+    under torch.profiler, device activity only."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = {}
+    for e in prof.key_averages():
+        ms = getattr(e, "self_device_time_total", 0.0) / 1e3
+        if ms > 0:
+            rows[e.key[:80]] = rows.get(e.key[:80], 0.0) + ms
+    return sum(rows.values()) / 1e3, wall, rows
+
+
+def tensors_equal(torch, a, b) -> bool:
+    from deeplearning4j_tpu_torch.utils.model_serializer import tree_leaves
+
+    la, lb = tree_leaves(a), tree_leaves(b)
+    return len(la) == len(lb) and all(torch.equal(x, y) for x, y in zip(la, lb))
+
+
+def nets_equal(torch, a, b) -> bool:
+    """Parameters, updater state and layer state, bit for bit."""
+    return all(tensors_equal(torch, getattr(a, n), getattr(b, n))
+               for n in ("params_list", "upd_state", "state_list"))
+
+
+def quantiles(xs) -> dict:
+    return {"p50": float(np.percentile(xs, 50)), "p99": float(np.percentile(xs, 99)),
+            "n": len(xs)}
+
+
+def fused_lstm_phase(torch, fl, char_lstm_network, DataSet, ExistingDataSetIterator,
+                     DataSetIterator, IterationListener, seed, card):
+    """8a: graphed char-LSTM fits against the eager loop."""
+    class Scores(IterationListener):
+        def __init__(self):
+            self.scores = []
+
+        def iteration_done(self, model, iteration, info):
+            self.scores.append(info["score"]())
+
+    def network():
+        return char_lstm_network(vocab_size=VOCAB, hidden=HIDDEN, layers=LAYERS,
+                                 tbptt_length=TBPTT, seed=seed, learning_rate=TRAIN_LR)
+
+    n_seg = TRAIN_T // TBPTT
+    out = {}
+    for label, k, n_batches in (("tbptt", 1, FUSED_LSTM_BATCHES),
+                                ("fused4", FUSED_LSTM_K, FUSED_LSTM_K * FUSED_LSTM_GROUPS)):
+        data = corpus_batches(DataSet, seed + 80 + k, n_batches)
+        eager, graphed = network(), network().set_fused_steps(k)
+        log = Scores()
+        eager.set_listeners(log)
+        eager.set_fused_steps(k)  # a listener keeps the loop: the switch under test
+        walls, per_group = {}, []
+        for name, net in (("eager", eager), ("graphed", graphed)):
+            clock = SyncClock(torch, DataSetIterator, data,
+                              net=net if name == "graphed" else None, per=k)
+            before = fl.launch_counts()
+            net.fit(clock.it, async_prefetch=False)
+            per_group.append({n: v - before[n] for n, v in fl.launch_counts().items()})
+            walls[name] = dispatch_times(clock, k)
+        eager_scores = [float(s) for s in log.scores]
+        steps = n_batches * n_seg
+        check(eager.iteration == graphed.iteration == steps,
+              f"8a {label}: iterations {eager.iteration} / {graphed.iteration}, "
+              f"expected {steps}")
+        same = (nets_equal(torch, eager, graphed) and eager_scores == clock.scores
+                and torch.equal(eager._score, graphed._score))
+        [prog] = [p for p in graphed._programs.values()]
+        tally = prog.lstm_launches
+        want = {"lstm_sequence": LAYERS * n_seg * k,
+                "lstm_sequence_backward": LAYERS * n_seg * k}
+        check(same, f"8a {label}: graphed fit differs from the eager loop")
+        check(tally == want, f"8a {label}: launches per replay {tally}, expected {want}")
+        check(per_group[0] == per_group[1],
+              f"8a {label}: launches eager {per_group[0]} vs graphed {per_group[1]}")
+        info = graphed.fit_graphs()[0]
+        # dispatches from the third on are replays (1 warm-up, 1 capture)
+        e_t, g_t = walls["eager"][2:], walls["graphed"][2:]
+        tokens = k * TRAIN_B * TRAIN_T
+        rec = {"k": k, "steps_per_dispatch": k * n_seg, "bit_equal": same,
+               "launches_per_replay": tally, "eager_dispatch_s": quantiles(e_t),
+               "graphed_dispatch_s": quantiles(g_t),
+               "eager_tokens_per_s": tokens / statistics.median(e_t),
+               "graphed_tokens_per_s": tokens / statistics.median(g_t),
+               "warmup_s": walls["graphed"][0], "capture_and_replay_s": walls["graphed"][1],
+               "capture_s": info["capture_seconds"], "pool_bytes": info["pool_bytes"],
+               "replays": info["replays"]}
+        print(f"  8a {label}: {k * n_seg} steps a dispatch ({k} x [{TRAIN_B}, {TRAIN_T}, "
+              f"{VOCAB}]); graphed vs eager bit-equal {same} (scores, params, RMSProp r); "
+              f"launches per replay {tally}")
+        print(f"    synced dispatch p50/p99: eager {rec['eager_dispatch_s']['p50']:.4f} / "
+              f"{rec['eager_dispatch_s']['p99']:.4f} s, graphed "
+              f"{rec['graphed_dispatch_s']['p50']:.4f} / {rec['graphed_dispatch_s']['p99']:.4f}"
+              f" s over {len(g_t)} dispatches of {k * n_seg} steps; tokens/s eager "
+              f"{rec['eager_tokens_per_s']:.0f}, graphed {rec['graphed_tokens_per_s']:.0f}; "
+              f"capture {info['capture_seconds']:.3f} s, graph pool "
+              f"{info['pool_bytes'] / 2 ** 20:.1f} MiB, on {card}")
+        # the busy share: one more dispatch each, under the profiler
+        nxt = corpus_batches(DataSet, seed + 90 + k, k)
+        for name, net in (("eager", eager), ("graphed", graphed)):
+            busy, wall, rows = profiled(torch, lambda: net.fit(
+                ExistingDataSetIterator(nxt), async_prefetch=False))
+            rec[f"{name}_profiled"] = {"device_s": busy, "wall_s": wall,
+                                       "busy_share": busy / wall,
+                                       "device_ms_per_step": busy * 1e3 / (k * n_seg)}
+            print(f"    {name} dispatch under the profiler: device {busy * 1e3:.2f} ms of "
+                  f"{wall * 1e3:.2f} ms wall, busy {busy / wall:.3f}, "
+                  f"{busy * 1e3 / (k * n_seg):.3f} ms of device a step")
+            if name == "graphed":
+                kernels = [n for n in rows if "cluster_kernel" in n]
+                check(len(kernels) >= 2, f"8a {label}: no cluster kernels in the "
+                                         f"replay's profile: {sorted(rows)[:20]}")
+        out[label] = rec
+        del eager, graphed
+    return out
+
+
+def fused_resnet_phase(torch, F, fcb, resnet50_network, DataSet, ExistingDataSetIterator,
+                       DataSetIterator, IterationListener, seed, card):
+    """8b: ResNet-50 set_fused_steps(2), graphed against eager."""
+    class Scores(IterationListener):
+        def __init__(self):
+            self.scores = []
+
+        def iteration_done(self, model, iteration, info):
+            self.scores.append(info["score"]())
+
+    g = torch.Generator(device="cuda").manual_seed(seed + 85)
+    data = []
+    for _ in range(FUSED_RESNET_BATCHES):
+        x = torch.randn((RESNET_BATCH, 224, 224, 3), generator=g, device="cuda")
+        lab = torch.randint(0, 1000, (RESNET_BATCH,), generator=g, device="cuda")
+        data.append(DataSet(x, F.one_hot(lab, 1000).float()))
+    k = FUSED_RESNET_K
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        def network():
+            return resnet50_network(precision="bf16", seed=seed, learning_rate=RESNET_LR)
+
+        eager, graphed = network(), network().set_fused_steps(k)
+        log = Scores()
+        eager.set_listeners(log)
+        epochs = FUSED_HOLD_STEPS // FUSED_RESNET_BATCHES + 1
+        hold = (data * epochs)[:FUSED_HOLD_STEPS]
+        launches = []
+        for net in (eager, graphed):
+            clock = SyncClock(torch, DataSetIterator, hold,
+                              net=net if net is graphed else None, per=k)
+            before = fcb.launch_counts()
+            net.fit(clock.it, async_prefetch=False)
+            launches.append({n: v - before[n] for n, v in fcb.launch_counts().items()})
+        same = (nets_equal(torch, eager, graphed)
+                and [float(s) for s in log.scores] == clock.scores)
+        [prog] = list(graphed._programs.values())
+        want = {n: per * k for n, per in RESNET_PER_STEP.items()}
+        check(same, "8b: graphed ResNet-50 differs from the eager loop (scores, params, "
+                    "Nesterovs v or BN statistics)")
+        check(prog.conv_launches == want,
+              f"8b: launches per replay {prog.conv_launches}, expected {want}")
+        check(launches[0] == launches[1], f"8b: launches eager {launches[0]} vs graphed "
+                                          f"{launches[1]}")
+        info = graphed.fit_graphs()[0]
+        print(f"  8b: ResNet-50 bf16 batch {RESNET_BATCH}, set_fused_steps({k}), "
+              f"{FUSED_HOLD_STEPS} steps: graphed vs eager bit-equal {same} (scores, params, "
+              f"Nesterovs v, BN statistics; cudnn.deterministic); launches per replay "
+              f"{prog.conv_launches}")
+        rec = {"k": k, "bit_equal": same, "launches_per_replay": prog.conv_launches,
+               "capture_s": info["capture_seconds"], "pool_bytes": info["pool_bytes"]}
+        for name, net, per in (("eager", eager, 1), ("graphed", graphed, k)):
+            step_s = []
+            walls = []
+            for _ in range(FUSED_REPEATS):
+                clock = SyncClock(torch, DataSetIterator, data,
+                                  FUSED_REPEAT_STEPS // FUSED_RESNET_BATCHES)
+                net.fit(clock.it, async_prefetch=False)
+                step_s += [t / per for t in dispatch_times(clock, per)]
+                walls.append(clock.times[-1] - clock.times[0])
+            rec[f"{name}_step_s"] = quantiles(step_s)
+            rec[f"{name}_images_per_s"] = [FUSED_REPEAT_STEPS * RESNET_BATCH / w for w in walls]
+            busy, wall, _ = profiled(torch, lambda: net.fit(
+                ExistingDataSetIterator(data[:k]), async_prefetch=False))
+            rec[f"{name}_profiled"] = {"device_s": busy, "wall_s": wall,
+                                       "busy_share": busy / wall,
+                                       "device_ms_per_step": busy * 1e3 / k}
+            print(f"    {name}: step p50 {rec[f'{name}_step_s']['p50']:.4f} s p99 "
+                  f"{rec[f'{name}_step_s']['p99']:.4f} s (host clock, synced at each "
+                  f"dispatch, {FUSED_REPEATS} repeats of {FUSED_REPEAT_STEPS} steps); images/s "
+                  f"{' '.join(f'{v:.0f}' for v in rec[f'{name}_images_per_s'])}; under the "
+                  f"profiler {busy * 1e3 / k:.2f} ms of device a step, busy {busy / wall:.3f}")
+        print(f"    capture {info['capture_seconds']:.3f} s, graph pool "
+              f"{info['pool_bytes'] / 2 ** 30:.2f} GiB, peak allocated "
+              f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB, on {card}")
+        rec["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+        del eager, graphed
+    finally:
+        torch.backends.cudnn.deterministic = det
+    return rec
+
+
+def fused_prefetch_phase(torch, char_lstm_network, DataSet, ListDataSetIterator, seed, card):
+    """8c: the graphed char-LSTM fit with the device prefetch pipeline on
+    and off, from the same start: bit-equal, and each one's tokens/s."""
+    data = corpus_batches(DataSet, seed + 95, FUSED_LSTM_BATCHES)
+    merged = DataSet(np.concatenate([d.features for d in data]),
+                     np.concatenate([d.labels for d in data]))
+    nets, rates = {}, {}
+    for prefetch in (False, True, False, True):
+        net = char_lstm_network(vocab_size=VOCAB, hidden=HIDDEN, layers=LAYERS,
+                                tbptt_length=TBPTT, seed=seed, learning_rate=TRAIN_LR)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        net.fit(ListDataSetIterator(merged, TRAIN_B), async_prefetch=prefetch)
+        torch.cuda.synchronize()
+        rates.setdefault(prefetch, []).append(
+            FUSED_LSTM_BATCHES * TRAIN_B * TRAIN_T / (time.perf_counter() - t0))
+        nets.setdefault(prefetch, net)
+    same = nets_equal(torch, nets[False], nets[True]) and torch.equal(
+        nets[False]._score, nets[True]._score)
+    check(same, "8c: the fit with prefetch on differs from prefetch off")
+    print(f"  8c: graphed char-LSTM, {FUSED_LSTM_BATCHES} host batches, prefetch on vs off "
+          f"bit-equal {same}; tokens/s (whole fit, warm-up and capture included; off, on, "
+          f"off, on) {rates[False][0]:.0f} {rates[True][0]:.0f} {rates[False][1]:.0f} "
+          f"{rates[True][1]:.0f} on {card}")
+    return {"bit_equal": same, "tokens_per_s": {"off": rates[False], "on": rates[True]}}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2732,10 +3035,31 @@ def main(argv=None) -> int:
     ck = checkpoint_phase(torch, F, fl, fcb, char_lstm_network, resnet50_network,
                           DecodeEngine, metrics, args.seed, card)
 
+    print("[8] the fused dispatch as CUDA graphs: char-LSTM (fused TBPTT, then "
+          f"set_fused_steps({FUSED_LSTM_K})) and ResNet-50 (set_fused_steps("
+          f"{FUSED_RESNET_K})) against the eager loop; prefetch on and off")
+    from deeplearning4j_tpu_torch.data import DataSetIterator, ListDataSetIterator
+
+    torch.cuda.empty_cache()
+    fl.reset_launch_counts()
+    fcb.reset_launch_counts()
+    fu = {"charlstm": fused_lstm_phase(torch, fl, char_lstm_network, DataSet,
+                                       ExistingDataSetIterator, DataSetIterator,
+                                       IterationListener, args.seed, card)}
+    torch.cuda.empty_cache()
+    fu["resnet50"] = fused_resnet_phase(torch, F, fcb, resnet50_network, DataSet,
+                                        ExistingDataSetIterator, DataSetIterator,
+                                        IterationListener, args.seed, card)
+    torch.cuda.empty_cache()
+    fu["prefetch"] = fused_prefetch_phase(torch, char_lstm_network, DataSet,
+                                          ListDataSetIterator, args.seed, card)
+    torch.cuda.synchronize()
+    fu["launches"] = {**fl.launch_counts(), **fcb.launch_counts()}
+
     # each main path's count, read just after it ran from zero
     by_path = {"output": sl["launches"], "serve": sv["launches"],
                "train": tr["launches"], "train_resnet": rn["launches"],
-               "checkpoint": ck["launches"]}
+               "checkpoint": ck["launches"], "fused": fu["launches"]}
     main_launches = {name: sum(c[name] for c in by_path.values())
                      for name in rows}
     meta = {
@@ -2776,6 +3100,7 @@ def main(argv=None) -> int:
               "train": tr,
               "train_resnet": rn,
               "checkpoint": ck,
+              "fused": fu,
               "build": {k: v["seconds"] for k, v in info.items()},
               "ptxas": {k: v["log"] for k, v in info.items() if k not in cuda_build.SOURCES},
               "seconds": time.perf_counter() - t_start}

@@ -2,19 +2,71 @@
 
 The port of the JAX package's data/iterators.py host iterators
 (reference: datasets/iterator/): the DataSetIterator SPI,
-ListDataSetIterator and ExistingDataSetIterator, and the
-MultiDataSetIterator SPI that ComputationGraph.fit also takes. The background-prefetch
-wrappers (AsyncDataSetIterator and the staged device pipeline) are not
-ported yet.
+ListDataSetIterator and ExistingDataSetIterator, the
+MultiDataSetIterator SPI that ComputationGraph.fit also takes, and
+AsyncDataSetIterator — the background-prefetch wrapper fit installs under
+async_prefetch (reference: MultiLayerNetwork.java:1023-1025), the host
+stage in front of data/prefetch.DevicePrefetchIterator.
 """
 
 from __future__ import annotations
 
+import queue
+import threading
 from typing import Iterable, Iterator, List, Optional
 
 import numpy as np
 
 from deeplearning4j_tpu_torch.data.dataset import DataSet
+
+# Every background thread the input pipeline starts carries this name
+# prefix, so a test can assert that none outlives its fit.
+PIPELINE_THREAD_PREFIX = "dl4j-pipeline"
+
+# how often a blocked pipeline thread wakes to re-check its stop flag
+_POLL_SECONDS = 0.05
+
+
+def _put_abortable(q: "queue.Queue", item, stop: threading.Event) -> bool:
+    """Bounded put that a consumer's departure cancels: re-checks `stop`
+    every _POLL_SECONDS. False when the run was aborted: the producer
+    must exit instead of filling a queue nobody drains."""
+    while not stop.is_set():
+        try:
+            q.put(item, timeout=_POLL_SECONDS)
+            return True
+        except queue.Full:
+            continue
+    return False
+
+
+def _get_abortable(q: "queue.Queue", stop: threading.Event):
+    """The consumer's counterpart: blocks for the next item but re-checks
+    `stop` while the queue is empty, so a `close()` from another thread
+    ends the iteration. None on abort."""
+    while True:
+        try:
+            return q.get(timeout=_POLL_SECONDS)
+        except queue.Empty:
+            if stop.is_set():
+                return None
+
+
+def _close_run(q: "queue.Queue", stop: threading.Event,
+               threads: List[threading.Thread], timeout: float = 5.0):
+    """Tear down one epoch's pipeline machinery: signal stop, drain the
+    queue so that blocked producers wake at once, then join. Idempotent."""
+    stop.set()
+    try:
+        while True:
+            q.get_nowait()
+    except queue.Empty:
+        pass
+    for t in threads:
+        t.join(timeout=timeout)
+
+
+_SENTINEL = object()
 
 
 class DataSetIterator:
@@ -126,3 +178,70 @@ class MultiDataSetIterator:
 
     def restore_state(self, state: Optional[dict]) -> None:
         pass
+
+
+class AsyncDataSetIterator(DataSetIterator):
+    """Background-thread prefetch with a bounded queue (reference:
+    AsyncDataSetIterator, queue capacity = the prefetch buffer): a worker
+    thread pulls host batches while the device runs the previous step;
+    exceptions reach the consumer. Breaking out of an epoch, or an
+    exception unwinding the consumer, closes that epoch's worker (the
+    generator's `finally`); `close()` tears down any still alive."""
+
+    def __init__(self, base, queue_size: int = 4):
+        self.base = base
+        self.queue_size = max(1, int(queue_size))
+        self._active: List[tuple] = []
+
+    def __iter__(self):
+        q: "queue.Queue" = queue.Queue(maxsize=self.queue_size)
+        stop = threading.Event()
+        err: List[BaseException] = []
+
+        def worker():
+            try:
+                for ds in self.base:
+                    if not _put_abortable(q, ds, stop):
+                        return
+            except BaseException as e:  # reaches the consumer
+                err.append(e)
+            finally:
+                _put_abortable(q, _SENTINEL, stop)
+
+        t = threading.Thread(target=worker, daemon=True,
+                             name=f"{PIPELINE_THREAD_PREFIX}-async")
+        run = (q, stop, t)
+        self._active.append(run)
+        t.start()
+        try:
+            while True:
+                item = _get_abortable(q, stop)
+                if item is None or item is _SENTINEL:
+                    if err:
+                        raise err[0]
+                    return
+                yield item
+        finally:
+            _close_run(q, stop, [t])
+            if run in self._active:
+                self._active.remove(run)
+
+    def close(self):
+        for q, stop, t in list(self._active):
+            _close_run(q, stop, [t])
+        self._active.clear()
+
+    def reset(self):
+        self.base.reset()
+
+    def batch_size(self):
+        return self.base.batch_size()
+
+    def total_examples(self):
+        return self.base.total_examples()
+
+    def state(self):
+        return self.base.state()
+
+    def restore_state(self, state):
+        self.base.restore_state(state)

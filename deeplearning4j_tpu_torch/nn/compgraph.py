@@ -21,8 +21,15 @@ on the kernel path) and the relu vertex passes it through. The JAX
 package reaches the same kernel count through XLA's dead-code
 elimination, which eager PyTorch does not have.
 
-Not ported yet: the scan over identical blocks (`set_block_scan`), TBPTT,
-fused multi-step fits, `rnn_time_step` and the center-loss head.
+Truncated BPTT runs the segment loop of nn/netbase.py (`_tbptt_batch`)
+over every temporal input, label and mask; a listener-free batch with no
+ragged tail runs its segments as one fused program, and
+`set_fused_steps(k)` runs k same-shape standard batches as one (one CUDA
+graph on the card, the same loop of steps on the CPU); TBPTT batches
+under it fuse per batch, as in the JAX package.
+
+Not ported yet: the scan over identical blocks (`set_block_scan`),
+`rnn_time_step` and the center-loss head.
 """
 
 from __future__ import annotations
@@ -241,6 +248,25 @@ class ComputationGraph(NetworkBase):
             return None
         return [self._as_data(a) for a in arrs]
 
+    def _trunc_loss_builder(self):
+        """TBPTT loss with tbptt_bwd_length < tbptt_fwd_length, as
+        MultiLayerNetwork's: slice A advances the state under
+        torch.no_grad() (its loss counts in the score, no gradient), slice
+        B backpropagates; over input and label lists."""
+
+        def loss_builder(p, states, data, rng):
+            xsA, ysA, fmsA, lmsA, xsB, ysB, fmsB, lmsB = data
+            with torch.no_grad():
+                lossA, statesA = self._loss(p, states, xsA, ysA, fmsA, lmsA, rng)
+            carried = self._merge_states(states, statesA)
+            lossB, statesB = self._loss(p, carried, xsB, ysB, fmsB, lmsB, rng)
+            nA = max(x.shape[1] for x in xsA if x.dim() == 3)
+            nB = max(x.shape[1] for x in xsB if x.dim() == 3)
+            score = (lossA * nA + lossB * nB) / (nA + nB)
+            return score, self._merge_states(carried, statesB)
+
+        return loss_builder
+
     def _fit_step(self, xs, ys, f_masks, l_masks):
         """One optimizer step on device lists. Returns (states, device
         score)."""
@@ -249,15 +275,14 @@ class ComputationGraph(NetworkBase):
     # -- fit -----------------------------------------------------------------
 
     def fit(self, data, labels=None, *, epochs: int = 1, batch_size: int = 32,
-            async_prefetch: bool = True, hang_timeout: float = None,
-            resume_from: str = None, run_ledger=None):
+            async_prefetch: bool = True, prefetch_buffer: int = 4,
+            hang_timeout: float = None, resume_from: str = None,
+            run_ledger=None):
         """Train. Accepts (features, labels) arrays, a DataSet/MultiDataSet,
         or a DataSetIterator/MultiDataSetIterator (reference:
-        ComputationGraph.fit overloads :857-867). `async_prefetch` is
-        accepted for the JAX package's signature; batches are read and moved
-        to the device inline either way. `hang_timeout`, `resume_from` and
-        `run_ledger` as in MultiLayerNetwork.fit."""
-        del async_prefetch
+        ComputationGraph.fit overloads :857-867). `async_prefetch`,
+        `prefetch_buffer`, `hang_timeout`, `resume_from` and `run_ledger`
+        as in MultiLayerNetwork.fit."""
         self._require_init()
         if self.upd_state is None:
             self.upd_state = self.updater_def.init_tree(self.params_list)
@@ -270,23 +295,50 @@ class ComputationGraph(NetworkBase):
         else:
             iterator = ListDataSetIterator(
                 DataSet(np.asarray(data), np.asarray(labels)), batch_size)
-        return self._run_fit(iterator, epochs, hang_timeout=hang_timeout,
+        return self._run_fit(iterator, epochs, async_prefetch, prefetch_buffer,
+                             hang_timeout=hang_timeout,
                              resume_from=resume_from, run_ledger=run_ledger)
 
-    def _fit_dataset(self, ds):
+    def _ds_arrays(self, ds):
         mds = _as_multidataset(ds)
-        if self.conf.backprop_type == "tbptt" and any(
-                np.ndim(f) == 3 for f in mds.features):
-            raise NotImplementedError("TBPTT in ComputationGraph is not ported yet")
+        return (mds.features, mds.labels, mds.features_masks, mds.labels_masks)
+
+    def _is_tbptt(self, ds) -> bool:
+        return self.conf.backprop_type == "tbptt" and any(
+            f.ndim == 3 for f in _as_multidataset(ds).features)
+
+    def _fit_dataset(self, ds):
         algo = self.net_conf.optimization_algo
         if algo != "sgd":
             raise NotImplementedError(
                 f"optimization algorithm {algo!r}: the line-search solvers "
                 "are not ported yet")
-        self.state_list, _ = self._fit_step(
-            self._data_list(mds.features), self._data_list(mds.labels),
-            self._data_list(mds.features_masks), self._data_list(mds.labels_masks))
-        self._notify(mds.num_examples(), ds)
+        data = tuple(self._data_list(a) for a in self._ds_arrays(ds))
+        if self._is_tbptt(ds):
+            self._fit_tbptt(ds, data)
+            return
+        states, _ = self._fit_step(*data)
+        self._commit_states(states)
+        self._notify(_as_multidataset(ds).num_examples(), ds)
+
+    # -- multi-batch fused fit (set_fused_steps) -----------------------------
+
+    def _fused_fit_supported(self) -> bool:
+        return True
+
+    def _fit_datasets_fused(self, ds_list):
+        """k same-shape batches as one fused program (see
+        NetworkBase.set_fused_steps). TBPTT batches run one by one, each
+        with all its segments fused; the cross-batch stacking is the
+        sequential network's (the JAX package's rule)."""
+        if self._is_tbptt(ds_list[0]):
+            for ds in ds_list:
+                self._fit_dataset(ds)
+            return
+        k = len(ds_list)
+        self._run_fused(("std", self._ds_signature(ds_list[0]), k),
+                        [self._ds_arrays(ds) for ds in ds_list], k,
+                        self._std_group_batch)
 
     def score(self, data, labels=None) -> float:
         """Loss on a dataset without updating (inference-mode forward)."""

@@ -8,13 +8,15 @@ BPTT, and `score`; the optimizer step and the L1/L2 terms are
 nn/netbase.py's, shared with ComputationGraph.
 
 Where the JAX package compiles forward + loss + backward + updater into
-one jitted program, the port runs them eagerly: autograd gives the
+one jitted program, the port runs a step eagerly: autograd gives the
 gradients (through the fused LSTM kernels' autograd Function on a Hopper
 GPU), and the updater adds its deltas to the parameters in place. The
-JAX package's single-dispatch programs (fused TBPTT, `set_fused_steps`)
-and the line-search solvers are not ported: they are XLA dispatch
-devices around the same math as the loop here. Pretraining is not
-ported yet.
+JAX package's single-dispatch programs are ported as fused programs
+(nn/netbase.py `_run_fused`): a listener-free TBPTT batch runs all its
+segments as one program, and `set_fused_steps(k)` runs k same-shape
+batches (standard or TBPTT) as one; each is one CUDA graph on the card
+and the same loop of steps on the CPU. The line-search solvers and
+pretraining are not ported yet.
 
 Parameters are a list of per-layer dicts of tensors on the network's
 device; the flattened view comes from nn/params.py. Mutable
@@ -50,7 +52,7 @@ from deeplearning4j_tpu_torch.nn.layers.registry import (
     init_layer_params,
     init_layer_state,
 )
-from deeplearning4j_tpu_torch.nn.netbase import NetworkBase, _layer_seed
+from deeplearning4j_tpu_torch.nn.netbase import NetworkBase, _is_recurrent, _layer_seed
 from deeplearning4j_tpu_torch.ops.losses import loss_value, masked_example_mean
 from deeplearning4j_tpu_torch.train.evaluation import (
     Evaluation,
@@ -62,11 +64,6 @@ logger = logging.getLogger("deeplearning4j_tpu_torch")
 
 # CenterLossOutputLayer has no layer implementation in the port yet
 _OUTPUT_LAYER_TYPES = (L.OutputLayer, L.RnnOutputLayer, L.LossLayer)
-
-
-def _is_recurrent(conf) -> bool:
-    inner = conf.inner if isinstance(conf, L.FrozenLayer) else conf
-    return isinstance(inner, (L.LSTM, L.GravesLSTM))
 
 
 def _preout_of_output_layer(conf, params, x):
@@ -197,22 +194,19 @@ class MultiLayerNetwork(NetworkBase):
         return self._run_step(self._std_loss_builder(),
                               (x, y, f_mask, l_mask), stateful_states)
 
-    def _fit_step_truncated(self, dataA, dataB, stateful_states):
-        """One TBPTT segment step with a backward-truncation boundary
-        between slice A (state carry, no gradient) and slice B."""
-        return self._run_step(self._trunc_loss_builder(), dataA + dataB,
-                              stateful_states)
-
     # -- fit -----------------------------------------------------------------
 
     def fit(self, data, labels=None, *, epochs: int = 1, batch_size: int = 32,
-            async_prefetch: bool = True, hang_timeout: float = None,
-            resume_from: str = None, run_ledger=None):
+            async_prefetch: bool = True, prefetch_buffer: int = 4,
+            hang_timeout: float = None, resume_from: str = None,
+            run_ledger=None):
         """Train. Accepts (features, labels) arrays, a DataSet, or a
         DataSetIterator (reference: MultiLayerNetwork.fit overloads :1019).
-        `async_prefetch` is accepted for the JAX package's signature; the
-        staged prefetch pipeline is not ported yet, so batches are read
-        and moved to the device inline either way. `hang_timeout`
+        With `async_prefetch` the staged input pipeline (a host prefetch
+        thread with a `prefetch_buffer`-deep queue, then the device stage,
+        nn/netbase._stage_input_pipeline) feeds the loop; without it each
+        batch is read and moved to the device inline, to the same bits.
+        `hang_timeout`
         (seconds) arms the hang watchdog: a step making no progress for
         that long raises utils.health.StepHangError carrying a
         flight-recorder dump path. `resume_from` names a checkpoint
@@ -222,14 +216,14 @@ class MultiLayerNetwork(NetworkBase):
         loss curve of an uninterrupted run; an empty directory starts
         fresh. `epochs` stays the TOTAL target. `run_ledger` raises
         NotImplementedError: the run ledger is not ported yet."""
-        del async_prefetch
         self._require_init()
         if self.upd_state is None:
             self.upd_state = self.updater_def.init_tree(self.params_list)
         if self.conf.pretrain:
             raise NotImplementedError("layerwise pretraining is not ported yet")
         return self._run_fit(self._as_iterator(data, labels, batch_size),
-                             epochs, hang_timeout=hang_timeout,
+                             epochs, async_prefetch, prefetch_buffer,
+                             hang_timeout=hang_timeout,
                              resume_from=resume_from, run_ledger=run_ledger)
 
     def _as_iterator(self, data, labels, batch_size) -> DataSetIterator:
@@ -240,55 +234,49 @@ class MultiLayerNetwork(NetworkBase):
         return ListDataSetIterator(DataSet(np.asarray(data), np.asarray(labels)),
                                    batch_size)
 
+    def _ds_arrays(self, ds):
+        return (ds.features, ds.labels, ds.features_mask, ds.labels_mask)
+
     def _fit_dataset(self, ds: DataSet):
         algo = self.net_conf.optimization_algo
         if algo != "sgd":
             raise NotImplementedError(
                 f"optimization algorithm {algo!r}: the line-search solvers "
                 "are not ported yet")
-        data = tuple(self._as_data(a) for a in (
-            ds.features, ds.labels, ds.features_mask, ds.labels_mask))
+        data = tuple(self._as_data(a) for a in self._ds_arrays(ds))
         if (self.conf.backprop_type == BackpropType.TRUNCATED_BPTT
                 and data[0].dim() == 3):
-            self._fit_tbptt(ds, *data)
+            self._fit_tbptt(ds, data)
         else:
-            self.state_list, _ = self._fit_step(*data)
+            states, _ = self._fit_step(*data)
+            self._commit_states(states)
             self._notify(ds.num_examples(), ds)
 
-    def _fit_tbptt(self, ds, x, y, f_mask, l_mask):
-        """Truncated BPTT: split time into segments of tbptt_fwd_length and
-        carry the RNN state across segments, detached, so each segment's
-        backward stops at its start (reference:
-        MultiLayerNetwork.doTruncatedBPTT :1333). When tbptt_bwd_length <
-        tbptt_fwd_length, each segment's gradient is truncated to its last
-        bwd_length timesteps."""
-        T = x.shape[1]
-        seg = int(self.conf.tbptt_fwd_length)
-        bwd = int(self.conf.tbptt_bwd_length)
-        # seed zero RNN state for recurrent layers
-        states = [({} if _is_recurrent(c) and st is None else st)
-                  for c, st in zip(self.layer_confs, self.state_list)]
+    # -- multi-batch fused fit (set_fused_steps) -----------------------------
 
-        def cut(sl):
-            cm = lambda m: None if m is None else (m if m.dim() == 1 else m[:, sl])
-            return (x[:, sl], y[:, sl] if y.dim() == 3 else y, cm(f_mask),
-                    cm(l_mask))
+    def _fused_fit_supported(self) -> bool:
+        return self.net_conf.optimization_algo == "sgd"
 
-        for start in range(0, T, seg):
-            end = min(start + seg, T)
-            if bwd < end - start:
-                boundary = end - bwd
-                states, _ = self._fit_step_truncated(
-                    cut(slice(start, boundary)), cut(slice(boundary, end)),
-                    stateful_states=states)
-            else:
-                states, _ = self._fit_step(*cut(slice(start, end)),
-                                           stateful_states=states)
-            self._notify(ds.num_examples(), ds)
-        # persist only non-RNN state; the RNN carry is per batch
-        self.state_list = [
-            st if not _is_recurrent(conf) else self.state_list[i]
-            for i, (conf, st) in enumerate(zip(self.layer_confs, states))]
+    def _fit_datasets_fused(self, ds_list):
+        """k same-shape batches as one fused program (see
+        NetworkBase.set_fused_steps): the cross-batch TBPTT program for
+        3-d TBPTT batches (a ragged tail goes batch by batch), the
+        standard one otherwise. The recurrent carry restarts from zero at
+        each batch; only non-recurrent state runs through the group."""
+        data = [self._ds_arrays(ds) for ds in ds_list]
+        sig = self._ds_signature(ds_list[0])
+        k = len(ds_list)
+        if (self.conf.backprop_type == BackpropType.TRUNCATED_BPTT
+                and len(sig[0]) == 3):
+            n_seg = self._tbptt_fusable(data[0])
+            if n_seg is None:
+                for ds in ds_list:
+                    self._fit_dataset(ds)
+                return
+            self._run_fused(("tbptt", sig, k), data, k * n_seg,
+                            self._tbptt_group_batch)
+            return
+        self._run_fused(("std", sig, k), data, k, self._std_group_batch)
 
     def score(self, data, labels=None) -> float:
         """Loss on a dataset without updating (reference:

@@ -6,10 +6,16 @@ loop (`_run_fit` -> `_fit_epochs` -> `_timed_fit` -> the subclass's
 `_fit_dataset`) with its registry instruments, heartbeat, spans, fault
 point and flight-recorder step record, mid-epoch resume from a checkpoint
 directory (`train_state`, `_restore_for_resume`, the skip-replay in
-`_fit_epochs`), and the eager optimizer step both networks share
-(`_run_step` -> `_step`: autograd, the gradient tail and the updater).
-The divergence sentinel, mesh, fused multi-batch steps, run ledger, OOM
-forensics and the staged prefetch pipeline are not ported yet.
+`_fit_epochs`), the optimizer step both networks share (`_run_step` ->
+`_step`: autograd, the gradient tail and the updater), and the fused
+dispatch: `set_fused_steps(k)` groups up to k same-shape batches, and a
+fused group (k batches, or one TBPTT batch's segments) runs as one
+program (`_run_fused`): a plain loop of `_step`s on the CPU, one CUDA
+graph on the card, captured from the second group of a signature on and
+replayed after it. The staged input pipeline (`_stage_input_pipeline`:
+a host prefetch thread, then data/prefetch.DevicePrefetchIterator) feeds
+the loop under `fit(async_prefetch=True)`. The divergence sentinel, mesh,
+run ledger and OOM forensics are not ported yet.
 """
 
 from __future__ import annotations
@@ -17,18 +23,22 @@ from __future__ import annotations
 import logging
 import threading
 import time
-from typing import List, Optional
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
 from deeplearning4j_tpu_torch.nn.conf import layers as L
+from deeplearning4j_tpu_torch.data.iterators import AsyncDataSetIterator
 from deeplearning4j_tpu_torch.nn.params import (
     flat_to_params,
     num_params,
     param_table,
     params_to_flat,
 )
+from deeplearning4j_tpu_torch.ops import fused_conv_bn as _fused_conv_bn
+from deeplearning4j_tpu_torch.ops import fused_lstm as _fused_lstm
+from deeplearning4j_tpu_torch.ops import helpers as _helpers
 from deeplearning4j_tpu_torch.train.updaters import normalize_gradients, schedule_lr
 from deeplearning4j_tpu_torch.utils import blackbox as _blackbox
 from deeplearning4j_tpu_torch.utils import faultpoints as _faults
@@ -51,6 +61,95 @@ def _regularizable(name: str) -> bool:
 def _detached(states):
     return [None if st is None else {k: v.detach() for k, v in st.items()}
             for st in states]
+
+
+def _is_recurrent(conf) -> bool:
+    """A layer whose state is a recurrent carry (h, c): per batch under
+    TBPTT, never persisted."""
+    inner = conf.inner if isinstance(conf, L.FrozenLayer) else conf
+    return isinstance(inner, (L.LSTM, L.GravesLSTM))
+
+
+def _tensor_leaves(tree):
+    """Every tensor of a nest of lists, tuples and dicts, in order."""
+    if torch.is_tensor(tree):
+        yield tree
+    elif isinstance(tree, dict):
+        for v in tree.values():
+            yield from _tensor_leaves(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _tensor_leaves(v)
+
+
+def _map_arrays(fn, data):
+    """`fn` over every array of a batch's (features, labels, features
+    mask, labels mask): each part an array, a list of arrays and Nones (a
+    MultiDataSet's), or None."""
+    def part(x):
+        if x is None:
+            return None
+        if isinstance(x, list):
+            return [None if a is None else fn(a) for a in x]
+        return fn(x)
+
+    return tuple(part(x) for x in data)
+
+
+def _cut_time(data, sl):
+    """The time slice `sl` of a batch: 3-d features and labels and 2-d
+    masks are cut on axis 1; 2-d labels and 1-d (per-example) masks pass
+    whole."""
+    def cut(ndim):
+        return lambda a: a[:, sl] if a.ndim == ndim else a
+
+    feats, labels, fms, lms = data
+    arrays = _map_arrays(cut(3), (feats, labels, None, None))
+    masks = _map_arrays(cut(2), (None, None, fms, lms))
+    return arrays[:2] + masks[2:]
+
+
+def _time_steps(data) -> int:
+    feats = data[0] if isinstance(data[0], list) else [data[0]]
+    return max(f.shape[1] for f in feats if f.ndim == 3)
+
+
+def _uniform_time(data, T: int) -> bool:
+    """Every 3-d feature and label array and every 2-d mask spans T steps."""
+    ok = [True]
+
+    def check(ndim):
+        def f(a):
+            if a.ndim == ndim and a.shape[1] != T:
+                ok[0] = False
+            return a
+        return f
+
+    _map_arrays(check(3), (data[0], data[1], None, None))
+    _map_arrays(check(2), (None, None, data[2], data[3]))
+    return ok[0]
+
+
+class _Program:
+    """One fused group's program on a network, under its key (kind,
+    shapes, batches, segments): on a CUDA device its static inputs
+    (`io`), whether its eager warm-up ran, its captured graph with the
+    launches and helper events the capture recorded (added back on every
+    replay), the tensor addresses it was captured on, and what the
+    capture cost."""
+
+    def __init__(self, key, io):
+        self.key = key
+        self.io = io
+        self.warm = False
+        self.graph = None
+        self.lstm_launches: Dict[str, int] = {}
+        self.conv_launches: Dict[str, int] = {}
+        self.events: list = []
+        self.addresses = None
+        self.capture_seconds = None
+        self.pool_bytes = None
+        self.replays = 0
 
 
 def _layer_seed(seed: int, i: int) -> int:
@@ -93,6 +192,20 @@ class NetworkBase:
         self._output_fn = None
         self._output_compiles = 0
         self._output_cache_lock = threading.Lock()
+        # set_fused_steps: up to this many same-shape batches per dispatch
+        self._fused_k = 1
+        # set_input_transform: an on-device batch transform
+        # (data/transforms.DeviceBatchTransform) run on each batch before
+        # the step, in the prefetch worker or inline
+        self._input_transform = None
+        # set_prefetch_depth: staged batches held ahead of the step
+        self._prefetch_depth = 2
+        # the fused groups' programs by key (_run_fused); dropped whenever
+        # the tensors a captured graph reads may have been rebound
+        self._programs: Dict[tuple, _Program] = {}
+        self._graph_stream = None
+        self._draws = None  # whether a step draws random numbers (cached)
+        self._fused_scores = None  # every step's score of the last fused group
 
     # -- to be provided by subclasses ----------------------------------------
 
@@ -108,6 +221,11 @@ class NetworkBase:
             self.init()
 
     def _fit_dataset(self, ds):
+        raise NotImplementedError
+
+    def _ds_arrays(self, ds):
+        """A batch's (features, labels, features mask, labels mask) as the
+        loss builders take them (arrays, or lists for a graph)."""
         raise NotImplementedError
 
     def _as_input(self, x) -> torch.Tensor:
@@ -167,11 +285,14 @@ class NetworkBase:
         return [{k: (0.0 if isinstance(conf, L.FrozenLayer) else 1.0) for k in p}
                 for conf, p in zip(self._ordered_layer_confs(), self.params_list)]
 
-    def _step(self, loss_builder, states, data, lr: float, t: float, rng):
-        """One optimizer step, eagerly: the loss and its gradients by
-        autograd, then the shared tail — the diagnostic, trainable mask,
-        gradient normalization, per-leaf lr and the updater, which adds its
-        deltas to the parameters in place. Returns (merged states, score).
+    def _step(self, loss_builder, states, data, lr, t, rng):
+        """One optimizer step: the loss and its gradients by autograd, then
+        the shared tail — the diagnostic, trainable mask, gradient
+        normalization, per-leaf lr and the updater, which adds its deltas
+        to the parameters in place. `lr` and `t` are 0-d f32 tensors on
+        the net's device (a column of `_host_clock`), so that a captured
+        graph reads them; `rng` is the step's generator, or None when no
+        layer draws random numbers. Returns (merged states, score).
         `self._step_diag` holds [loss, raw global gradient norm] (before
         masking or clipping, in f32), as the JAX step's `diag`."""
         params = self.params_list
@@ -197,22 +318,354 @@ class NetworkBase:
             grads = normalize_gradients(
                 grads, self.net_conf.gradient_normalization,
                 self.net_conf.gradient_normalization_threshold)
-            lr_tree = [{k: lr * m[k] for k in g}
-                       for g, m in zip(grads, self._lr_mult_tree())]
+            # one lr tensor per distinct multiplier: f32(lr) * f32(m), as
+            # the JAX package multiplies its traced lr
+            scaled = {1.0: lr}
+            lr_tree = []
+            for g, m in zip(grads, self._lr_mult_tree()):
+                for k in g:
+                    if m[k] not in scaled:
+                        scaled[m[k]] = lr * m[k]
+                lr_tree.append({k: scaled[m[k]] for k in g})
             self.updater_def.step_(params, grads, self.upd_state, lr_tree, t)
         return _detached(self._merge_states(states, new_states)), score
 
     def _run_step(self, loss_builder, data, stateful_states=None):
-        lr = schedule_lr(self.net_conf, self.iteration)
-        # the step's generator: seed ^ 0x5EED with the iteration folded in
-        rng = torch.Generator(device=self.device).manual_seed(
-            ((self.net_conf.seed ^ 0x5EED) * 1_000_003 + self.iteration) % (2 ** 63))
+        """One eager optimizer step at `self.iteration`."""
+        clock = self._host_clock(1).to(self.device, non_blocking=True)
         states = stateful_states if stateful_states is not None else self.state_list
-        states, score = self._step(loss_builder, states, data, lr,
-                                   float(self.iteration), rng)
+        states, score = self._step(loss_builder, states, data, clock[0, 0],
+                                   clock[1, 0], self._step_rng(self.iteration))
         self._score = score
         self.iteration += 1
         return states, score
+
+    def _host_clock(self, n: int) -> torch.Tensor:
+        """[2, n] f32 on the host (pinned for a CUDA net): the learning
+        rates of the next n steps (the host schedule) and their iteration
+        counters t."""
+        clock = np.empty((2, n), np.float32)
+        for i in range(n):
+            clock[0, i] = schedule_lr(self.net_conf, self.iteration + i)
+            clock[1, i] = self.iteration + i
+        host = torch.from_numpy(clock)
+        return host.pin_memory() if self.device.type == "cuda" else host
+
+    def _draws_random(self) -> bool:
+        """Whether a training step draws random numbers: dropout on some
+        layer's input (a DropoutLayer's too) or an rrelu activation."""
+        if self._draws is None:
+            self._draws = False
+            for conf in self._ordered_layer_confs():
+                inner = conf.inner if isinstance(conf, L.FrozenLayer) else conf
+                p = getattr(inner, "dropout", None)
+                if (p is not None and 0.0 < p < 1.0) or \
+                        getattr(inner, "activation", None) == "rrelu":
+                    self._draws = True
+        return self._draws
+
+    def _step_rng(self, iteration: int):
+        """The step's generator, seed ^ 0x5EED with the iteration folded
+        in; None when no layer draws random numbers."""
+        if not self._draws_random():
+            return None
+        return torch.Generator(device=self.device).manual_seed(
+            ((self.net_conf.seed ^ 0x5EED) * 1_000_003 + iteration) % (2 ** 63))
+
+    def _recurrent_layers(self) -> List[bool]:
+        return [_is_recurrent(c) for c in self._ordered_layer_confs()]
+
+    def _seeded_states(self):
+        """state_list with {} for each recurrent layer that holds no carry:
+        the zero carry a TBPTT batch starts from."""
+        return [({} if rec and st is None else st)
+                for st, rec in zip(self.state_list, self._recurrent_layers())]
+
+    def _commit_states(self, states) -> None:
+        """Write a step's layer states into the state_list's own tensors
+        (None entries skipped), instead of rebinding them: the tensors
+        keep their addresses, which a captured graph reads and writes."""
+        with torch.no_grad():
+            for new, old in zip(states, self.state_list):
+                if new is None:
+                    continue
+                for k, v in new.items():
+                    if v is not old[k]:
+                        old[k].copy_(v)
+
+    # -- truncated BPTT --------------------------------------------------------
+
+    def _tbptt_batch(self, data, states, step):
+        """One batch's truncated BPTT (reference:
+        MultiLayerNetwork.doTruncatedBPTT :1333): time in segments of
+        tbptt_fwd_length, the recurrent state carried across them and cut
+        from the autograd graph at each segment's start; with
+        tbptt_bwd_length shorter, each segment's gradient reaches back only
+        its last bwd_length steps (the truncated loss builder).
+        `step(loss_builder, states, segment data)` runs one optimizer step
+        and returns the states it leaves. Returns the last segment's."""
+        T = _time_steps(data)
+        seg = int(self.conf.tbptt_fwd_length)
+        bwd = int(self.conf.tbptt_bwd_length)
+        for start in range(0, T, seg):
+            end = min(start + seg, T)
+            if bwd < end - start:
+                boundary = end - bwd
+                states = step(self._trunc_loss_builder(), states,
+                              _cut_time(data, slice(start, boundary))
+                              + _cut_time(data, slice(boundary, end)))
+            else:
+                states = step(self._std_loss_builder(), states,
+                              _cut_time(data, slice(start, end)))
+        return states
+
+    def _tbptt_fusable(self, data) -> Optional[int]:
+        """The segment count when one batch's TBPTT can run as one fused
+        program: every temporal array spans the same T, a whole number of
+        segments (a ragged tail takes the loop); else None."""
+        T = _time_steps(data)
+        seg = int(self.conf.tbptt_fwd_length)
+        if T % seg or not _uniform_time(data, T):
+            return None
+        return T // seg
+
+    def _fit_tbptt_loop(self, ds, data):
+        """The TBPTT segment loop: one eager step per segment, each
+        notified to the listeners; only non-recurrent state persists."""
+        def step(builder, states, seg_data):
+            states, _ = self._run_step(builder, seg_data, states)
+            self._notify(ds.num_examples(), ds)
+            return states
+
+        states = self._tbptt_batch(data, self._seeded_states(), step)
+        self._commit_states([None if rec else st for st, rec
+                             in zip(states, self._recurrent_layers())])
+
+    def _fit_tbptt(self, ds, data):
+        """Truncated BPTT for one batch: with no listeners and no ragged
+        tail, all its segments run as one fused program (one CUDA graph on
+        the card); listeners keep the loop, so that each callback sees
+        its iteration's parameters (the JAX package's rule)."""
+        n_seg = None if self.listeners else self._tbptt_fusable(data)
+        if n_seg is None:
+            self._fit_tbptt_loop(ds, data)
+        else:
+            self._run_fused(("tbptt", self._ds_signature(ds), 1), [data], n_seg,
+                            self._tbptt_group_batch)
+
+    def _tbptt_group_batch(self, states, data, step):
+        """One batch of a fused TBPTT program: the recurrent carry reset to
+        the batch's zero seed, the non-recurrent state carried through."""
+        seed = self._seeded_states()
+        states = [s0 if rec else st for st, s0, rec
+                  in zip(states, seed, self._recurrent_layers())]
+        return self._tbptt_batch(data, states, step)
+
+    def _std_group_batch(self, states, data, step):
+        return step(self._std_loss_builder(), states, data)
+
+    # -- the fused dispatch --------------------------------------------------
+
+    def _run_fused(self, key, batches, n_steps: int, per_batch):
+        """Run `batches` (each one batch's arrays) as ONE dispatch of
+        `n_steps` optimizer steps: `per_batch(states, data, step)` walks a
+        batch's steps. The same code runs as a plain loop on the CPU and,
+        on a CUDA device, as one CUDA graph per `key`: the key's first
+        group runs eagerly on the card (every kernel builds and loads),
+        the second is captured and every group from then on replays it.
+        A step that draws random numbers cannot replay (its generator is
+        seeded per step on the host), so such groups run eagerly on the
+        card, counted in `fit_graph_declined_total{reason="rng"}`. A
+        capture or a replay that fails raises."""
+        cuda = self.device.type == "cuda"
+        prog = self._programs.get(key)
+        if prog is None:
+            io = {"clock": torch.empty((2, n_steps), dtype=torch.float32,
+                                       device=self.device),
+                  "out": torch.empty(n_steps + 2, dtype=torch.float32,
+                                     device=self.device),
+                  # static batch buffers, one set per batch (each its own
+                  # allocation, aligned as an eager batch is)
+                  "data": [_map_arrays(self._static_like, b) for b in batches]
+                  if cuda else None}
+            prog = self._programs[key] = _Program(key, io)
+        io = prog.io
+        io["clock"].copy_(self._host_clock(n_steps), non_blocking=True)
+        if cuda:
+            for static, b in zip(io["data"], batches):
+                for dst, src in zip(_tensor_leaves(static),
+                                    _tensor_leaves(_map_arrays(self._as_data, b))):
+                    dst.copy_(src)
+            dev_batches = io["data"]
+        else:
+            dev_batches = [_map_arrays(self._as_data, b) for b in batches]
+        rngs = [self._step_rng(self.iteration + j) for j in range(n_steps)]
+
+        def run():
+            self._program_body(io, dev_batches, rngs, per_batch)
+
+        if not cuda:
+            run()
+        elif rngs[0] is not None:
+            self._fit_obs()["graph_declined_rng"].inc()
+            run()
+        else:
+            self._graph_dispatch(prog, run)
+        # cloned out before the next replay overwrites the buffer (the
+        # black box keeps `_score` as a device tensor)
+        out = io["out"].clone()
+        self._fused_scores = out[:n_steps]
+        self._score = out[n_steps - 1]
+        self._step_diag = out[n_steps:]
+        self.iteration += n_steps
+
+    def _static_like(self, a) -> torch.Tensor:
+        t = a if torch.is_tensor(a) else torch.as_tensor(np.asarray(a))
+        dt = torch.float32 if t.dtype == torch.float64 else t.dtype
+        return torch.empty(t.shape, dtype=dt, device=self.device)
+
+    def _program_body(self, io, batches, rngs, per_batch):
+        """The fused group's steps, reading lr and t from io["clock"] and
+        writing the scores and the group's diagnostic ([last loss, largest
+        raw gradient norm]) into io["out"]; the layer states are committed
+        into the state_list's tensors (the recurrent carry is per batch)."""
+        clock = io["clock"]
+        scores, gnorms = [], []
+
+        def step(builder, states, data):
+            j = len(scores)
+            states, score = self._step(builder, states, data, clock[0, j],
+                                       clock[1, j], rngs[j])
+            scores.append(score)
+            gnorms.append(self._step_diag[1])
+            return states
+
+        states = list(self.state_list)
+        for data in batches:
+            states = per_batch(states, data, step)
+        self._commit_states([None if rec else st for st, rec
+                             in zip(states, self._recurrent_layers())])
+        with torch.no_grad():
+            n = len(scores)
+            out = io["out"]
+            out[:n].copy_(torch.stack(scores))
+            out[n:].copy_(torch.stack([scores[-1].float(),
+                                       torch.stack(gnorms).max()]))
+
+    def _side_stream(self):
+        if self._graph_stream is None:
+            self._graph_stream = torch.cuda.Stream(self.device)
+        return self._graph_stream
+
+    def _state_addresses(self) -> tuple:
+        return tuple(t.data_ptr() for t in _tensor_leaves(
+            (self.params_list, self.upd_state, self.state_list)))
+
+    def _graph_dispatch(self, prog: _Program, run) -> None:
+        """Warm up, capture or replay `prog` on the card (see _run_fused)."""
+        ins = self._fit_obs()
+        if prog.graph is not None and prog.addresses != self._state_addresses():
+            # parameters, updater state or layer state were rebound since
+            # the capture: the graph would read the old tensors
+            logger.info("fused program %s: the network's tensors moved since "
+                        "its capture; capturing again", prog.key)
+            prog.graph, prog.warm = None, False
+        cur = torch.cuda.current_stream(self.device)
+        side = self._side_stream()
+        if prog.graph is None and not prog.warm:
+            # warm-up on the capture's stream: the same math, eagerly
+            side.wait_stream(cur)
+            with torch.cuda.stream(side):
+                run()
+            cur.wait_stream(side)
+            prog.warm = True
+            return
+        if prog.graph is None:
+            torch.cuda.synchronize(self.device)
+            torch.cuda.empty_cache()
+            reserved = torch.cuda.memory_reserved(self.device)
+            t0 = time.perf_counter()
+            graph = torch.cuda.CUDAGraph()
+            side.wait_stream(cur)
+            with _fused_lstm.recording_launches(side) as lstm_tally, \
+                    _fused_conv_bn.recording_launches(side) as conv_tally, \
+                    _helpers.recording_events(side) as events, \
+                    torch.cuda.graph(graph, stream=side,
+                                     capture_error_mode="thread_local"):
+                run()
+            cur.wait_stream(side)
+            prog.graph = graph
+            prog.lstm_launches, prog.conv_launches = lstm_tally, conv_tally
+            prog.events = events
+            prog.addresses = self._state_addresses()
+            prog.capture_seconds = time.perf_counter() - t0
+            prog.pool_bytes = torch.cuda.memory_reserved(self.device) - reserved
+            ins["graph_captures"].inc()
+            self._note_compile("fit_graph", prog.key)
+        prog.graph.replay()
+        _fused_lstm.add_launches(prog.lstm_launches)
+        _fused_conv_bn.add_launches(prog.conv_launches)
+        _helpers.replay_events(prog.events)
+        prog.replays += 1
+        ins["graph_replays"].inc()
+
+    def _reset_step_programs(self) -> None:
+        """Drop every fused program and its captured graph: the tensors
+        they read may have been rebound (set_params, a zip loaded or
+        restored, clone)."""
+        self._programs = {}
+
+    def fit_graphs(self) -> List[dict]:
+        """The captured fused programs: key, replays, capture seconds and
+        the graph pool's bytes (the reserved memory the capture added)."""
+        return [{"key": p.key, "replays": p.replays,
+                 "capture_seconds": p.capture_seconds,
+                 "pool_bytes": p.pool_bytes}
+                for p in self._programs.values() if p.graph is not None]
+
+    # -- fusion API ------------------------------------------------------------
+
+    def set_fused_steps(self, k: int):
+        """Run up to `k` consecutive same-shape minibatches as ONE
+        dispatch: a plain loop of the same steps on the CPU, one CUDA
+        graph on the card — same math, same per-step lr, t and iteration
+        bookkeeping. Fusion engages only when it is observationally
+        equivalent to the per-step loop: no listeners (each callback must
+        see its iteration's parameters) and the subclass supports it
+        (`_fused_fit_supported`); a smaller group (a signature change or
+        the epoch's end) runs batch by batch."""
+        self._fused_k = max(1, int(k))
+        return self
+
+    def set_input_transform(self, transform):
+        """Install an on-device batch transform (e.g.
+        data.transforms.DeviceBatchTransform): under async_prefetch it
+        runs on the staged device batch in the prefetch worker; with
+        prefetch off it runs inline before the step — the same ops and
+        per-batch step either way. None removes it."""
+        self._input_transform = transform
+        return self
+
+    def set_prefetch_depth(self, depth: int):
+        """How many device-staged batches the input pipeline holds ahead
+        of the step (data.prefetch.DevicePrefetchIterator)."""
+        self._prefetch_depth = max(1, int(depth))
+        return self
+
+    def _fused_fit_supported(self) -> bool:
+        """Whether this network can run `_fit_datasets_fused`."""
+        return False
+
+    def _fit_datasets_fused(self, ds_list):
+        raise NotImplementedError
+
+    def _ds_signature(self, ds):
+        """Shape and mask signature: only identically shaped consecutive
+        batches form one fused group."""
+        sh = lambda a: None if a is None else tuple(a.shape)
+        return tuple(None if part is None else
+                     (tuple(sh(a) for a in part) if isinstance(part, list) else sh(part))
+                     for part in self._ds_arrays(ds))
 
     # -- listeners -----------------------------------------------------------
 
@@ -267,13 +720,24 @@ class NetworkBase:
                     "device sync after the step — measured only while "
                     "tracing is enabled, so the default fit path never "
                     "adds blocking syncs").labels(),
+                "graph_captures": reg.counter(
+                    "fit_graph_captures_total",
+                    "fused fit programs captured as CUDA graphs").labels(),
+                "graph_replays": reg.counter(
+                    "fit_graph_replays_total",
+                    "fused fit groups replayed from a CUDA graph").labels(),
+                "graph_declined_rng": reg.counter(
+                    "fit_graph_declined_total",
+                    "fused fit groups run eagerly on the card instead of "
+                    "from a CUDA graph", ("reason",)).labels("rng"),
                 "recorder": _blackbox.get_recorder(),
             }
         return ins
 
     def _timed_fit(self, fit_fn, data_wait: float, n_examples: int,
-                   batches=None):
-        """Run one `_fit_dataset` under the step-phase timers: data wait,
+                   n_batches: int = 1, batches=None):
+        """Run one dispatch (a `_fit_dataset` or a fused group of
+        `n_batches`) under the step-phase timers: data wait,
         dispatch and (with tracing on) device sync, each a histogram in
         the shared registry and a span when tracing is on, plus the step
         and example counters, a flight-recorder step record and the fit
@@ -291,7 +755,7 @@ class NetworkBase:
         # resumes at the NEXT batch (the JAX package's rule).
         ts = self._train_state
         if ts is not None:
-            ts["batch_in_epoch"] += 1
+            ts["batch_in_epoch"] += n_batches
         # beat on entry AND exit: each phase (data wait, dispatch) must
         # individually exceed hang_timeout to read as a stall
         hb0 = self._fit_heartbeat
@@ -329,7 +793,8 @@ class NetworkBase:
         if hb is not None:
             hb.beat()
 
-    def _run_fit(self, iterator, epochs: int,
+    def _run_fit(self, iterator, epochs: int, async_prefetch: bool = True,
+                 prefetch_buffer: int = 4,
                  hang_timeout: Optional[float] = None,
                  resume_from: Optional[str] = None, run_ledger=None):
         if run_ledger is not None:
@@ -344,8 +809,24 @@ class NetworkBase:
         with _sigchain.deferred():
             skip_batches = 0
             if resume_from is not None:
+                # restore BEFORE staging: the iterator state lands on the
+                # caller's iterator, not the pipeline wrapped around it
                 skip_batches, epochs, _ = self._restore_for_resume(
                     resume_from, iterator, epochs)
+            owned = None
+            if async_prefetch:
+                staged = self._stage_input_pipeline(iterator, prefetch_buffer)
+                if staged is not iterator:
+                    iterator = owned = staged
+            # fusion engages only where it is observationally equivalent to
+            # the per-step loop: no listeners, and the subclass supports it.
+            # The JAX package's other terms are vacuous here: the port has
+            # no stats collection, no divergence sentinel and no mesh batch
+            # sharding (its "batch transform"); the input transform runs
+            # on each batch before grouping, so it leaves fusion on.
+            fuse_k = self._fused_k if (
+                self._fused_k > 1 and not self.listeners
+                and self._fused_fit_supported()) else 1
             # liveness: the fit thread holds a busy slot on the "fit"
             # heartbeat for the whole run and beats once per dispatch.
             # With hang_timeout the watchdog's stall action dumps the
@@ -357,7 +838,7 @@ class NetworkBase:
             self._fit_heartbeat = hb
             try:
                 with hb.busy():
-                    self._fit_epochs(iterator, epochs, skip_batches)
+                    self._fit_epochs(iterator, epochs, fuse_k, skip_batches)
             except _health.StepHangError as e:
                 if e.dump_path is not None:
                     raise  # already carries its forensics
@@ -371,6 +852,9 @@ class NetworkBase:
                 # AFTER a completed fit must record a clean epoch boundary
                 self._train_state = None
                 _health.get_health().unregister(hb)
+                # the pipeline workers this fit started die with it
+                if owned is not None:
+                    owned.close()
                 # fires even when an epoch raises: listeners that flipped
                 # process-global state for the run restore it here
                 for lst in self.listeners:
@@ -500,7 +984,40 @@ class NetworkBase:
             epoch=int(self.epoch), skip_batches=skip)
         return skip, remaining, path
 
-    def _fit_epochs(self, iterator, epochs: int, skip_batches: int = 0):
+    def _stage_input_pipeline(self, iterator, prefetch_buffer: int):
+        """The staged input pipeline around a fit's iterator:
+
+            [caller's host ETL] -> AsyncDataSetIterator -> device prefetch
+
+        A caller-built DevicePrefetchIterator is the pipeline as it is (it
+        must apply the net's input transform); a caller's host stage
+        (AsyncDataSetIterator or ParallelDataSetIterator) is kept, else a
+        host prefetch thread is added. The device stage copies each batch
+        to the net's device and runs the input transform in its worker,
+        `_prefetch_depth` batches ahead of the step."""
+        from deeplearning4j_tpu_torch.data.prefetch import (
+            DevicePrefetchIterator,
+            ParallelDataSetIterator,
+        )
+
+        if isinstance(iterator, DevicePrefetchIterator):
+            if self._input_transform is not None and \
+                    iterator.transform is not self._input_transform:
+                raise ValueError(
+                    "a DevicePrefetchIterator was passed to fit() but the "
+                    "network has an input transform the iterator does not "
+                    "apply: build the iterator with transform=, or pass the "
+                    "base iterator and let fit compose the pipeline")
+            return iterator
+        host, wrapped = iterator, False
+        if not isinstance(host, (AsyncDataSetIterator, ParallelDataSetIterator)):
+            host, wrapped = AsyncDataSetIterator(host, prefetch_buffer), True
+        return DevicePrefetchIterator(
+            host, depth=self._prefetch_depth, device=self.device,
+            transform=self._input_transform, close_base=wrapped)
+
+    def _fit_epochs(self, iterator, epochs: int, fuse_k: int = 1,
+                    skip_batches: int = 0):
         skip = int(skip_batches)
         for _ in range(epochs):
             for lst in self.listeners:
@@ -515,22 +1032,56 @@ class NetworkBase:
                 "iterator_state": self._capture_iterator_state(iterator),
             }
             t_etl = time.perf_counter()
+            # a fused group in the making; its data wait accumulates so
+            # the group's dispatch carries all the blocking it amortizes
+            buf, sig, wait_accum = [], None, 0.0
+
+            def flush():
+                group, n = list(buf), sum(d.num_examples() for d in buf)
+                self._timed_fit(lambda: self._flush_fused(group, fuse_k),
+                                wait_accum, n, n_batches=len(group),
+                                batches=group)
+                buf.clear()
+
             for ds in iterator:
                 wait = time.perf_counter() - t_etl
                 self._last_etl_ms = wait * 1e3
+                if not getattr(ds, "_pipeline_staged", False) and \
+                        self._input_transform is not None:
+                    # prefetch off: the staging work runs inline (the same
+                    # ops in the same order as the pipeline's worker)
+                    ds = self._input_transform(ds)
                 if skip > 0:
                     # mid-epoch replay: this batch was trained before the
-                    # checkpoint — consumed from the iterator, not
-                    # dispatched (its update is in the restored params)
+                    # checkpoint — consumed from the iterator (and
+                    # transformed, so every stage's step counter advances
+                    # as in the original run), not dispatched (its update
+                    # is in the restored params)
                     skip -= 1
                     self._train_state["batch_in_epoch"] += 1
                     t_etl = time.perf_counter()
                     continue
                 # every batch counted so far is trained: a consistent point
                 _sigchain.safe_point()
-                self._timed_fit(lambda: self._fit_dataset(ds), wait,
-                                ds.num_examples(), batches=[ds])
+                if fuse_k > 1:
+                    s = self._ds_signature(ds)
+                    if buf and s != sig:
+                        # flush BEFORE charging this batch's wait: it
+                        # belongs to the group this batch starts
+                        flush()
+                        wait_accum = 0.0
+                    wait_accum += wait
+                    sig = s
+                    buf.append(ds)
+                    if len(buf) == fuse_k:
+                        flush()
+                        wait_accum = 0.0
+                else:
+                    self._timed_fit(lambda: self._fit_dataset(ds), wait,
+                                    ds.num_examples(), batches=[ds])
                 t_etl = time.perf_counter()
+            if buf:
+                flush()
             if skip > 0:
                 # the resumed epoch ended with replay batches still owed
                 # (the iterator is shorter than at checkpoint time):
@@ -545,6 +1096,15 @@ class NetworkBase:
                 lst.on_epoch_end(self, self.epoch)
             self.epoch += 1
             iterator.reset()
+
+    def _flush_fused(self, group, fuse_k: int) -> None:
+        """A full group runs fused; a smaller one batch by batch (a program
+        per group size would defeat the cache)."""
+        if len(group) == fuse_k:
+            self._fit_datasets_fused(group)
+        else:
+            for ds in group:
+                self._fit_dataset(ds)
 
     @property
     def output_compile_count(self) -> int:
@@ -585,6 +1145,7 @@ class NetworkBase:
         self.params_list = flat_to_params(
             self._ordered_layer_confs(), self.params_list, flat
         )
+        self._reset_step_programs()
 
     def num_params(self) -> int:
         self._require_init()

@@ -33,7 +33,8 @@ code; eager PyTorch drops nothing, so that design would run K6 twice.)
 
 Beside each kernel is its plain PyTorch version (`*_reference`): the same
 function in step-by-step torch ops, math in f32 for f32 and bf16 tensors
-and in f64 for f64 tensors (gradient checks). The wrappers take the plain
+and in f64 for f64 tensors (gradient checks); the conv statistics' sums
+accumulate in f64 (`_stats_of_stored`). The wrappers take the plain
 version only for tensors on the CPU; on a CUDA tensor they launch the
 kernel or raise. Each launch adds one to its count in `launch_counts()`.
 
@@ -43,6 +44,7 @@ rows for the BN passes. Statistics are f32 (f64 for f64 tensors).
 
 from __future__ import annotations
 
+import contextlib
 import threading
 from collections import deque
 from typing import Dict
@@ -72,9 +74,49 @@ def reset_launch_counts() -> None:
             _LAUNCHES[k] = 0
 
 
+# a thread's launch tally while a CUDA graph captures, and the tallies of
+# the streams being captured (see `recording_launches`)
+_recording = threading.local()
+_stream_tallies: Dict[int, Dict[str, int]] = {}
+
+
 def _bump(name: str) -> None:
+    tally = getattr(_recording, "tally", None)
+    if tally is None and _stream_tallies:
+        tally = _stream_tallies.get(torch.cuda.current_stream().cuda_stream)
+    if tally is not None:
+        tally[name] = tally.get(name, 0) + 1
+        return
     with _count_lock:
         _LAUNCHES[name] += 1
+
+
+@contextlib.contextmanager
+def recording_launches(stream=None):
+    """While a CUDA graph captures on this thread, the wrappers' launches
+    go into the yielded dict (name -> launches) instead of the counts: a
+    capture records its kernels and launches none. With the capture's
+    `stream`, launches any thread makes on that stream are recorded too:
+    a captured backward runs on the autograd engine's thread. The graph's
+    owner adds the tally with `add_launches` on every replay, so
+    `launch_counts()` stays a count of launches."""
+    prev = getattr(_recording, "tally", None)
+    _recording.tally = tally = {}
+    if stream is not None:
+        _stream_tallies[stream.cuda_stream] = tally
+    try:
+        yield tally
+    finally:
+        _recording.tally = prev
+        if stream is not None:
+            _stream_tallies.pop(stream.cuda_stream, None)
+
+
+def add_launches(tally: Dict[str, int]) -> None:
+    """Add a recorded tally to the counts: one replay of a captured graph."""
+    with _count_lock:
+        for name, n in tally.items():
+            _LAUNCHES[name] += n
 
 
 # -- the conv -> BN statistics stash ------------------------------------------
@@ -168,10 +210,16 @@ def _math_dtype(dt):
 
 def _stats_of_stored(y32, dtype, dims):
     """y rounded to `dtype`, and the per-channel sums of it and its
-    square in the math dtype."""
+    square, accumulated in f64 and rounded once to the math dtype: the
+    exact sums of the stored values, which the kernels' fixed-order f32
+    sums are held to. An f32 sum in torch's order changes with the CPU's
+    thread count, and the raw-moment variance s2/n - mean^2 amplifies it:
+    on a small BN it moved the tiny ResNet's near-zero stem beta past its
+    tolerance after three steps, up to 1.8x farther from an f64 run than
+    the JAX package's (scripts/tiny_resnet_f64_witness.py)."""
     yb = y32.to(dtype)
-    yf = yb.to(y32.dtype)
-    return yb, yf.sum(dims), (yf * yf).sum(dims)
+    yd = yb.to(torch.float64)
+    return yb, yd.sum(dims).to(y32.dtype), (yd * yd).sum(dims).to(y32.dtype)
 
 
 def conv1x1_stats_reference(x2, w2):

@@ -62,12 +62,16 @@ def reset_launch_counts() -> None:
             _LAUNCHES[k] = 0
 
 
-# a thread's launch tally while a CUDA graph captures (see `recording_launches`)
+# a thread's launch tally while a CUDA graph captures, and the tallies of
+# the streams being captured (see `recording_launches`)
 _recording = threading.local()
+_stream_tallies: Dict[int, Dict[str, int]] = {}
 
 
 def _bump(name: str) -> None:
     tally = getattr(_recording, "tally", None)
+    if tally is None and _stream_tallies:
+        tally = _stream_tallies.get(torch.cuda.current_stream().cuda_stream)
     if tally is not None:
         tally[name] = tally.get(name, 0) + 1
         return
@@ -76,18 +80,24 @@ def _bump(name: str) -> None:
 
 
 @contextlib.contextmanager
-def recording_launches():
+def recording_launches(stream=None):
     """While a CUDA graph captures on this thread, the wrappers' launches
     go into the yielded dict (name -> launches) instead of the counts: a
-    capture records its kernels and launches none. The graph's owner adds
-    the tally with `add_launches` on every replay, so `launch_counts()`
-    stays a count of launches."""
+    capture records its kernels and launches none. With the capture's
+    `stream`, launches any thread makes on that stream are recorded too:
+    a captured backward runs on the autograd engine's thread. The graph's
+    owner adds the tally with `add_launches` on every replay, so
+    `launch_counts()` stays a count of launches."""
     prev = getattr(_recording, "tally", None)
     _recording.tally = tally = {}
+    if stream is not None:
+        _stream_tallies[stream.cuda_stream] = tally
     try:
         yield tally
     finally:
         _recording.tally = prev
+        if stream is not None:
+            _stream_tallies.pop(stream.cuda_stream, None)
 
 
 def add_launches(tally: Dict[str, int]) -> None:

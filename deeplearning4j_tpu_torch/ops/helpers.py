@@ -28,8 +28,10 @@ from deeplearning4j_tpu_torch.utils import metrics as _metrics
 logger = logging.getLogger("deeplearning4j_tpu_torch")
 
 
-# a thread's SPI events while a CUDA graph captures (see `recording_events`)
+# a thread's SPI events while a CUDA graph captures, and the events of the
+# streams being captured (see `recording_events`)
 _recording = threading.local()
+_stream_events: Dict[int, List[Tuple]] = {}
 
 
 def _count(metric: str, op: str, helper: str, family: str,
@@ -40,6 +42,8 @@ def _count(metric: str, op: str, helper: str, family: str,
     values come from the registration's `family(**ctx)` callable, which
     must return a bounded slug set."""
     events = getattr(_recording, "events", None)
+    if events is None and _stream_events:
+        events = _stream_events.get(torch.cuda.current_stream().cuda_stream)
     if events is not None:
         events.append((metric, op, helper, family, reason))
         return
@@ -55,18 +59,25 @@ def _count(metric: str, op: str, helper: str, family: str,
 
 
 @contextlib.contextmanager
-def recording_events():
+def recording_events(stream=None):
     """While a CUDA graph captures on this thread, the SPI's events go into
     the yielded list instead of the registry: the consults run once, at
-    capture, and the graph then replays their choice. The graph's owner
-    calls `replay_events` on every replay, so `helper_hit_total` and the
-    fallback counters count the calls that ran."""
+    capture, and the graph then replays their choice. With the capture's
+    `stream`, events any thread raises on that stream are recorded too (a
+    captured backward consults on the autograd engine's thread). The
+    graph's owner calls `replay_events` on every replay, so
+    `helper_hit_total` and the fallback counters count the calls that
+    ran."""
     prev = getattr(_recording, "events", None)
     _recording.events = events = []
+    if stream is not None:
+        _stream_events[stream.cuda_stream] = events
     try:
         yield events
     finally:
         _recording.events = prev
+        if stream is not None:
+            _stream_events.pop(stream.cuda_stream, None)
 
 
 def replay_events(events: List[Tuple]) -> None:

@@ -20,8 +20,13 @@ every leaf (utils/model_serializer.py `ModelSnapshot.capture`), where
 the JAX package may hold references to its immutable arrays. A later
 multi-tensor updater keeps that rule.
 
-Learning-rate schedules are computed on the host per step and passed in
-as the scalar `lr`.
+Learning-rate schedules are computed on the host per step (`schedule_lr`)
+and reach the step as 0-d f32 tensors on the network's device, `lr` and
+the iteration counter `t`, read from a vector the host fills before each
+dispatch (nn/netbase.py `_clock`): a captured CUDA graph reads them from
+that buffer instead of baking them in. Parameters and updater state are
+f32 under every precision policy (common/dtypes.py), so an f32 `lr`
+tensor rounds nothing that the Python float it replaces did not.
 """
 
 from __future__ import annotations
@@ -47,12 +52,14 @@ class UpdaterDef:
 
     def apply_tree(self, grads, state, lr_tree, t):
         """(updates, new_state) over the list of dicts; `lr_tree` is a
-        scalar or a list of dicts of per-leaf learning rates."""
+        scalar (a number or a 0-d tensor) or a list of dicts of per-leaf
+        learning rates."""
+        scalar = isinstance(lr_tree, (int, float)) or torch.is_tensor(lr_tree)
         updates, new_state = [], []
         for i, (g, s) in enumerate(zip(grads, state)):
             u_i, s_i = {}, {}
             for k in g:
-                lr = lr_tree if isinstance(lr_tree, (int, float)) else lr_tree[i][k]
+                lr = lr_tree if scalar else lr_tree[i][k]
                 u_i[k], s_i[k] = self.apply(g[k], s[k], lr, t, self.hyper)
             updates.append(u_i)
             new_state.append(s_i)

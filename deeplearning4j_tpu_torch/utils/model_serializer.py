@@ -311,6 +311,8 @@ def _restore_into(net, meta, coeffs, layer_state, upd) -> None:
         net.upd_state = restore(net.upd_state, upd)
     net.iteration = int(meta.get("iteration", 0))
     net.epoch = int(meta.get("epoch", 0))
+    # the fused programs' graphs read the tensors just replaced
+    net._reset_step_programs()
 
 
 def load_model(path: Union[str, os.PathLike], load_updater: bool = True, *,
