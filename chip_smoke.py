@@ -139,6 +139,36 @@ result lines:
    the graph pool and the peak memory. 8c: the graphed char-LSTM fit of 6
    host batches with the device prefetch pipeline on and off, bit-equal,
    with tokens/s.
+9. LeNet, the second layer slice, VGG16 through the Keras importer and
+   transfer learning. 9a: LeNet (the dl4j-examples LenetMnistExample, full
+   width, f32, batch 64, Nesterovs lr 0.01 momentum 0.9) on synthetic MNIST
+   read with allow_download=False: the first 5 scores on the card held to
+   the port on the CPU from the same parameters (LENET_RTOL, TF32 off);
+   then 100 steps: step p50/p99 (synced each step), images/s, the busy
+   share of 10 profiled steps; no conv/BN kernel launches (the convs carry
+   a bias: conv_declined_total{reason="bias"} counts 2 a step). 9b: each
+   of the ten new layer confs at small widths, forward and input and
+   parameter gradients on the card against the CPU (LAYER_RTOL), and 5
+   pretraining steps each of an AutoEncoder, a VAE and an RBM fed the same
+   noise on both devices, their scores held (LAYER_RTOL). 9c: VGG16 built
+   by `vgg16_conf` through the port's Keras importer, full width: output()
+   at batch 2 in an f32 build, card vs CPU (VGG_OUT_RTOL); 10 bf16 SGD
+   steps at batch 32 on 2 batches (finite, batch 0's score falls; step
+   p50/p99, images/s; no conv/BN kernel launches, 13 "bias" declines a
+   step); then dl4j-examples' EditLastLayerOthersFrozen: freeze through
+   dense_2 (fc2), a new 5-class head, 10 Nesterovs steps at batch 15,
+   eager and under set_fused_steps(2) (each frozen leaf, its updater state
+   and layer state bit-equal to before; the two runs' scores agree), and
+   TransferLearningHelper.featurize + fit_featurized giving the full
+   fine-tune's scores (HELPER_RTOL). 9d: ResNet-50 (bf16, batch 32) under
+   GraphTransferLearning, frozen through s2b5_relu (stem and stages 1-3)
+   with a new 5-class head: K4-K8 launch per step exactly for stage 4's
+   convs and BNs and the frozen convs are declined for "inference"; the
+   fused-ReLU marks are stage 4's BNs only; frozen leaves bit-equal eager
+   and fused; in f32, one step with the kernels on holds to one with them
+   off from the same start in score (RESNET_SCORE_RTOL) and in the
+   unfrozen BNs' running statistics (RESNET_STATE_RTOL), as in phase 6,
+   and the drift of two more free-running steps is printed.
 The last three lines of standard output are the kernels JSON line, the
 card line, and {"ok": true, "device": {...}}. Imports nothing of JAX.
 """
@@ -2929,6 +2959,538 @@ def fused_prefetch_phase(torch, char_lstm_network, DataSet, ListDataSetIterator,
     return {"bit_equal": same, "tokens_per_s": {"off": rates[False], "on": rates[True]}}
 
 
+# -- phase 9: LeNet, the second layer slice, VGG16 via Keras, transfer ------
+
+LENET_BATCH, LENET_CHECK_STEPS, LENET_STEPS = 64, 5, 100
+# card vs CPU from the same parameters, f32 with TF32 off: the same
+# expressions summed in another order, over 5 Nesterovs steps
+LENET_RTOL = 1e-4
+# the new layers at small widths, card vs CPU, f32 (TF32 off): forwards and
+# parameter gradients to LAYER_RTOL of each tensor's largest entry;
+# pretraining scores over 5 steps to LAYER_RTOL relative
+LAYER_RTOL = 1e-4
+PRETRAIN_STEPS = 5
+VGG_OUT_BATCH, VGG_BATCH, VGG_BATCHES, VGG_EPOCHS = 2, 32, 2, 5
+# VGG16 output() in f32, card vs CPU port: 13 convs and 3 dense layers
+# summed in another order, softmax outputs over 1000 classes
+VGG_OUT_RTOL, VGG_OUT_ATOL = 1e-4, 1e-7
+# EditLastLayerOthersFrozen (dl4j-examples): freeze through fc2 (Keras
+# dense_2), a new 5-class head, Nesterovs lr 5e-5, batch 15
+TRANSFER_CLASSES, TRANSFER_BATCH, TRANSFER_BATCHES, TRANSFER_EPOCHS = 5, 15, 2, 5
+TRANSFER_LR = 5e-5
+# featurize + fit_featurized against the full fine-tune: the same ops on
+# the same features; room for a cuDNN algorithm that differs between calls
+HELPER_RTOL = 1e-4
+# ResNet-50 under GraphTransferLearning: freeze through stage 3's last
+# block, a new 5-class head, batch 32, the fine-tune of the VGG16 flow
+# (Nesterovs lr 5e-5; at the source's lr 0.01 the new head's score rose
+# from 2.6 to 26 in 4 steps on an H100, with the kernels on and off alike)
+RESNET_TRANSFER_FREEZE = "s2b5_relu"
+RESNET_TRANSFER_STEPS, RESNET_TRANSFER_BATCH = 4, 32
+PHASE9_IMAGE = 224  # VGG16's and ResNet-50's image side in phase 9
+
+
+class LaunchCounts:
+    """Every kernel wrapper's launch count (LSTM and conv/BN), reset and
+    read together."""
+
+    def __init__(self, fl, fcb):
+        self.fl, self.fcb = fl, fcb
+
+    def reset(self):
+        self.fl.reset_launch_counts()
+        self.fcb.reset_launch_counts()
+
+    def read(self) -> dict:
+        return {**self.fl.launch_counts(), **self.fcb.launch_counts()}
+
+
+def frozen_snapshot(net):
+    """Clones of every frozen layer's parameters, updater state and layer
+    state."""
+    idx = [i for i, ks in enumerate(net._trainable_keys()) if not ks and net.params_list[i]]
+    return idx, [({k: v.clone() for k, v in net.params_list[i].items()},
+                  {k: {n: t.clone() for n, t in s.items()} for k, s in net.upd_state[i].items()},
+                  None if net.state_list[i] is None
+                  else {k: v.clone() for k, v in net.state_list[i].items()}) for i in idx]
+
+
+def frozen_unchanged(torch, net, snap) -> bool:
+    idx, saved = snap
+    for i, (p, u, s) in zip(idx, saved):
+        if not all(torch.equal(net.params_list[i][k], v) for k, v in p.items()):
+            return False
+        if not all(torch.equal(net.upd_state[i][k][n], t)
+                   for k, st in u.items() for n, t in st.items()):
+            return False
+        if s is not None and not all(torch.equal(net.state_list[i][k], v)
+                                     for k, v in s.items()):
+            return False
+    return True
+
+
+def score_log(IterationListener, torch, clock=False):
+    class Scores(IterationListener):
+        def __init__(self):
+            self.scores, self.times = [], [time.perf_counter()]
+
+        def iteration_done(self, model, iteration, info):
+            if clock:
+                torch.cuda.synchronize()
+                self.times.append(time.perf_counter())
+            self.scores.append(info["score"]())
+
+        def values(self):
+            return [float(s) for s in self.scores]
+
+    return Scores()
+
+
+def decline_count(metrics, reason) -> float:
+    """conv_declined_total{reason=...} summed over the conv families: the
+    conv/BN kernel's structural declines (ops/fused_conv_bn.conv_decision)."""
+    return sum(v for k, v in metrics.get_registry().scalar_values().items()
+               if k.startswith("conv_declined_total{") and f'reason="{reason}"' in k)
+
+
+def lenet_phase(torch, counts, metrics, IterationListener, SyncClockIt, seed, card):
+    """9a: LeNet (dl4j-examples LenetMnistExample) at full width on
+    synthetic MNIST: 5 scores held to the CPU port, then 100 steps timed."""
+    from deeplearning4j_tpu_torch.data import ExistingDataSetIterator
+    from deeplearning4j_tpu_torch.data.mnist import MnistDataFetcher, MnistDataSetIterator
+    from deeplearning4j_tpu_torch.models.lenet import lenet_network
+
+    # no cache is read: the synthetic digits, whatever the host holds
+    os.environ["DL4J_TPU_DATA"] = os.path.join(HERE, "_no_mnist_cache")
+    it = MnistDataSetIterator(LENET_BATCH, train=True, seed=seed,
+                              num_examples=LENET_BATCH * LENET_STEPS,
+                              fetcher=MnistDataFetcher(allow_download=False))
+    check(it.source == "synthetic", f"9a: MNIST source {it.source}, expected synthetic")
+    batches = list(it)
+    card_net = lenet_network(seed=seed)
+    cpu_net = lenet_network(seed=seed, device="cpu")
+    check(all(torch.equal(a[k].cpu(), b[k]) for a, b in zip(card_net.params_list,
+                                                             cpu_net.params_list) for k in a),
+          "9a: the card and CPU nets start from different parameters")
+    logs = []
+    for net in (card_net, cpu_net):
+        log = score_log(IterationListener, torch)
+        net.set_listeners(log)
+        net.fit(ExistingDataSetIterator(batches[:LENET_CHECK_STEPS]), async_prefetch=False)
+        net.set_listeners()
+        logs.append(log.values())
+    rel = max(abs(a - b) / abs(b) for a, b in zip(*logs))
+    check(rel <= LENET_RTOL, f"9a: card vs CPU scores part by {rel:.2e} > {LENET_RTOL}")
+    print(f"  9a LeNet: first {LENET_CHECK_STEPS} scores card {' '.join(f'{s:.5f}' for s in logs[0])}"
+          f"; vs the CPU port max rel {rel:.2e} (tolerance {LENET_RTOL})")
+    # 100 steps on the card, synced at each step
+    net = lenet_network(seed=seed)
+    counts.reset()
+    bias0 = decline_count(metrics, "bias")
+    clock = SyncClockIt(batches)
+    log = score_log(IterationListener, torch)
+    net.set_listeners(log)
+    net.fit(clock.it, async_prefetch=False)
+    steps = dispatch_times(clock, 1)
+    scores = log.values()
+    check(len(scores) == LENET_STEPS and all(math.isfinite(s) for s in scores),
+          "9a: LeNet scores are not all finite")
+    check(statistics.mean(scores[-10:]) < statistics.mean(scores[:10]),
+          f"9a: LeNet's score did not fall ({scores[0]:.4f} -> {scores[-1]:.4f})")
+    launched = counts.read()
+    bias = decline_count(metrics, "bias") - bias0
+    check(sum(launched.values()) == 0, f"9a: conv/BN kernels launched {launched}")
+    check(bias == 2 * LENET_STEPS, f"9a: {bias} bias declines, expected {2 * LENET_STEPS}")
+    net.set_listeners()
+    wall = clock.times[-1] - clock.times[0]
+    busy, pwall, _ = profiled(torch, lambda: net.fit(
+        ExistingDataSetIterator(batches[:10]), async_prefetch=False))
+    rec = {"source": it.source, "card_vs_cpu_rel": rel, "scores_card": logs[0],
+           "scores_cpu": logs[1], "first_score": scores[0], "last_score": scores[-1],
+           "step_s": quantiles(steps), "images_per_s": LENET_STEPS * LENET_BATCH / wall,
+           "busy_share": busy / pwall, "device_ms_per_step": busy * 1e3 / 10,
+           "launches": launched, "bias_declines": bias}
+    print(f"  9a LeNet fit {LENET_STEPS} steps of batch {LENET_BATCH}: score {scores[0]:.4f} -> "
+          f"{scores[-1]:.4f}; step p50 {rec['step_s']['p50'] * 1e3:.3f} ms p99 "
+          f"{rec['step_s']['p99'] * 1e3:.3f} ms (synced each step); images/s "
+          f"{rec['images_per_s']:.0f}; 10 steps under the profiler: busy {busy / pwall:.3f}, "
+          f"{busy * 1e3 / 10:.3f} ms of device a step; conv/BN kernels 0 (conv_decision "
+          f"'bias': {bias:.0f} declines), on {card}")
+    return rec
+
+
+def _close_rel(torch, a, b) -> float:
+    """max |a - b| over max |b| (1 when b is all zero)."""
+    a, b = a.detach().double().cpu(), b.detach().double().cpu()
+    scale = max(float(b.abs().max()), 1e-30) if b.numel() else 1.0
+    return float((a - b).abs().max()) / scale if b.numel() else 0.0
+
+
+def layers_phase(torch, seed, card):
+    """9b: the ten new layer confs at small widths and AE / VAE / RBM
+    pretraining, card against CPU."""
+    from deeplearning4j_tpu_torch.nn.conf import layers as L
+    from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
+    from deeplearning4j_tpu_torch.nn.conf.network import NeuralNetConfiguration
+    from deeplearning4j_tpu_torch.nn.layers.registry import (
+        LayerContext, forward_layer, init_layer_params, init_layer_state)
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork, pretrain_noise
+
+    g = torch.Generator().manual_seed(seed + 900)
+    mask = torch.ones(4, 9)
+    mask[1, 5:] = 0.0
+    cases = {
+        "Convolution1DLayer": (L.Convolution1DLayer(n_in=6, n_out=8, kernel_size=3, stride=2,
+                                                    convolution_mode="same",
+                                                    activation="relu"), (4, 9, 6), None),
+        "Subsampling1DLayer": (L.Subsampling1DLayer(pooling_type="max", kernel_size=2,
+                                                    stride=2), (4, 9, 6), None),
+        "ZeroPaddingLayer": (L.ZeroPaddingLayer(padding=(1, 2, 0, 3)), (4, 7, 7, 5), None),
+        "GlobalPoolingLayer (masked)": (L.GlobalPoolingLayer(pooling_type="avg"),
+                                        (4, 9, 6), mask),
+        "LocalResponseNormalization": (L.LocalResponseNormalization(n=4.0, alpha=1e-2),
+                                       (4, 7, 7, 16), None),
+        "AutoEncoder": (L.AutoEncoder(n_in=12, n_out=8, activation="sigmoid"), (4, 12), None),
+        "CenterLossOutputLayer": (L.CenterLossOutputLayer(n_in=12, n_out=5,
+                                                          activation="softmax"), (4, 12), None),
+        "FrozenLayer": (L.FrozenLayer(inner=L.BatchNormalization(n_in=12)), (4, 12), None),
+        "VariationalAutoencoder": (L.VariationalAutoencoder(
+            n_in=12, n_out=4, encoder_layer_sizes=[10], decoder_layer_sizes=[10],
+            activation="tanh"), (4, 12), None),
+        "SelfAttentionLayer": (L.SelfAttentionLayer(n_in=6, n_out=8, n_heads=2, causal=True,
+                                                    activation="identity"), (4, 9, 6), mask),
+        "RBM": (L.RBM(n_in=12, n_out=8, activation="sigmoid"), (4, 12), None),
+    }
+    out = {}
+    for name, (conf, shape, m) in cases.items():
+        if getattr(conf, "weight_init", None) is None and hasattr(conf, "weight_init"):
+            conf.weight_init = "xavier"
+        params = init_layer_params(torch.Generator().manual_seed(seed), conf, torch.float32)
+        state = init_layer_state(conf, torch.float32)
+        if state is not None and "var" in state:
+            state = {"mean": torch.randn(state["mean"].shape, generator=g) * 0.1,
+                     "var": torch.rand(state["var"].shape, generator=g) + 0.5}
+        x = torch.randn(shape, generator=g)
+        res = {}
+        for dev in ("cpu", "cuda"):
+            p = {k: v.to(dev).requires_grad_() for k, v in params.items()}
+            xx = x.to(dev).requires_grad_()
+            ctx = LayerContext(training=True, mask=None if m is None else m.to(dev),
+                               state=None if state is None
+                               else {k: v.to(dev) for k, v in state.items()})
+            y, _ = forward_layer(conf, p, xx, ctx)
+            cot = torch.randn(y.shape, generator=torch.Generator().manual_seed(seed + 1))
+            names = list(p)
+            gr = torch.autograd.grad((y * cot.to(dev)).sum(), [xx] + [p[k] for k in names],
+                                     allow_unused=True)
+            res[dev] = [y] + [torch.zeros_like(t) if d is None else d
+                              for t, d in zip([xx] + [p[k] for k in names], gr)]
+        err = max(_close_rel(torch, a, b) for a, b in zip(res["cuda"], res["cpu"]))
+        check(err <= LAYER_RTOL, f"9b {name}: card vs CPU {err:.2e} > {LAYER_RTOL}")
+        out[name] = err
+    print(f"  9b layers card vs CPU (forward, input and parameter gradients, f32; tolerance "
+          f"{LAYER_RTOL} of each tensor's largest entry): "
+          + ", ".join(f"{k} {v:.1e}" for k, v in out.items()))
+
+    pre = {}
+    x = torch.rand((32, 12), generator=g)
+    for kind, layer in (("AutoEncoder", L.AutoEncoder(n_out=8, activation="sigmoid")),
+                        ("VariationalAutoencoder", L.VariationalAutoencoder(
+                            n_out=4, encoder_layer_sizes=[10], decoder_layer_sizes=[10],
+                            activation="tanh", num_samples=2)),
+                        ("RBM", L.RBM(n_out=8, activation="sigmoid", k=2))):
+        data = (x > 0.5).float() if kind == "RBM" else x
+        conf = (NeuralNetConfiguration.builder().seed(seed).updater("adam")
+                .learning_rate(0.01).weight_init("xavier").list().layer(layer)
+                .layer(L.OutputLayer(n_out=3, activation="softmax"))
+                .set_input_type(InputType.feed_forward(12)).build())
+        noise = {}
+
+        def hook(idx, it, x_in, conf=conf):
+            key = (idx, it)
+            if key not in noise:  # drawn once on the CPU, fed to both devices
+                noise[key] = pretrain_noise(conf.layers[idx], x_in.cpu(),
+                                            torch.Generator().manual_seed(seed * 31 + it))
+            return noise[key].to(x_in.device)
+
+        scores = {}
+        for dev in ("cpu", "cuda"):
+            net = MultiLayerNetwork(conf, device=dev).init()
+            got, step = [], net._pretrain_step
+
+            def recorded(*a, step=step, got=got):
+                s = step(*a)
+                got.append(float(s))
+                return s
+
+            net._pretrain_step = recorded
+            net.pretrain_layer(0, data.numpy(), epochs=PRETRAIN_STEPS, batch_size=32,
+                               noise=hook)
+            scores[dev] = got
+        rel = max(abs(a - b) / abs(b) for a, b in zip(scores["cuda"], scores["cpu"]))
+        check(len(scores["cuda"]) == PRETRAIN_STEPS and rel <= LAYER_RTOL,
+              f"9b pretrain {kind}: card vs CPU scores {rel:.2e} > {LAYER_RTOL}")
+        pre[kind] = {"scores_card": scores["cuda"], "rel": rel}
+    print(f"  9b pretraining, {PRETRAIN_STEPS} steps each with the same noise, card vs CPU "
+          f"scores: " + ", ".join(f"{k} {v['scores_card'][0]:.4f}->{v['scores_card'][-1]:.4f} "
+                                   f"(rel {v['rel']:.1e})" for k, v in pre.items()))
+    return {"layers": out, "pretrain": pre}
+
+
+def vgg_batches(torch, F, DataSet, seed, n, b, classes):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    out = []
+    for _ in range(n):
+        x = torch.randn((b, PHASE9_IMAGE, PHASE9_IMAGE, 3), generator=g, device="cuda")
+        lab = torch.randint(0, classes, (b,), generator=g, device="cuda")
+        out.append(DataSet(x, F.one_hot(lab, classes).float()))
+    return out
+
+
+def vgg_phase(torch, F, counts, metrics, DataSet, IterationListener, SyncClockIt, seed,
+              card):
+    """9c: VGG16 through the port's Keras importer at full width: output()
+    card vs CPU in f32, 10 bf16 steps, then the EditLastLayerOthersFrozen
+    transfer flow, eager, fused and featurized."""
+    from deeplearning4j_tpu_torch.data import ExistingDataSetIterator
+    from deeplearning4j_tpu_torch.models.vgg16 import vgg16_network
+    from deeplearning4j_tpu_torch.nn.transferlearning import (
+        TransferLearning, TransferLearningHelper)
+
+    rec = {}
+    # output() at batch 2, an f32 build on the card against the CPU port
+    card32 = vgg16_network(image_size=PHASE9_IMAGE, precision="f32", seed=seed)
+    cpu32 = vgg16_network(image_size=PHASE9_IMAGE, precision="f32", seed=seed, device="cpu")
+    x = torch.rand((VGG_OUT_BATCH, PHASE9_IMAGE, PHASE9_IMAGE, 3),
+                   generator=torch.Generator().manual_seed(seed))
+    ya, yb = card32.output(x).cpu(), cpu32.output(x)
+    ok = bool(torch.allclose(ya, yb, rtol=VGG_OUT_RTOL, atol=VGG_OUT_ATOL))
+    err = float((ya - yb).abs().max())
+    check(ok and ya.shape == (VGG_OUT_BATCH, 1000) and bool(torch.isfinite(ya).all()),
+          f"9c: VGG16 output() card vs CPU max |diff| {err:.2e} (rtol {VGG_OUT_RTOL}, "
+          f"atol {VGG_OUT_ATOL})")
+    rec["output_card_vs_cpu_max_abs"] = err
+    print(f"  9c VGG16 (Keras import) output() f32 batch {VGG_OUT_BATCH}: card vs CPU port max "
+          f"|diff| {err:.2e} (rtol {VGG_OUT_RTOL}, atol {VGG_OUT_ATOL}); "
+          f"{sum(v.numel() for p in card32.params_list for v in p.values()) / 1e6:.1f}M params")
+    del card32, cpu32
+    torch.cuda.empty_cache()
+
+    # 10 steps at batch 32, bf16, on 2 batches
+    net = vgg16_network(image_size=PHASE9_IMAGE, seed=seed)
+    data = vgg_batches(torch, F, DataSet, seed + 91, VGG_BATCHES, VGG_BATCH, 1000)
+    counts.reset()
+    bias0 = decline_count(metrics, "bias")
+    clock = SyncClockIt(data, VGG_EPOCHS)
+    log = score_log(IterationListener, torch)
+    net.set_listeners(log)
+    net.fit(clock.it, async_prefetch=False)
+    net.set_listeners()
+    scores = log.values()
+    steps = VGG_BATCHES * VGG_EPOCHS
+    check(len(scores) == steps and all(math.isfinite(s) for s in scores),
+          f"9c: VGG16 scores {scores}")
+    check(scores[-VGG_BATCHES] < scores[0],
+          f"9c: batch 0's score did not fall ({scores[0]:.5f} -> {scores[-VGG_BATCHES]:.5f})")
+    launched = counts.read()
+    bias = decline_count(metrics, "bias") - bias0
+    check(sum(launched.values()) == 0, f"9c: conv/BN kernels launched {launched}")
+    check(bias == 13 * steps, f"9c: {bias} bias declines, expected {13 * steps}")
+    st = dispatch_times(clock, 1)
+    rec["train"] = {"scores": scores, "step_s": quantiles(st[1:]), "first_step_s": st[0],
+                    "images_per_s": VGG_BATCH * (steps - 1) / sum(st[1:]),
+                    "launches": launched, "bias_declines": bias}
+    print(f"  9c VGG16 bf16 batch {VGG_BATCH}, {steps} SGD steps (lr "
+          f"{net.net_conf.learning_rate}): batch 0 score {scores[0]:.5f} -> "
+          f"{scores[-VGG_BATCHES]:.5f}; step p50 {rec['train']['step_s']['p50'] * 1e3:.2f} ms "
+          f"p99 {rec['train']['step_s']['p99'] * 1e3:.2f} ms after the first "
+          f"({st[0]:.2f} s); images/s {rec['train']['images_per_s']:.0f}; conv/BN kernels 0 "
+          f"(conv_decision 'bias': {bias:.0f} declines), on {card}")
+
+    # EditLastLayerOthersFrozen: freeze through fc2, a new 5-class head
+    names = [c.name for c in net.layer_confs]
+    fc2, head = names.index("dense_2"), len(names) - 1
+
+    def transfer():
+        return (TransferLearning.Builder(net)
+                .fine_tune_configuration(updater="nesterovs", learning_rate=TRANSFER_LR,
+                                         momentum=0.9)
+                .set_feature_extractor(fc2)
+                .n_out_replace(head, TRANSFER_CLASSES, weight_init="xavier").build())
+
+    tdata = vgg_batches(torch, F, DataSet, seed + 92, TRANSFER_BATCHES, TRANSFER_BATCH,
+                        TRANSFER_CLASSES)
+    tsteps = TRANSFER_BATCHES * TRANSFER_EPOCHS
+    out = {}
+    for mode in ("eager", "fused"):
+        tnet = transfer()
+        check(tnet._trainable_keys()[:head] == [[]] * head,
+              "9c: the transfer net's layers through fc2 are not all frozen")
+        if mode == "fused":
+            tnet.set_fused_steps(2)
+        snap = frozen_snapshot(tnet)
+        log = score_log(IterationListener, torch) if mode == "eager" else None
+        if log is not None:
+            tnet.set_listeners(log)
+        clock = SyncClockIt(tdata, TRANSFER_EPOCHS, net=tnet if mode == "fused" else None,
+                            per=2 if mode == "fused" else 1)
+        tnet.fit(clock.it, async_prefetch=False)
+        same = frozen_unchanged(torch, tnet, snap)
+        check(same, f"9c: a frozen leaf of the transfer net moved ({mode})")
+        sc = log.values() if log is not None else clock.scores
+        check(len(sc) == tsteps and all(math.isfinite(s) for s in sc),
+              f"9c transfer {mode}: scores {sc}")
+        per = 2 if mode == "fused" else 1
+        # step seconds: each dispatch over its steps; the fused run's first
+        # two dispatches are the eager warm-up and the capture
+        st = [t / per for t in dispatch_times(clock, per)][per:]
+        out[mode] = {"scores": sc, "frozen_bit_equal": same, "step_s": quantiles(st),
+                     "images_per_s": TRANSFER_BATCH * len(st) / sum(st)}
+        if mode == "fused":
+            out[mode]["graphs"] = tnet.fit_graphs()
+    check(max(abs(a - b) / abs(b) for a, b in zip(out["eager"]["scores"],
+                                                   out["fused"]["scores"])) <= HELPER_RTOL,
+          "9c: the fused transfer's scores part from the eager one's")
+    # TransferLearningHelper: featurize once, fit the head on the features
+    tnet = transfer()
+    helper = TransferLearningHelper(tnet)
+    feats = [helper.featurize(d) for d in tdata]
+    log = score_log(IterationListener, torch)
+    helper.unfrozen_network().set_listeners(log)
+    helper.fit_featurized(ExistingDataSetIterator(feats * TRANSFER_EPOCHS))
+    hs = log.values()
+    rel = max(abs(a - b) / abs(b) for a, b in zip(hs, out["eager"]["scores"]))
+    check(len(hs) == tsteps and rel <= HELPER_RTOL,
+          f"9c: featurize + fit_featurized scores part from the full fine-tune's by {rel:.2e}")
+    out["helper"] = {"scores": hs, "rel_vs_full": rel,
+                     "feature_shape": list(feats[0].features.shape)}
+    rec["transfer"] = out
+    print(f"  9c EditLastLayerOthersFrozen (freeze through dense_2 = fc2, {TRANSFER_CLASSES}-class "
+          f"head, Nesterovs lr {TRANSFER_LR}, batch {TRANSFER_BATCH}, {tsteps} steps): frozen "
+          f"leaves bit-equal eager {out['eager']['frozen_bit_equal']}, set_fused_steps(2) "
+          f"{out['fused']['frozen_bit_equal']}; score {out['eager']['scores'][0]:.5f} -> "
+          f"{out['eager']['scores'][-1]:.5f}; step p50 eager "
+          f"{out['eager']['step_s']['p50'] * 1e3:.2f} ms, graphed "
+          f"{out['fused']['step_s']['p50'] * 1e3:.2f} ms; featurize + fit_featurized vs the "
+          f"full fine-tune scores rel {rel:.1e}, on {card}")
+    del net, tnet, helper
+    torch.cuda.empty_cache()
+    return rec
+
+
+def resnet_transfer_phase(torch, F, counts, helpers, metrics, DataSet, IterationListener,
+                          SyncClockIt, seed, card):
+    """9d: ResNet-50 under GraphTransferLearning: the stem and stages 1-3
+    frozen, a new 5-class head; K4-K8 launch for stage 4 only."""
+    from deeplearning4j_tpu_torch.models.resnet import resnet50_network
+    from deeplearning4j_tpu_torch.nn.conf import layers as L
+    from deeplearning4j_tpu_torch.nn.transferlearning import GraphTransferLearning
+
+    def build(precision):
+        src = resnet50_network(image_size=PHASE9_IMAGE, precision=precision, seed=seed,
+                               learning_rate=RESNET_LR)
+        return (GraphTransferLearning(src)
+                .fine_tune_configuration(updater="nesterovs", learning_rate=TRANSFER_LR,
+                                         momentum=0.9)
+                .set_feature_extractor(RESNET_TRANSFER_FREEZE)
+                .n_out_replace("out", TRANSFER_CLASSES, weight_init="xavier").build())
+
+    net = build("bf16")
+    convs = [c for c in net._layer_confs if isinstance(c, L.ConvolutionLayer)]
+    bns = [c for c in net._layer_confs if isinstance(c, L.BatchNormalization)]
+    n1 = sum(1 for c in convs if tuple(c.kernel_size) == (1, 1))
+    want = {"conv1x1_stats": n1, "conv_kxk_stats": len(convs) - n1, "bn_apply": len(bns),
+            "bn_backward_reduce": len(bns), "bn_backward_apply": len(bns)}
+    n_frozen_convs = sum(1 for c in net._layer_confs if isinstance(c, L.FrozenLayer)
+                         and isinstance(c.inner, L.ConvolutionLayer))
+    marked = sorted(net.relu_fused_bn)
+    check(len(marked) == 2 * 3 and all(
+        not isinstance(net.conf.vertices[n].layer, L.FrozenLayer) for n in marked),
+          f"9d: the fused-ReLU marks are not stage 4's six unfrozen BNs: {marked}")
+    data = vgg_batches(torch, F, DataSet, seed + 93, 2, RESNET_TRANSFER_BATCH, TRANSFER_CLASSES)
+    snap = frozen_snapshot(net)
+    counts.reset()
+    inf0 = decline_count(metrics, "inference")
+    clock = SyncClockIt(data, RESNET_TRANSFER_STEPS // 2)
+    log = score_log(IterationListener, torch)
+    net.set_listeners(log)
+    net.fit(clock.it, async_prefetch=False)
+    net.set_listeners()
+    launched = counts.read()
+    per_step = {k: want[k] * RESNET_TRANSFER_STEPS for k in want}
+    check({k: launched.get(k, 0) for k in want} == per_step,
+          f"9d: launches {launched}, expected {per_step} (stage 4 only)")
+    inference = decline_count(metrics, "inference") - inf0
+    check(inference == n_frozen_convs * RESNET_TRANSFER_STEPS,
+          f"9d: {inference} 'inference' declines, expected "
+          f"{n_frozen_convs * RESNET_TRANSFER_STEPS} (the frozen convs)")
+    same = frozen_unchanged(torch, net, snap)
+    check(same, "9d: a frozen leaf of the ResNet-50 transfer net moved")
+    scores = log.values()
+    check(all(math.isfinite(s) for s in scores), f"9d: scores {scores}")
+    st = dispatch_times(clock, 1)
+    rec = {"launches": launched, "launches_per_step": want,
+           "frozen_convs": n_frozen_convs, "inference_declines": inference,
+           "frozen_bit_equal": same, "scores": scores, "step_s": quantiles(st[1:]),
+           "images_per_s": RESNET_TRANSFER_BATCH * (len(st) - 1) / sum(st[1:])}
+    # fused: frozen leaves bit-equal under set_fused_steps(2) too
+    fused = build("bf16").set_fused_steps(2)
+    snap = frozen_snapshot(fused)
+    fused.fit(SyncClockIt(data, 2).it, async_prefetch=False)
+    rec["fused_frozen_bit_equal"] = frozen_unchanged(torch, fused, snap)
+    check(rec["fused_frozen_bit_equal"], "9d: a frozen leaf moved under set_fused_steps(2)")
+    del fused
+    # kernels on vs off, f32 (TF32 off), from the same start: phase 6's
+    # holds of one step (the score to RESNET_SCORE_RTOL, the unfrozen BNs'
+    # running statistics to RESNET_STATE_RTOL of each tensor's largest
+    # entry); two more steps each way show the drift of the ill-conditioned
+    # f32 gradient (see LOCKSTEP_BATCH), printed, not held
+    on = build("f32")
+    off = on.clone()
+    d32 = vgg_batches(torch, F, DataSet, seed + 94, 1, RESNET_TRANSFER_BATCH, TRANSFER_CLASSES)
+    got, stats = {}, {}
+    for name, n in (("on", on), ("off", off)):
+        lg = score_log(IterationListener, torch)
+        n.set_listeners(lg)
+        if name == "off":
+            for op in CONV_BN_OPS:
+                helpers.set_helper_enabled(op, False)
+        try:
+            n.fit(SyncClockIt(d32).it, async_prefetch=False)
+            stats[name] = [{k: v.clone() for k, v in n.state_list[i].items()}
+                           for i, c in enumerate(n._layer_confs)
+                           if isinstance(c, L.BatchNormalization)]
+            n.fit(SyncClockIt(d32, 2).it, async_prefetch=False)
+        finally:
+            for op in CONV_BN_OPS:
+                helpers.set_helper_enabled(op, True)
+        got[name] = lg.values()
+    rels = [abs(a - b) / abs(b) for a, b in zip(got["on"], got["off"])]
+    state_err = max(_close_rel(torch, a[k], b[k])
+                    for a, b in zip(stats["on"], stats["off"]) for k in a)
+    check(rels[0] <= RESNET_SCORE_RTOL,
+          f"9d: f32 step-1 score kernels on vs off part by {rels[0]:.2e} > {RESNET_SCORE_RTOL}")
+    check(state_err <= RESNET_STATE_RTOL,
+          f"9d: BN running statistics kernels on vs off part by {state_err:.2e} > "
+          f"{RESNET_STATE_RTOL}")
+    rec["on_off_f32"] = {"on": got["on"], "off": got["off"], "rel": rels,
+                         "bn_state_rel": state_err}
+    print(f"  9d ResNet-50 GraphTransferLearning (frozen through {RESNET_TRANSFER_FREEZE}: "
+          f"stem and stages 1-3, {n_frozen_convs} frozen convs; {TRANSFER_CLASSES}-class head, "
+          f"Nesterovs lr {TRANSFER_LR}), scores {' '.join(f'{v:.4f}' for v in scores)}; "
+          f"bf16 batch {RESNET_TRANSFER_BATCH}: launches per step {want} (stage 4 only; the frozen "
+          f"convs declined for 'inference' {inference:.0f} times in "
+          f"{RESNET_TRANSFER_STEPS} steps); frozen leaves bit-equal eager {same}, fused "
+          f"{rec['fused_frozen_bit_equal']}; step p50 {rec['step_s']['p50'] * 1e3:.2f} ms, "
+          f"images/s {rec['images_per_s']:.0f}; f32 kernels on vs off from one start: step 1 "
+          f"score rel {rels[0]:.1e} (tolerance {RESNET_SCORE_RTOL}), unfrozen BN statistics "
+          f"{state_err:.1e} (tolerance {RESNET_STATE_RTOL}); free-running steps 2-3 rel "
+          f"{rels[1]:.1e} {rels[2]:.1e} (not held), on {card}")
+    del net, on, off
+    torch.cuda.empty_cache()
+    return rec
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3056,10 +3618,33 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
     fu["launches"] = {**fl.launch_counts(), **fcb.launch_counts()}
 
+    print("[9] LeNet, the second layer slice on the card, VGG16 through the Keras "
+          "importer, transfer learning (VGG16 and ResNet-50)")
+    counts = LaunchCounts(fl, fcb)
+
+    def clocked(batches, epochs=1, net=None, per=1):
+        return SyncClock(torch, DataSetIterator, batches, epochs, net=net, per=per)
+
+    torch.cuda.empty_cache()
+    counts.reset()
+    p9 = {"lenet": lenet_phase(torch, counts, metrics, IterationListener, clocked,
+                               args.seed, card)}
+    p9["layers"] = layers_phase(torch, args.seed, card)
+    torch.cuda.empty_cache()
+    counts.reset()
+    p9["vgg16"] = vgg_phase(torch, F, counts, metrics, DataSet, IterationListener, clocked,
+                            args.seed, card)
+    counts.reset()
+    p9["resnet50_transfer"] = resnet_transfer_phase(
+        torch, F, counts, helpers, metrics, DataSet, IterationListener, clocked,
+        args.seed, card)
+
     # each main path's count, read just after it ran from zero
     by_path = {"output": sl["launches"], "serve": sv["launches"],
                "train": tr["launches"], "train_resnet": rn["launches"],
-               "checkpoint": ck["launches"], "fused": fu["launches"]}
+               "checkpoint": ck["launches"], "fused": fu["launches"],
+               "lenet": p9["lenet"]["launches"], "vgg16": p9["vgg16"]["train"]["launches"],
+               "resnet50_transfer": p9["resnet50_transfer"]["launches"]}
     main_launches = {name: sum(c[name] for c in by_path.values())
                      for name in rows}
     meta = {
@@ -3101,6 +3686,7 @@ def main(argv=None) -> int:
               "train_resnet": rn,
               "checkpoint": ck,
               "fused": fu,
+              "phase9": p9,
               "build": {k: v["seconds"] for k, v in info.items()},
               "ptxas": {k: v["log"] for k, v in info.items() if k not in cuda_build.SOURCES},
               "seconds": time.perf_counter() - t_start}

@@ -6,11 +6,12 @@ every Pallas kernel of a ported slice is a CUDA kernel written by hand
 for Hopper (`csrc/`, built at first use by ops/cuda_build.py). Entry
 points run on the GPU unless the caller passes device="cpu".
 
-Ported so far: char-LSTM serving and training and ResNet-50 training —
-the conf DSL and its JSON (graphs included), layer forwards (dense,
-LSTM, conv, pooling, batch norm), `MultiLayerNetwork` inference and
-`fit` with truncated BPTT, `ComputationGraph` training and inference
-(losses, updaters, data iterators, listeners), and the
+Ported so far: char-LSTM serving and training, ResNet-50 training,
+LeNet, VGG16 through the Keras importer, layerwise pretraining and
+transfer learning — the conf DSL and its JSON (graphs included), every
+layer conf's forward, `MultiLayerNetwork` inference and `fit` with
+truncated BPTT, `ComputationGraph` training and inference (losses,
+updaters, data iterators, MNIST, listeners), and the
 continuous-batching decode engine, the model zip (both packages load
 each other's), checkpointing with mid-epoch resume, evaluation and early
 stopping, with every kernel of the JAX package: the fused LSTM step, sequence and sequence-backward kernels,

@@ -28,8 +28,15 @@ ragged tail runs its segments as one fused program, and
 graph on the card, the same loop of steps on the CPU); TBPTT batches
 under it fuse per batch, as in the JAX package.
 
-Not ported yet: the scan over identical blocks (`set_block_scan`),
-`rnn_time_step` and the center-loss head.
+A FrozenLayer vertex runs its layer in inference mode and takes no
+gradient or update (nn/netbase.py `_step`), so a frozen conv or BN never
+reaches the training kernels, and a frozen BN is never marked for the
+fused ReLU (it is not a BatchNormalization vertex). A
+CenterLossOutputLayer head adds its center term to the score and keeps
+its class centers as layer state.
+
+Not ported yet: the scan over identical blocks (`set_block_scan`) and
+`rnn_time_step`.
 """
 
 from __future__ import annotations
@@ -53,7 +60,7 @@ from deeplearning4j_tpu_torch.nn.conf.graph import (
     ComputationGraphConfiguration,
     LayerVertex,
 )
-from deeplearning4j_tpu_torch.nn.layers.core import apply_dropout
+from deeplearning4j_tpu_torch.nn.layers.core import apply_dropout, center_loss_term
 from deeplearning4j_tpu_torch.nn.layers.registry import (
     LayerContext,
     forward_layer,
@@ -158,7 +165,9 @@ class ComputationGraph(NetworkBase):
                  input_masks: Optional[Sequence] = None, preout_outputs=False):
         """Forward over the cached topo order. Returns (activations dict,
         new_states list). With `preout_outputs` the loss-head vertices
-        return their pre-activation, for the loss."""
+        return their pre-activation, for the loss, and record their
+        post-dropout input features under "<name>__features" (the center
+        loss reads them)."""
         conf = self.conf
         acts: Dict[str, torch.Tensor] = dict(zip(conf.inputs, inputs))
         masks: Dict[str, torch.Tensor] = {}
@@ -195,8 +204,9 @@ class ComputationGraph(NetworkBase):
                 fuse_relu=training and name in self.relu_fused_bn)
             if (preout_outputs and name in conf.outputs
                     and isinstance(lc, _OUTPUT_LAYER_TYPES)):
-                x = _preout_of_output_layer(
-                    lc, params[pidx], apply_dropout(x, lc.dropout, ctx))
+                x = apply_dropout(x, lc.dropout, ctx)
+                acts[name + "__features"] = x
+                x = _preout_of_output_layer(lc, params[pidx], x)
                 ns = None
             else:
                 x, ns = forward_layer(lc, params[pidx], x, ctx)
@@ -227,6 +237,14 @@ class ComputationGraph(NetworkBase):
             per_ex = loss_value(lc.loss, ys[i], self.policy.cast_output(acts[name]),
                                 lc.activation, lm)
             score = score + masked_example_mean(per_ex, lm)
+            if isinstance(lc, L.CenterLossOutputLayer):
+                pidx = self._pidx[name]
+                term, new_state = center_loss_term(
+                    lc, states[pidx], acts[name + "__features"], ys[i], per_ex,
+                    lm, training)
+                score = score + term
+                if new_state is not None:
+                    new_states[pidx] = new_state
             n_heads += 1
         if n_heads == 0:
             raise ValueError(

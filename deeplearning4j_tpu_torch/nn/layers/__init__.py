@@ -13,4 +13,12 @@ from deeplearning4j_tpu_torch.nn.layers.registry import (
 )
 
 # Import impl modules for their registration side effects.
-from deeplearning4j_tpu_torch.nn.layers import conv, core, norm, recurrent  # noqa: E402,F401
+from deeplearning4j_tpu_torch.nn.layers import (  # noqa: E402,F401
+    attention,
+    conv,
+    core,
+    norm,
+    rbm,
+    recurrent,
+    special,
+)

@@ -11,8 +11,10 @@ statistics epilogue).
 
 Pooling (reference: SubsamplingLayer.java): max pads with -inf, sum,
 avg and pnorm with zeros, and avg divides by the full window, as the JAX
-package's reduce_window does. Conv1D, Subsampling1D and ZeroPadding are
-not ported yet.
+package's reduce_window does. Conv1D (NWC input, WIO weights) and
+Subsampling1D run the same code over the time axis; global pooling over
+a [batch, time, features] input honours the time mask (reference:
+GlobalPoolingLayer.java + MaskedReductionUtil).
 """
 
 from __future__ import annotations
@@ -88,6 +90,42 @@ def conv_order(conf):
 register_layer(L.ConvolutionLayer, conv_init, conv_forward, order_fn=conv_order)
 
 
+# -- 1D convolution over time ------------------------------------------------
+
+def _pads_1d(conf, length, k, s):
+    if conf.convolution_mode == ConvolutionMode.SAME:
+        return same_pads(int(length), k, s)[1:]
+    return int(conf.padding), int(conf.padding)
+
+
+def conv1d_init(gen, conf: L.Convolution1DLayer, dtype):
+    k = int(conf.kernel_size)
+    W = init_weights(gen, (k, conf.n_in, conf.n_out), conf.n_in * k,
+                     conf.n_out * k, conf.weight_init, conf.dist, dtype)
+    out = {"W": W}
+    if conf.has_bias:
+        out["b"] = torch.full((conf.n_out,), conf.bias_init or 0.0, dtype=dtype)
+    return out
+
+
+def conv1d_forward(conf: L.Convolution1DLayer, params, x, ctx: LayerContext):
+    """x: [batch, time, nIn] -> [batch, time', nOut]; W is [k, nIn, nOut]."""
+    x = apply_dropout(x, conf.dropout, ctx)
+    k, s = int(conf.kernel_size), int(conf.stride)
+    lo, hi = _pads_1d(conf, x.shape[1], k, s)
+    xn = x.permute(0, 2, 1)
+    if lo != hi:
+        xn, lo = F.pad(xn, (lo, hi)), 0
+    z = F.conv1d(xn, params["W"].to(x.dtype).permute(2, 1, 0), stride=s, padding=lo)
+    z = z.permute(0, 2, 1).contiguous()
+    if conf.has_bias:
+        z = z + params["b"].to(z.dtype)
+    return apply_activation(conf.activation, z, key=ctx.rng, training=ctx.training), None
+
+
+register_layer(L.Convolution1DLayer, conv1d_init, conv1d_forward, order_fn=conv_order)
+
+
 # -- pooling -----------------------------------------------------------------
 
 def _pool2d(x, pooling_type, kernel, strides, pads, pnorm):
@@ -124,24 +162,56 @@ def subsampling_forward(conf: L.SubsamplingLayer, params, x, ctx: LayerContext):
 register_layer(L.SubsamplingLayer, _no_params, subsampling_forward)
 
 
+def subsampling1d_forward(conf: L.Subsampling1DLayer, params, x, ctx: LayerContext):
+    """[batch, time, c] pooled over time: the 2-D pooling with a unit
+    width axis."""
+    k, s = int(conf.kernel_size), int(conf.stride)
+    pads = (_pads_1d(conf, x.shape[1], k, s), (0, 0))
+    y = _pool2d(x[:, :, None, :], conf.pooling_type, (k, 1), (s, 1), pads, conf.pnorm)
+    return y[:, :, 0, :], None
+
+
+register_layer(L.Subsampling1DLayer, _no_params, subsampling1d_forward)
+
+
+# -- zero padding ------------------------------------------------------------
+
+def zero_padding_forward(conf: L.ZeroPaddingLayer, params, x, ctx: LayerContext):
+    pt, pb, pl, pr = (int(v) for v in conf.padding)
+    return F.pad(x, (0, 0, pl, pr, pt, pb)), None
+
+
+register_layer(L.ZeroPaddingLayer, _no_params, zero_padding_forward)
+
+
 # -- global pooling ----------------------------------------------------------
 
 def global_pooling_forward(conf: L.GlobalPoolingLayer, params, x, ctx: LayerContext):
-    """CNN input [b, h, w, c]: pool over h, w (reference:
-    GlobalPoolingLayer.java). The masked RNN form is not ported yet."""
-    if x.dim() != 4:
-        raise NotImplementedError(
-            f"global pooling over {x.dim()}-d input is not ported yet (4-d only)")
+    """CNN input [b, h, w, c]: pool over h, w. RNN input [b, t, f]: pool
+    over t, honouring the time mask: masked steps are -inf for max and
+    zero otherwise, and avg divides by max(sum(mask), 1) (reference:
+    GlobalPoolingLayer.java + MaskedReductionUtil)."""
+    if x.dim() == 4:
+        dims, mask = (1, 2), None
+    elif x.dim() == 3:
+        dims, mask = (1,), ctx.mask
+    else:
+        raise ValueError(f"global pooling expects 3d/4d input, got shape {tuple(x.shape)}")
     pt = conf.pooling_type
+    if mask is not None:
+        m = mask[..., None].to(x.dtype)
+        x = x.masked_fill(m <= 0, float("-inf")) if pt == PoolingType.MAX else x * m
     if pt == PoolingType.MAX:
-        return x.amax(dim=(1, 2)), None
+        return x.amax(dim=dims), None
     if pt == PoolingType.SUM:
-        return x.sum(dim=(1, 2)), None
+        return x.sum(dim=dims), None
     if pt == PoolingType.AVG:
-        return x.mean(dim=(1, 2)), None
+        if mask is not None:
+            return x.sum(dim=dims) / mask.sum(dim=1).clamp_min(1.0)[..., None], None
+        return x.mean(dim=dims), None
     if pt == PoolingType.PNORM:
         p = float(conf.pnorm)
-        return (x.abs() ** p).sum(dim=(1, 2)) ** (1.0 / p), None
+        return (x.abs() ** p).sum(dim=dims) ** (1.0 / p), None
     raise ValueError(f"unknown pooling type {pt!r}")
 
 

@@ -1,10 +1,12 @@
-"""Core feed-forward layers: dense, output heads, embedding, activation,
-dropout.
+"""Core feed-forward layers: dense, output heads (the center-loss head
+included), embedding, activation, dropout, autoencoder.
 
 Reference impls: nn/layers/feedforward/dense/DenseLayer.java (preOutput =
 input·W + b then activation, BaseLayer.java), BaseOutputLayer.java,
-feedforward/embedding/EmbeddingLayer.java, DropoutLayer, ActivationLayer.
-Same parameters, names and math as the JAX package's nn/layers/core.py.
+training/CenterLossOutputLayer.java, feedforward/embedding/
+EmbeddingLayer.java, DropoutLayer, ActivationLayer,
+feedforward/autoencoder/AutoEncoder.java. Same parameters, names and math
+as the JAX package's nn/layers/core.py.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ from deeplearning4j_tpu_torch.nn.conf import layers as L
 from deeplearning4j_tpu_torch.nn.layers.registry import LayerContext, register_layer
 from deeplearning4j_tpu_torch.nn.weights import init_weights
 from deeplearning4j_tpu_torch.ops.activations import apply_activation
+from deeplearning4j_tpu_torch.ops.losses import example_presence
 
 
 def apply_dropout(x, retain_prob, ctx: LayerContext):
@@ -71,6 +74,43 @@ def rnn_output_forward(conf, params, x, ctx: LayerContext):
 register_layer(L.RnnOutputLayer, dense_init, rnn_output_forward)
 
 
+def center_loss_state(conf: L.CenterLossOutputLayer, dtype):
+    # per-class feature centers, EMA-updated outside the gradient
+    # (reference: CenterLossOutputLayer / CenterLossParamInitializer 'cL')
+    return {"centers": torch.zeros((conf.n_out, conf.n_in), dtype=dtype)}
+
+
+register_layer(L.CenterLossOutputLayer, dense_init, dense_forward,
+               state_fn=center_loss_state)
+
+
+def center_loss_term(conf: L.CenterLossOutputLayer, state, feats, y, per_ex,
+                     l_mask, training):
+    """The center-loss head's extra score and its new state (reference:
+    CenterLossOutputLayer.java): lambda * mean over present examples of
+    0.5 ||f - c_y||^2 on the head's (post-dropout) input features `feats`,
+    and, in training, each class center present in the batch moved toward
+    its batch mean, c <- (1 - alpha) c + alpha mean(f : y = class), outside
+    the gradient (None when not training). `per_ex` is the base loss per
+    example, for the presence of masked rows."""
+    centers = state["centers"].to(feats.dtype)  # [classes, nIn]
+    y32 = y.to(feats.dtype)
+    diff = feats - y32 @ centers  # one-hot pick
+    center_per_ex = 0.5 * (diff * diff).sum(-1)
+    present = example_presence(per_ex, l_mask)
+    term = conf.lambda_ * (center_per_ex * present).sum() / present.sum().clamp_min(1.0)
+    if not training:
+        return term, None
+    with torch.no_grad():
+        yw = y32 * present[:, None]  # pad rows excluded from the EMA
+        counts = yw.sum(0)[:, None]  # [classes, 1]
+        means = (yw.T @ feats.detach()) / counts.clamp_min(1.0)
+        updated = torch.where(counts > 0,
+                              (1.0 - conf.alpha) * centers + conf.alpha * means,
+                              centers)
+    return term, {"centers": updated.to(state["centers"].dtype)}
+
+
 # -- activation / dropout / loss (parameterless) -----------------------------
 
 def _no_params(gen, conf, dtype):
@@ -120,3 +160,42 @@ def embedding_order(conf):
 
 
 register_layer(L.EmbeddingLayer, embedding_init, embedding_forward, order_fn=embedding_order)
+
+
+# -- autoencoder -------------------------------------------------------------
+
+def autoencoder_init(gen, conf: L.AutoEncoder, dtype):
+    out = dense_init(gen, conf, dtype)
+    out["vb"] = torch.zeros((conf.n_in,), dtype=dtype)  # visible bias, for decoding
+    return out
+
+
+def autoencoder_keep(conf: L.AutoEncoder, shape, gen, device=None):
+    """The corruption draw: True where an input entry survives (with
+    probability 1 - corruption_level)."""
+    return torch.rand(shape, generator=gen, device=device) < 1.0 - conf.corruption_level
+
+
+def autoencoder_reconstruct(conf: L.AutoEncoder, params, x, ctx: LayerContext,
+                            corrupt: bool = True, keep=None):
+    """Unsupervised pass: corrupt -> encode -> decode with tied weights
+    (reference: AutoEncoder.java, decode with W^T and the visible bias).
+    Corruption zeroes the entries where `keep` is False; without `keep` it
+    is drawn from ctx.rng. It applies only in training with a corruption
+    level above 0."""
+    h_in = x
+    if corrupt and ctx.training and conf.corruption_level > 0:
+        if keep is None and ctx.rng is not None:
+            keep = autoencoder_keep(conf, x.shape, ctx.rng, x.device)
+        if keep is not None:
+            h_in = torch.where(keep, x, torch.zeros_like(x))
+    h = apply_activation(conf.activation, affine(h_in, params["W"], params["b"]))
+    return apply_activation(conf.activation, affine(h, params["W"].T, params["vb"]))
+
+
+def autoencoder_order(conf):
+    return ("W", "b", "vb")
+
+
+register_layer(L.AutoEncoder, autoencoder_init, dense_forward,
+               order_fn=autoencoder_order)

@@ -9,12 +9,16 @@ f32, with bf16 statistics centered on bf16(mean) so they do not cancel.
 Its backward consults the "bn_backward" helper (the fused K7 + K8 passes
 of ops/fused_conv_bn.py); the forward consults "batch_norm", which takes
 over when x is a conv output whose statistics the conv kernel already
-summed. LocalResponseNormalization is not ported yet.
+summed.
+
+LocalResponseNormalization (reference: LocalResponseNormalization.java)
+is the JAX package's window sum over the channel axis of NHWC.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from deeplearning4j_tpu_torch.nn.conf import layers as L
 from deeplearning4j_tpu_torch.nn.layers.registry import LayerContext, register_layer
@@ -156,3 +160,24 @@ def batchnorm_order(conf):
 
 register_layer(L.BatchNormalization, batchnorm_init, batchnorm_forward,
                order_fn=batchnorm_order, state_fn=batchnorm_state)
+
+
+# -- local response normalization -------------------------------------------
+
+def _no_params(gen, conf, dtype):
+    return {}
+
+
+def lrn_forward(conf: L.LocalResponseNormalization, params, x, ctx: LayerContext):
+    """Cross-channel LRN on NHWC: y = x / (k + alpha * sum_window(x^2))^beta
+    over a window of n channels, (n // 2, n - 1 - n // 2) on either side,
+    so an even n leans low; alpha is not divided by n (the JAX package's
+    reduce_window, as written)."""
+    n = int(conf.n)
+    half = n // 2
+    sq = F.pad(x * x, (half, n - 1 - half))
+    ssum = sq.unfold(-1, n, 1).sum(-1)
+    return x / (conf.k + conf.alpha * ssum) ** conf.beta, None
+
+
+register_layer(L.LocalResponseNormalization, _no_params, lrn_forward)

@@ -15,8 +15,9 @@ JAX package's single-dispatch programs are ported as fused programs
 (nn/netbase.py `_run_fused`): a listener-free TBPTT batch runs all its
 segments as one program, and `set_fused_steps(k)` runs k same-shape
 batches (standard or TBPTT) as one; each is one CUDA graph on the card
-and the same loop of steps on the CPU. The line-search solvers and
-pretraining are not ported yet.
+and the same loop of steps on the CPU. Layerwise pretraining
+(`pretrain`, `pretrain_layer`: AutoEncoder, VAE and RBM layers) runs its
+steps eagerly. The line-search solvers are not ported yet.
 
 Parameters are a list of per-layer dicts of tensors on the network's
 device; the flattened view comes from nn/params.py. Mutable
@@ -45,7 +46,15 @@ from deeplearning4j_tpu_torch.nn.conf.network import (
     BackpropType,
     MultiLayerConfiguration,
 )
-from deeplearning4j_tpu_torch.nn.layers.core import affine, apply_dropout
+from deeplearning4j_tpu_torch.nn.layers.core import (
+    affine,
+    apply_dropout,
+    autoencoder_keep,
+    autoencoder_reconstruct,
+    center_loss_term,
+)
+from deeplearning4j_tpu_torch.nn.layers.rbm import rbm_cd_stats, rbm_noise
+from deeplearning4j_tpu_torch.nn.layers.special import vae_elbo, vae_eps
 from deeplearning4j_tpu_torch.nn.layers.registry import (
     LayerContext,
     forward_layer,
@@ -58,12 +67,13 @@ from deeplearning4j_tpu_torch.train.evaluation import (
     Evaluation,
     RegressionEvaluation,
 )
-from deeplearning4j_tpu_torch.train.updaters import updater_from_conf
+from deeplearning4j_tpu_torch.train.updaters import schedule_lr, updater_from_conf
 
 logger = logging.getLogger("deeplearning4j_tpu_torch")
 
-# CenterLossOutputLayer has no layer implementation in the port yet
-_OUTPUT_LAYER_TYPES = (L.OutputLayer, L.RnnOutputLayer, L.LossLayer)
+_OUTPUT_LAYER_TYPES = (L.OutputLayer, L.RnnOutputLayer, L.LossLayer,
+                       L.CenterLossOutputLayer)
+_PRETRAINABLE = (L.AutoEncoder, L.VariationalAutoencoder, L.RBM)
 
 
 def _preout_of_output_layer(conf, params, x):
@@ -112,14 +122,16 @@ class MultiLayerNetwork(NetworkBase):
     # -- forward -------------------------------------------------------------
 
     def _forward(self, params, states, x, *, training, rng, f_mask=None,
-                 stateful=False, preout_last=False):
+                 stateful=False, preout_last=False, to_layer=None):
         """Pure forward. Returns (out, new_states). With `preout_last` the
-        output layer returns its pre-activation, for the loss."""
+        output layer returns its pre-activation, for the loss; with
+        `to_layer` the walk stops before that layer (its input is the
+        output)."""
         confs = self.layer_confs
         pps = self.conf.preprocessors
         new_states: List[Optional[dict]] = [None] * len(confs)
         timesteps = x.shape[1] if x.dim() == 3 else None
-        for i, conf in enumerate(confs):
+        for i, conf in enumerate(confs[:to_layer]):
             pp = pps.get(str(i))
             if pp is not None:
                 x = pp(x, {"timesteps": timesteps})
@@ -153,13 +165,38 @@ class MultiLayerNetwork(NetworkBase):
                 "the final layer must be an OutputLayer/RnnOutputLayer/"
                 "LossLayer to compute a training loss")
         x = self.policy.cast_input(x)
-        preout, new_states = self._forward(
-            params, states, x, training=training, rng=rng, f_mask=f_mask,
-            preout_last=True)
-        preout = self.policy.cast_output(preout)
-        per_ex = loss_value(last.loss, y, preout, last.activation, l_mask)
-        score = masked_example_mean(per_ex, l_mask)
+        if isinstance(last, L.CenterLossOutputLayer):
+            score, new_states = self._center_loss(
+                params, states, x, y, f_mask, l_mask, rng, training)
+        else:
+            preout, new_states = self._forward(
+                params, states, x, training=training, rng=rng, f_mask=f_mask,
+                preout_last=True)
+            preout = self.policy.cast_output(preout)
+            per_ex = loss_value(last.loss, y, preout, last.activation, l_mask)
+            score = masked_example_mean(per_ex, l_mask)
         return score + self._reg_penalty(params), new_states
+
+    def _center_loss(self, params, states, x, y, f_mask, l_mask, rng, training):
+        """Center loss (reference: CenterLossOutputLayer.java): the base
+        loss plus the center term on the output layer's input features,
+        with the class centers EMA-updated as non-trainable state
+        (nn/layers/core.center_loss_term)."""
+        last = self.layer_confs[-1]
+        n = len(self.layer_confs)
+        feats, new_states = self._forward(
+            params, states, x, training=training, rng=rng, f_mask=f_mask,
+            to_layer=n - 1)
+        feats = apply_dropout(feats, last.dropout,
+                              LayerContext(training=training, rng=rng))
+        preout = self.policy.cast_output(
+            _preout_of_output_layer(last, params[-1], feats))
+        per_ex = loss_value(last.loss, y, preout, last.activation, l_mask)
+        term, new_state = center_loss_term(last, states[-1], feats, y, per_ex,
+                                           l_mask, training)
+        if new_state is not None:
+            new_states[-1] = new_state
+        return masked_example_mean(per_ex, l_mask) + term, new_states
 
     # -- train step ----------------------------------------------------------
 
@@ -194,6 +231,99 @@ class MultiLayerNetwork(NetworkBase):
         return self._run_step(self._std_loss_builder(),
                               (x, y, f_mask, l_mask), stateful_states)
 
+    # -- pretraining ---------------------------------------------------------
+
+    def pretrain(self, data, *, epochs: int = 1, batch_size: int = 32,
+                 noise=None):
+        """Layerwise unsupervised pretraining: each pretrainable layer
+        (AutoEncoder / VAE / RBM), in order, trains on the activations of
+        the stack below it (reference: MultiLayerNetwork.pretrain
+        :210-287). `noise` as in `pretrain_layer`."""
+        self._require_init()
+        for i, conf in enumerate(self.layer_confs):
+            if isinstance(conf, _PRETRAINABLE):
+                self.pretrain_layer(i, data, epochs=epochs,
+                                    batch_size=batch_size, noise=noise)
+        return self
+
+    def pretrain_layer(self, idx: int, data, *, epochs: int = 1,
+                       batch_size: int = 32, noise=None):
+        """Unsupervised fit of layer `idx` with the network's updater (a
+        fresh state) and `schedule_lr`. Objectives: AutoEncoder = its
+        conf.loss between the input and the tied-weight reconstruction of
+        the corrupted input; VAE = the negative ELBO; RBM = CD-k
+        statistics. The input is the inference-mode forward of the layers
+        below. `data` is a DataSetIterator, a DataSet or a features array
+        (labels are not used).
+
+        Each step runs eagerly on the card (no fused program and no CUDA
+        graph), one optimizer step per batch. Its noise — the
+        AutoEncoder's keep mask, the VAE's eps, the RBM chain's uniforms or
+        normals, in the shapes of `pretrain_noise` — comes from
+        `noise(idx, iteration, x_in)` when given, else from
+        `_pretrain_noise`."""
+        self._require_init()
+        conf = self.layer_confs[idx]
+        if not isinstance(conf, _PRETRAINABLE):
+            raise ValueError(
+                f"layer {idx} ({type(conf).__name__}) is not pretrainable")
+        if isinstance(data, DataSetIterator):
+            iterator = data
+        elif isinstance(data, DataSet):
+            iterator = ListDataSetIterator(data, batch_size)
+        else:  # raw features; labels are unused in unsupervised fit
+            x = np.asarray(data)
+            iterator = ListDataSetIterator(DataSet(x, x), batch_size)
+        params = self.params_list[idx]
+        upd_state = self.updater_def.init_tree([params])
+        it = 0
+        for _ in range(epochs):
+            for ds in iterator:
+                with torch.no_grad():
+                    x_in = self._forward(
+                        self.params_list, self.state_list,
+                        self.policy.cast_input(self._as_data(ds.features)),
+                        training=False, rng=None, to_layer=idx)[0]
+                eps = (noise or self._pretrain_noise)(idx, it, x_in)
+                lr = torch.tensor(schedule_lr(self.net_conf, it), dtype=torch.float32,
+                                  device=self.device)
+                t = torch.tensor(float(it), dtype=torch.float32, device=self.device)
+                self._score = self._pretrain_step(conf, params, upd_state, x_in,
+                                                  lr, t, eps)
+                it += 1
+            iterator.reset()
+        return self
+
+    def _pretrain_noise(self, idx: int, it: int, x_in):
+        """Pretraining step `it`'s noise for layer `idx`, from a generator
+        seeded by the network's seed, the layer and the iteration."""
+        gen = torch.Generator(device=self.device).manual_seed(
+            ((self.net_conf.seed ^ (0xBEEF + idx)) * 1_000_003 + it) % (2 ** 63))
+        return pretrain_noise(self.layer_confs[idx], x_in, gen)
+
+    def _pretrain_step(self, conf, params, upd_state, x_in, lr, t, eps):
+        """One pretraining step of one layer, in place; returns the score."""
+        if isinstance(conf, L.RBM):
+            grads, per_ex = rbm_cd_stats(conf, params, x_in, noise=eps)
+            score = per_ex.mean()
+        else:
+            leaves = list(params.values())
+            for v in leaves:
+                v.requires_grad_(True)
+            try:
+                if isinstance(conf, L.VariationalAutoencoder):
+                    score = vae_elbo(conf, params, x_in, eps=eps).mean()
+                else:
+                    recon = autoencoder_reconstruct(
+                        conf, params, x_in, LayerContext(training=True), keep=eps)
+                    score = loss_value(conf.loss, x_in, recon, "identity", None).mean()
+                grads = dict(zip(params, torch.autograd.grad(score, leaves)))
+            finally:
+                for v in leaves:
+                    v.requires_grad_(False)
+        self.updater_def.step_([params], [grads], upd_state, lr, t)
+        return score.detach()
+
     # -- fit -----------------------------------------------------------------
 
     def fit(self, data, labels=None, *, epochs: int = 1, batch_size: int = 32,
@@ -214,13 +344,17 @@ class MultiLayerNetwork(NetworkBase):
         checkpoint is loaded into this net, the iterator is fast-forwarded
         to the saved mid-epoch position, and training continues to the
         loss curve of an uninterrupted run; an empty directory starts
-        fresh. `epochs` stays the TOTAL target. `run_ledger` raises
-        NotImplementedError: the run ledger is not ported yet."""
+        fresh. `epochs` stays the TOTAL target. If the configuration sets
+        pretrain, layerwise pretraining (`pretrain`) runs once, before the
+        first backprop epoch (reference: fit() pretrain dispatch :210).
+        `run_ledger` raises NotImplementedError: the run ledger is not
+        ported yet."""
         self._require_init()
         if self.upd_state is None:
             self.upd_state = self.updater_def.init_tree(self.params_list)
-        if self.conf.pretrain:
-            raise NotImplementedError("layerwise pretraining is not ported yet")
+        if self.conf.pretrain and not getattr(self, "_pretrained", False):
+            self.pretrain(data, batch_size=batch_size)
+            self._pretrained = True
         return self._run_fit(self._as_iterator(data, labels, batch_size),
                              epochs, async_prefetch, prefetch_buffer,
                              hang_timeout=hang_timeout,
@@ -500,3 +634,15 @@ class MultiLayerNetwork(NetworkBase):
                 other.upd_state = [{k: {n: v.clone() for n, v in s.items()}
                                     for k, s in p.items()} for p in self.upd_state]
         return other
+
+
+def pretrain_noise(conf, x_in, gen):
+    """One pretraining step's noise for layer `conf` on input `x_in`,
+    drawn from `gen`: the AutoEncoder's keep mask [batch, nIn] (bool), the
+    VAE's eps [samples, batch, nOut], the RBM chain's [k + 1, batch, nOut]."""
+    B = x_in.shape[0]
+    if isinstance(conf, L.AutoEncoder):
+        return autoencoder_keep(conf, x_in.shape, gen, x_in.device)
+    if isinstance(conf, L.VariationalAutoencoder):
+        return vae_eps(conf, (B, int(conf.n_out)), gen, x_in.device, x_in.dtype)
+    return rbm_noise(conf, B, gen, x_in.device, x_in.dtype)

@@ -63,6 +63,10 @@ def _detached(states):
             for st in states]
 
 
+def _zero_if_none(g, like):
+    return torch.zeros_like(like) if g is None else g
+
+
 def _is_recurrent(conf) -> bool:
     """A layer whose state is a recurrent carry (h, c): per batch under
     TBPTT, never persisted."""
@@ -281,40 +285,53 @@ class NetworkBase:
             out.append(mult)
         return out
 
-    def _trainable_mask(self):
-        return [{k: (0.0 if isinstance(conf, L.FrozenLayer) else 1.0) for k in p}
+    def _trainable_keys(self) -> List[List[str]]:
+        """Each layer's trainable parameter names: none for a FrozenLayer
+        (the JAX package's trainable mask)."""
+        return [[] if isinstance(conf, L.FrozenLayer) else list(p)
                 for conf, p in zip(self._ordered_layer_confs(), self.params_list)]
 
     def _step(self, loss_builder, states, data, lr, t, rng):
         """One optimizer step: the loss and its gradients by autograd, then
-        the shared tail — the diagnostic, trainable mask, gradient
-        normalization, per-leaf lr and the updater, which adds its deltas
-        to the parameters in place. `lr` and `t` are 0-d f32 tensors on
-        the net's device (a column of `_host_clock`), so that a captured
-        graph reads them; `rng` is the step's generator, or None when no
-        layer draws random numbers. Returns (merged states, score).
-        `self._step_diag` holds [loss, raw global gradient norm] (before
-        masking or clipping, in f32), as the JAX step's `diag`."""
+        the shared tail — the diagnostic, gradient normalization, per-leaf
+        lr and the updater, which adds its deltas to the parameters in
+        place. `lr` and `t` are 0-d f32 tensors on the net's device (a
+        column of `_host_clock`), so that a captured graph reads them;
+        `rng` is the step's generator, or None when no layer draws random
+        numbers. Returns (merged states, score).
+
+        A frozen layer's parameters (FrozenLayer) are left out of the
+        step: autograd takes no gradient for them and the updater neither
+        moves them nor touches their state, so they stay bit-unchanged.
+        The JAX package multiplies their gradients by 0 instead; its
+        zero-gradient update of a zero updater state is the same no-op,
+        and zeros change no normalization. `self._step_diag` holds [loss,
+        raw global gradient norm of the trainable leaves] (before clipping,
+        in f32), as the JAX step's `diag`."""
         params = self.params_list
-        leaves = [v for p in params for v in p.values()]
+        keys = self._trainable_keys()
+        leaves = [p[k] for p, ks in zip(params, keys) for k in ks]
         for v in leaves:
             v.requires_grad_(True)
         try:
             score, new_states = loss_builder(params, states, data, rng)
-            flat = iter(torch.autograd.grad(score, leaves))
+            flat = iter(torch.autograd.grad(score, leaves, allow_unused=True)
+                        if leaves else ())
         finally:
             for v in leaves:
                 v.requires_grad_(False)
         score = score.detach()
-        grads = [{k: next(flat) for k in p} for p in params]
+        # a parameter the loss does not reach (an AutoEncoder's visible
+        # bias, a VAE's decoder, outside pretraining) has a zero gradient
+        grads = [{k: _zero_if_none(next(flat), p[k]) for k in ks}
+                 for p, ks in zip(params, keys)]
         with torch.no_grad():
             # leaves in sorted-key order per layer, as jax.tree_util walks
-            gsq = sum(g[k].float().square().sum() for g in grads for k in sorted(g))
+            gsq = sum((g[k].float().square().sum() for g in grads for k in sorted(g)),
+                      torch.zeros((), device=score.device))
             self._step_diag = torch.stack([score.float(), torch.sqrt(gsq)])
             if not self.net_conf.minimize:
                 grads = [{k: -v for k, v in g.items()} for g in grads]
-            grads = [{k: g[k] * m[k] for k in g}
-                     for g, m in zip(grads, self._trainable_mask())]
             grads = normalize_gradients(
                 grads, self.net_conf.gradient_normalization,
                 self.net_conf.gradient_normalization_threshold)
@@ -353,14 +370,16 @@ class NetworkBase:
 
     def _draws_random(self) -> bool:
         """Whether a training step draws random numbers: dropout on some
-        layer's input (a DropoutLayer's too) or an rrelu activation."""
+        layer's input (a DropoutLayer's too) or an rrelu activation. A
+        frozen layer runs in inference mode and draws none."""
         if self._draws is None:
             self._draws = False
             for conf in self._ordered_layer_confs():
-                inner = conf.inner if isinstance(conf, L.FrozenLayer) else conf
-                p = getattr(inner, "dropout", None)
+                if isinstance(conf, L.FrozenLayer):
+                    continue
+                p = getattr(conf, "dropout", None)
                 if (p is not None and 0.0 < p < 1.0) or \
-                        getattr(inner, "activation", None) == "rrelu":
+                        getattr(conf, "activation", None) == "rrelu":
                     self._draws = True
         return self._draws
 

@@ -754,9 +754,17 @@ def conv_decision(*, kernel, stride, dilation, same, has_bias, activation,
 
 def conv_supported(*, device=None, **ctx):
     """Probe for the "conv2d" slot: structurally covered, on a CUDA device
-    of compute capability >= 9.0."""
-    return (conv_decision(**ctx)["status"] == "covered"
-            and cuda_build.on_hopper(device))
+    of compute capability >= 9.0. A structural decline is counted as
+    `conv_declined_total{reason}` (the conv_decision reason: "bias",
+    "padding", "inference", ...), on any device."""
+    d = conv_decision(**ctx)
+    if d["status"] != "covered":
+        from deeplearning4j_tpu_torch.ops.helpers import _count
+
+        _count("conv_declined_total", "conv2d", "cuda_conv_bn_stats",
+               d["family"], d["reason"])
+        return False
+    return cuda_build.on_hopper(device)
 
 
 def bn_supported(*, x, training, **_):

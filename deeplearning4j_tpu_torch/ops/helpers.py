@@ -38,9 +38,11 @@ def _count(metric: str, op: str, helper: str, family: str,
            reason: Optional[str] = None):
     """Helper SPI events in the shared registry: selection hits,
     builtin-path fallbacks (with why), and auto-disables, each carrying
-    the kernel FAMILY so per-family hit rates are scrape-able. Family
+    the kernel FAMILY so per-family hit rates are scrape-able, and a
+    helper's own routing events (a probe's decline reason). Family
     values come from the registration's `family(**ctx)` callable, which
-    must return a bounded slug set."""
+    must return a bounded slug set. While a CUDA graph captures, events
+    are recorded and counted again on each replay."""
     events = getattr(_recording, "events", None)
     if events is None and _stream_events:
         events = _stream_events.get(torch.cuda.current_stream().cuda_stream)

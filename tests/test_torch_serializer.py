@@ -7,9 +7,14 @@ integrity verification gives the same per-entry statuses; and a snapshot
 taken before an in-place optimizer step holds the pre-step state.
 
 Nets: a small char-LSTM (vocab 7, hidden 8, 2 GravesLSTM layers, TBPTT 4,
-RMSProp) and `tiny_resnet_conf` (Nesterovs, BN running statistics), each
-trained a couple of steps so the updater state and counters are not at
-their initial values. JAX runs the Pallas kernels in interpret mode.
+RMSProp), `tiny_resnet_conf` (Nesterovs, BN running statistics), and
+small nets holding every layer of the second layer slice: AutoEncoder,
+RBM, VAE, a frozen dense layer and a center-loss head (its centers are
+layer state); Convolution1D, Subsampling1D, self-attention and masked-free
+global pooling over time; ZeroPadding, LocalResponseNormalization and a
+frozen BN in a CNN; and a graph with a frozen conv and a center-loss head.
+Each is trained a couple of steps so the updater state and counters are
+not at their initial values. JAX runs the Pallas kernels in interpret mode.
 Outputs agree to rtol 1e-5 (f32); everything read from a zip is exact.
 """
 
@@ -71,6 +76,69 @@ def _resnet_data(seed=0):
     return x, y
 
 
+def _ff_data(seed=0):
+    rng = np.random.default_rng(seed)
+    x = rng.uniform(size=(6, 8)).astype(np.float32)
+    return x, np.eye(3, dtype=np.float32)[rng.integers(0, 3, 6)]
+
+
+def _seq_data(seed=0):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((4, 9, 3)).astype(np.float32)
+    return x, np.eye(3, dtype=np.float32)[rng.integers(0, 3, 4)]
+
+
+def _cnn_data(seed=0):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((4, 6, 6, 2)).astype(np.float32)
+    return x, np.eye(3, dtype=np.float32)[rng.integers(0, 3, 4)]
+
+
+def _slice_conf(kind):
+    """JAX confs holding the second layer slice's layers."""
+    from deeplearning4j_tpu.nn.conf import layers as JL
+    from deeplearning4j_tpu.nn.conf.inputs import InputType as JIT
+    from deeplearning4j_tpu.nn.conf.network import NeuralNetConfiguration as JNNC
+
+    b = (JNNC.builder().seed(4).updater("adam").learning_rate(0.01)
+         .weight_init("xavier"))
+    if kind == "graph":
+        gb = b.graph_builder().add_inputs("in")
+        gb.add_layer("conv", JL.FrozenLayer(inner=JL.ConvolutionLayer(
+            n_in=2, n_out=3, kernel_size=(3, 3), activation="relu")), "in")
+        gb.add_layer("pool", JL.GlobalPoolingLayer(pooling_type="avg"), "conv")
+        gb.add_layer("out", JL.CenterLossOutputLayer(n_in=3, n_out=3, activation="softmax",
+                                                     alpha=0.3, lambda_=0.1), "pool")
+        return gb.set_outputs("out").set_input_types(JIT.convolutional(6, 6, 2)).build()
+    lb = b.list()
+    if kind == "ff":
+        lb = (lb.layer(JL.AutoEncoder(n_out=7, activation="sigmoid"))
+              .layer(JL.RBM(n_out=6, activation="sigmoid"))
+              .layer(JL.VariationalAutoencoder(n_out=5, encoder_layer_sizes=[6],
+                                               decoder_layer_sizes=[6]))
+              .layer(JL.FrozenLayer(inner=JL.DenseLayer(n_out=4, activation="tanh")))
+              .layer(JL.CenterLossOutputLayer(n_out=3, activation="softmax",
+                                              alpha=0.3, lambda_=0.1))
+              .set_input_type(JIT.feed_forward(8)))
+    elif kind == "seq":
+        lb = (lb.layer(JL.Convolution1DLayer(n_out=4, kernel_size=3, activation="tanh"))
+              .layer(JL.Subsampling1DLayer(pooling_type="max", kernel_size=2, stride=1))
+              .layer(JL.SelfAttentionLayer(n_out=4, n_heads=2))
+              .layer(JL.GlobalPoolingLayer(pooling_type="avg"))
+              .layer(JL.OutputLayer(n_out=3, activation="softmax"))
+              .set_input_type(JIT.recurrent(3)))
+    else:
+        lb = (lb.layer(JL.ZeroPaddingLayer(padding=(1, 1, 0, 2)))
+              .layer(JL.ConvolutionLayer(n_out=4, kernel_size=(3, 3), activation="relu"))
+              .layer(JL.LocalResponseNormalization(n=3.0))
+              .layer(JL.FrozenLayer(inner=JL.BatchNormalization()))
+              .layer(JL.SubsamplingLayer(pooling_type="max", kernel_size=(2, 2),
+                                         stride=(2, 2)))
+              .layer(JL.OutputLayer(n_out=3, activation="softmax"))
+              .set_input_type(JIT.convolutional(6, 6, 2)))
+    return lb.build()
+
+
 CASES = {
     "charlstm": (lambda: jchar_conf(vocab_size=7, hidden=8, layers=2,
                                     tbptt_length=4, learning_rate=0.01),
@@ -78,6 +146,14 @@ CASES = {
                  _charlstm_data),
     "tiny_resnet": (lambda: jresnet.tiny_resnet_conf(), JCG, ComputationGraph,
                     ComputationGraphConfiguration, _resnet_data),
+    "slice2_ff": (lambda: _slice_conf("ff"), JMLN, MultiLayerNetwork,
+                  MultiLayerConfiguration, _ff_data),
+    "slice2_seq": (lambda: _slice_conf("seq"), JMLN, MultiLayerNetwork,
+                   MultiLayerConfiguration, _seq_data),
+    "slice2_cnn": (lambda: _slice_conf("cnn"), JMLN, MultiLayerNetwork,
+                   MultiLayerConfiguration, _cnn_data),
+    "slice2_graph": (lambda: _slice_conf("graph"), JCG, ComputationGraph,
+                     ComputationGraphConfiguration, _cnn_data),
 }
 
 
@@ -171,6 +247,42 @@ def test_port_zip_loads_in_jax_with_the_same_entries(which, tmp_path):
     _assert_same_outputs(tn, jn, which)
     jms.save_model(jn, jpath)
     _assert_same_entries(tpath, jpath)
+
+
+def test_slice2_zips_carry_centers_and_frozen_layers(tmp_path):
+    """The center-loss centers (trained away from zero) and the frozen
+    layers' untouched parameters survive a JAX zip into the port."""
+    jn = _trained_jax("slice2_ff")
+    jpath = str(tmp_path / "jax.zip")
+    jms.save_model(jn, jpath)
+    tn = tms.load_model(jpath, device="cpu")
+    centers = tn.state_list[-1]["centers"]
+    assert centers.shape == (3, 4) and float(centers.abs().max()) > 0
+    assert type(tn.layer_confs[3]).__name__ == "FrozenLayer"
+    assert tn._trainable_keys()[3] == []
+
+
+@pytest.mark.parametrize("preset", ["lenet", "lenet_bf16", "vgg16", "vgg16_small"])
+def test_preset_json_round_trips(preset):
+    """The lenet and vgg16 presets' JSON: the port's preset equals the JAX
+    package's, and each package reads the other's back to the same text."""
+    from deeplearning4j_tpu.models import lenet as jlenet
+    from deeplearning4j_tpu.models import vgg16 as jvgg
+    from deeplearning4j_tpu.nn.conf.network import MultiLayerConfiguration as JMLC
+    from deeplearning4j_tpu_torch.models import lenet as tlenet
+    from deeplearning4j_tpu_torch.models import vgg16 as tvgg
+
+    make = {"lenet": lambda m: m.lenet_conf(),
+            "lenet_bf16": lambda m: m.lenet_conf(precision="bf16", seed=3),
+            "vgg16": lambda m: m.vgg16_conf(),
+            "vgg16_small": lambda m: m.vgg16_conf(num_classes=5, image_size=32,
+                                                  precision="f32")}[preset]
+    jmod, tmod = (jlenet, tlenet) if preset.startswith("lenet") else (jvgg, tvgg)
+    js, ts = make(jmod).to_json(), make(tmod).to_json()
+    assert ts == js
+    assert MultiLayerConfiguration.from_json(js).to_json() == js
+    assert JMLC.from_json(ts).to_json() == ts
+    assert MultiLayerConfiguration.from_yaml(make(tmod).to_yaml()).to_json() == js
 
 
 def test_leaf_order_is_jax_tree_util_order():
