@@ -169,6 +169,34 @@ result lines:
    off from the same start in score (RESNET_SCORE_RTOL) and in the
    unfrozen BNs' running statistics (RESNET_STATE_RTOL), as in phase 6,
    and the drift of two more free-running steps is printed.
+10. The divergence sentinel, the line-search solvers and the DL4J-format
+   importer. 10a: phase 5's full-width char-LSTM, 8 batches, each TBPTT
+   batch one CUDA graph (no listener), a sentinel with checkpoint_dir and
+   rollback_after=2, a checkpoint saved after batch 2 and the `nan` fault
+   at batches 5 and 6: two nonfinite_loss verdicts, two quarantines (each
+   undo bit-equal to a clone taken before the step, fit_graph_captures_total and the
+   graph's tensor addresses unchanged), one rollback to the checkpoint,
+   a replay that skips batches 5 and 6, K1/K3 launched, and final
+   parameters, updater state and layer state bit-equal to a clean fit
+   over batches 1-4, 7 and 8 from the same start; then the same with a
+   CheckpointListener saving at every batch's end (the per-segment loop):
+   the save taken during the anomalous step is rejected as "captured from
+   a quarantined step", and the result is bit-equal again. 10b: phase 6's
+   ResNet-50 (bf16, batch 128, cudnn.deterministic) 10 steps without and
+   with a sentinel: parameters bit-equal, K4-K8 launched per step as in
+   phase 6; step p50/p99 (synced), the busy share of one profiled step,
+   the pre-step copy's bytes, device and host time, the judgment's host time,
+   the graphed set_fused_steps(4) step the sentinel gives up, and phase
+   9d's transfer net's step without and with a sentinel (the frozen
+   gradients taken for the norm). 10c: phase 9's LeNet under each
+   line-search solver, 5 batches on synthetic MNIST (allow_download=False):
+   the score over them falls and stays finite, the first step holds to the
+   same step on the CPU (SOLVER_RTOL), no kernel launches. 10d: the two
+   fixture zips (`tests/fixtures/mln_adam_v1.zip`, the model zip, and
+   `cg_adam_v1.zip` through the DL4J-format importer) loaded onto the card:
+   outputs within the JAX tests' tolerance of `*_expected.npz`, then one
+   Adam step from the imported updater state held to the same on the CPU
+   (IMPORT_STEP_RTOL).
 The last three lines of standard output are the kernels JSON line, the
 card line, and {"ok": true, "device": {...}}. Imports nothing of JAX.
 """
@@ -3491,6 +3519,469 @@ def resnet_transfer_phase(torch, F, counts, helpers, metrics, DataSet, Iteration
     return rec
 
 
+# -- phase 10: the divergence sentinel, the line-search solvers, the DL4J
+# importer ---------------------------------------------------------------------
+
+SENTINEL_DIR = os.path.join(HERE, "_sentinel_smoke")
+SENTINEL_BATCHES = 8
+SENTINEL_NAN = (5, 6)     # 1-based dispatches the `nan` fault taints
+SENTINEL_SAVE_AFTER = 2   # batches trained when 10a's checkpoint is saved
+SENTINEL_RESNET_STEPS = 10
+SENTINEL_FUSED_K = 4
+SENTINEL_TRANSFER_STEPS = 4
+SOLVERS = ("line_gradient_descent", "conjugate_gradient", "lbfgs")
+SOLVER_STEPS = 5
+SOLVER_RTOL = 1e-4        # card vs CPU, first step, of each tensor's largest entry
+# the JAX package's fixture tolerance (tests/test_dl4j_import.py)
+IMPORT_RTOL, IMPORT_ATOL = 1e-5, 1e-6
+# one Adam step, card vs CPU in f32 (TF32 off): of each tensor's largest entry
+IMPORT_STEP_RTOL = 1e-5
+
+
+def feed(DataSetIterator, DataSet, batches, on_pull=None):
+    """An iterator over fresh DataSets of `batches` (the `nan` fault
+    re-points a yielded batch's features: a replay must not meet the
+    tainted object); `on_pull(i)` runs before batch i is handed out, when
+    the previous batch has been dispatched (prefetch off)."""
+    def gen(_):
+        for i, b in enumerate(batches):
+            if on_pull is not None:
+                on_pull(i)
+            yield DataSet(b.features, b.labels)
+
+    return type("Feed", (DataSetIterator,), {"__iter__": gen})()
+
+
+def events_of(blackbox, kind, since=0.0):
+    """The flight recorder's `kind` events from `since` (time.time(); the
+    recorder stamps events to the millisecond)."""
+    return [e for e in blackbox.get_recorder().snapshot()["events"]
+            if e["kind"] == kind and e["ts"] >= since - 1e-3]
+
+
+def clone_net_state(torch, net):
+    from deeplearning4j_tpu_torch.utils.model_serializer import tree_map
+
+    return [tree_map(lambda t: t.clone(), getattr(net, n))
+            for n in ("params_list", "state_list", "upd_state")]
+
+
+def same_net_state(torch, net, saved) -> bool:
+    return all(tensors_equal(torch, getattr(net, n), s)
+               for n, s in zip(("params_list", "state_list", "upd_state"), saved))
+
+
+def sentinel_rollback_phase(torch, fl, char_lstm_network, DataSet, DataSetIterator,
+                            metrics, seed, card, device="cuda"):
+    """10a: quarantine and rollback on the full-width char-LSTM, its TBPTT
+    batches one CUDA graph each."""
+    import shutil
+
+    from deeplearning4j_tpu_torch.train.checkpoint import CheckpointListener
+    from deeplearning4j_tpu_torch.train.sentinel import DivergenceSentinel
+    from deeplearning4j_tpu_torch.utils import blackbox
+    from deeplearning4j_tpu_torch.utils import faultpoints as fp
+
+    cuda = device == "cuda"
+    data = corpus_batches(DataSet, seed + 100, SENTINEL_BATCHES)
+    n_seg = TRAIN_T // TBPTT
+    bad = [b - 1 for b in SENTINEL_NAN]
+    kept = [i for i in range(SENTINEL_BATCHES) if i not in bad]
+    reg = metrics.get_registry()
+
+    def captures():
+        return reg.scalar_values().get("fit_graph_captures_total", 0.0)
+
+    def build():
+        return char_lstm_network(vocab_size=VOCAB, hidden=HIDDEN, layers=LAYERS,
+                                 tbptt_length=TBPTT, seed=seed, learning_rate=TRAIN_LR,
+                                 device=device)
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    shutil.rmtree(SENTINEL_DIR, ignore_errors=True)
+    # the rollback run: no listener, so each batch is one fused program
+    net = build()
+    saver = CheckpointListener(os.path.join(SENTINEL_DIR, "a"), every_n_epochs=None,
+                               keep_last=5)
+    st = {"saved": False, "snap": None, "undo": []}
+
+    def on_pull(i):
+        if i == SENTINEL_SAVE_AFTER and not st["saved"]:
+            saver.save(net, "manual")
+            st["saved"] = True
+        if i == bad[0] and st["snap"] is None:
+            sync()
+            st["snap"] = clone_net_state(torch, net)
+            st["captures0"] = captures()
+
+    def on_event(kind, payload):
+        if kind == "batch_quarantined":
+            sync()
+            prog = next(iter(net._programs.values()), None)
+            st["undo"].append({
+                "bit_equal": same_net_state(torch, net, st["snap"]),
+                "captures": captures(),
+                "addresses_kept": prog is None or prog.graph is None
+                or prog.addresses == net._state_addresses()})
+
+    sent = DivergenceSentinel(rollback_after=2, checkpoint_dir=saver.dir, on_event=on_event)
+    net.set_sentinel(sent)
+    t_ev = time.time()
+    fl.reset_launch_counts()
+    plan = fp.FaultPlan(seed=1).add("train_step", "nan", between=SENTINEL_NAN)
+    sync()
+    t0 = time.perf_counter()
+    with fp.active(plan):
+        net.fit(feed(DataSetIterator, DataSet, data, on_pull), async_prefetch=False)
+    sync()
+    wall = time.perf_counter() - t0
+    launches = fl.launch_counts()
+    kinds = collections.Counter(e["kind"] for e in events_of(blackbox, "train_anomaly", t_ev)
+                                if e.get("anomaly") == "nonfinite_loss")
+    skipped = [e["batch_in_epoch"] for e in events_of(blackbox, "quarantined_batch_skipped", t_ev)]
+    resumed = [e["iteration"] for e in events_of(blackbox, "resume", t_ev)]
+    check(kinds["train_anomaly"] == 2, f"10a: {kinds['train_anomaly']} nonfinite_loss verdicts, "
+          f"expected 2")
+    check(sent.quarantined == 2 and sent.rollbacks == 1,
+          f"10a: {sent.quarantined} quarantines and {sent.rollbacks} rollbacks, expected 2 and 1")
+    check(sorted(skipped) == bad, f"10a: the replay skipped batches {skipped}, expected {bad}")
+    check(resumed == [SENTINEL_SAVE_AFTER * n_seg],
+          f"10a: the rollback restored iteration {resumed}, expected {SENTINEL_SAVE_AFTER * n_seg}")
+    check(len(st["undo"]) == 2 and all(u["bit_equal"] for u in st["undo"]),
+          f"10a: an undone step is not bit-equal to the clone taken before it: {st['undo']}")
+    check(all(u["captures"] == st["captures0"] and u["addresses_kept"] for u in st["undo"]),
+          f"10a: the undo re-captured or moved the graph's tensors: {st['undo']} "
+          f"(captures before {st['captures0']})")
+    check(net.iteration == len(kept) * n_seg, f"10a: iteration {net.iteration}, expected "
+          f"{len(kept) * n_seg}")
+    if cuda:
+        check(launches.get("lstm_sequence", 0) > 0 and launches.get("lstm_sequence_backward", 0) > 0,
+              f"10a: K1/K3 did not launch: {launches}")
+    # the clean fit over the kept batches from the same start
+    clean = build()
+    clean.fit(feed(DataSetIterator, DataSet, [data[i] for i in kept]), async_prefetch=False)
+    same = nets_equal(torch, net, clean)
+    check(same, "10a: the rollback run is not bit-equal to the clean fit without batches "
+          f"{[b + 1 for b in bad]}")
+    rec = {"verdicts": kinds["train_anomaly"], "quarantined": sent.quarantined,
+           "rollbacks": sent.rollbacks, "skipped": skipped, "restored_iteration": resumed[0],
+           "undo": st["undo"], "captures_before_undo": st["captures0"],
+           "bit_equal_clean": same, "seconds": wall, "launches": launches,
+           "graphs": net.fit_graphs()}
+    del net, clean
+    # again with a CheckpointListener saving at the end of every batch (each
+    # TBPTT batch then takes the per-segment loop): the saves taken during
+    # the anomalous steps are rejected
+    class BatchEnds(CheckpointListener):
+        def iteration_done(self, model, iteration, info):
+            if (iteration + 1) % n_seg == 0:
+                self.save(model, reason="schedule")
+
+    net = build()
+    ck = BatchEnds(os.path.join(SENTINEL_DIR, "b"), every_n_epochs=None,
+                   keep_last=SENTINEL_BATCHES)
+    net.set_listeners(ck)
+    sent = DivergenceSentinel(rollback_after=2)
+    net.set_sentinel(sent)
+    t_ev = time.time()
+    with fp.active(fp.FaultPlan(seed=1).add("train_step", "nan", between=SENTINEL_NAN)):
+        net.fit(feed(DataSetIterator, DataSet, data), async_prefetch=False)
+    rejected = [e for e in events_of(blackbox, "checkpoint_corrupt", t_ev)
+                if e.get("why") == "captured from a quarantined step"]
+    resumed_b = [e["iteration"] for e in events_of(blackbox, "resume", t_ev)]
+    # both anomalous batches ran from iteration bad[0] * n_seg (the first
+    # one's update was undone), so their saves share one iteration
+    check(len(rejected) >= 1 and resumed_b == [bad[0] * n_seg],
+          f"10a: with a CheckpointListener, {len(rejected)} saves rejected as captured from a "
+          f"quarantined step (expected at least 1) and the rollback restored {resumed_b} "
+          f"(expected {[bad[0] * n_seg]})")
+    check(sorted(sent.tainted_iterations) == list(range(bad[0] * n_seg + 1,
+                                                        (bad[0] + 1) * n_seg + 1)),
+          f"10a: tainted iterations {sorted(sent.tainted_iterations)}")
+    clean = build()
+    clean.fit(feed(DataSetIterator, DataSet, [data[i] for i in kept]), async_prefetch=False)
+    rec["listener"] = {"rejected": [e["checkpoint"] for e in rejected],
+                       "restored_iteration": resumed_b[0],
+                       "bit_equal_clean": nets_equal(torch, net, clean)}
+    check(rec["listener"]["bit_equal_clean"],
+          "10a: the listener run is not bit-equal to the clean fit")
+    shutil.rmtree(SENTINEL_DIR, ignore_errors=True)
+    print(f"  10a char-LSTM ({TRAIN_B}x{TRAIN_T}, TBPTT {TBPTT}, {SENTINEL_BATCHES} batches, NaN "
+          f"at {SENTINEL_NAN}, rollback_after 2, checkpoint after batch {SENTINEL_SAVE_AFTER}): "
+          f"{rec['verdicts']} nonfinite_loss verdicts, {rec['quarantined']} quarantines, "
+          f"{rec['rollbacks']} rollback to iteration {rec['restored_iteration']}, replay skipped "
+          f"batches {[b + 1 for b in skipped]}; undo bit-equal to the clone "
+          f"{all(u['bit_equal'] for u in rec['undo'])}, fit_graph_captures_total "
+          f"{st['captures0']:.0f} before and {[u['captures'] for u in rec['undo']]} after the "
+          f"undos; final params bit-equal to the clean fit {same}; K1/K3 launches "
+          f"{launches.get('lstm_sequence', 0)}/{launches.get('lstm_sequence_backward', 0)}; "
+          f"{wall:.2f} s; with a CheckpointListener: {len(rejected)} saves rejected as captured "
+          f"from a quarantined step, restored iteration {resumed_b[0]}, bit-equal "
+          f"{rec['listener']['bit_equal_clean']}, on {card}")
+    return rec
+
+
+def resnet_batches(torch, F, DataSet, seed, n, b, size=224, classes=1000):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    out = []
+    for _ in range(n):
+        x = torch.randn((b, size, size, 3), generator=g, device="cuda")
+        lab = torch.randint(0, classes, (b,), generator=g, device="cuda")
+        out.append(DataSet(x, F.one_hot(lab, classes).float()))
+    return out
+
+
+def tree_bytes(tree) -> int:
+    from deeplearning4j_tpu_torch.utils.model_serializer import tree_leaves
+
+    return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
+
+
+def sentinel_cost_phase(torch, F, counts, resnet50_network, DataSet, DataSetIterator,
+                        seed, card):
+    """10b: what the sentinel costs the ResNet-50 step (bf16, batch 128,
+    cudnn.deterministic), and the frozen-gradient cost on the phase-9
+    transfer net."""
+    from deeplearning4j_tpu_torch.data import ExistingDataSetIterator
+    from deeplearning4j_tpu_torch.train import sentinel as sentinel_mod
+    from deeplearning4j_tpu_torch.train.sentinel import DivergenceSentinel
+
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        data = resnet_batches(torch, F, DataSet, seed + 110, 2, RESNET_BATCH)
+        # off, on, on, off: the host's drift between runs shows as the gap
+        # between the two runs of one kind
+        runs, nets, by_kernel = {}, {}, {}
+        for name in ("off", "on", "on2", "off2"):
+            net = resnet50_network(precision="bf16", seed=seed, learning_rate=RESNET_LR)
+            if name.startswith("on"):
+                net.set_sentinel(DivergenceSentinel())
+            clock = SyncClock(torch, DataSetIterator, data, SENTINEL_RESNET_STEPS // 2)
+            counts.reset()
+            net.fit(clock.it, async_prefetch=False)
+            launched = counts.read()
+            st = dispatch_times(clock, 1)[1:]
+            busy, wall, rows = profiled(torch, lambda: net.fit(
+                ExistingDataSetIterator(data[:1]), async_prefetch=False))
+            runs[name] = {"step_s": quantiles(st), "busy_share": busy / wall,
+                          "device_ms": busy * 1e3, "launches": launched}
+            by_kernel[name] = rows
+            nets[name] = net
+            if name == "on2":
+                on = nets.pop("on")
+                same = nets_equal(torch, on, nets.pop("off"))
+                check(same, "10b: the sentinel-on ResNet-50 run is not bit-equal to the "
+                      "sentinel-off run")
+                clone_bytes = sum(tree_bytes(getattr(on, n))
+                                  for n in ("params_list", "state_list", "upd_state"))
+                clone_ms = device_ms(torch, lambda: sentinel_mod.pre_step(on), reps=5)
+                judge_s, pre_s = [], []
+                for _ in range(5):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    sentinel_mod.pre_step(on)
+                    pre_s.append(time.perf_counter() - t0)
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    on._sentinel.judge(on)
+                    judge_s.append(time.perf_counter() - t0)
+                del on
+                torch.cuda.empty_cache()
+        check(nets_equal(torch, nets["on2"], nets["off2"]),
+              "10b: the second sentinel-on run is not bit-equal to the second off run")
+        del nets
+        torch.cuda.empty_cache()
+        for k, per in RESNET_PER_STEP.items():
+            check(runs["on"]["launches"].get(k, 0) == per * SENTINEL_RESNET_STEPS,
+                  f"10b: {k} launched {runs['on']['launches'].get(k, 0)} times with the "
+                  f"sentinel, expected {per * SENTINEL_RESNET_STEPS}")
+        # the graphed step the sentinel gives up
+        fused = resnet50_network(precision="bf16", seed=seed, learning_rate=RESNET_LR)
+        fused.set_fused_steps(SENTINEL_FUSED_K)
+        fdata = resnet_batches(torch, F, DataSet, seed + 111, SENTINEL_FUSED_K, RESNET_BATCH)
+        clock = SyncClock(torch, DataSetIterator, fdata, 4, per=SENTINEL_FUSED_K)
+        fused.fit(clock.it, async_prefetch=False)
+        groups = dispatch_times(clock, SENTINEL_FUSED_K)
+        graphed = [g / SENTINEL_FUSED_K for g in groups[2:]]
+        check(len(fused.fit_graphs()) == 1, f"10b: fused graphs {fused.fit_graphs()}")
+        del fused, fdata
+        torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.deterministic = det
+    frozen = sentinel_frozen_cost(torch, F, counts, DataSet, DataSetIterator, seed, card)
+    # where a profiled sentinel step's extra device time goes
+    extra = sorted(((by_kernel["on"].get(k, 0.0) - by_kernel["off"].get(k, 0.0), k)
+                    for k in set(by_kernel["on"]) | set(by_kernel["off"])), reverse=True)[:5]
+    rec = {"extra_device_ms": [{"kernel": k, "ms": d} for d, k in extra],
+           "runs": runs, "bit_equal": same, "clone_bytes": clone_bytes,
+           "clone_device_ms": clone_ms, "clone_host_s": quantiles(pre_s),
+           "judge_s": quantiles(judge_s),
+           "graphed_step_s": quantiles(graphed), "frozen": frozen,
+           "launches": runs["on"]["launches"]}
+    transfer = " ".join(f"{frozen[n + '_s']['p50'] * 1e3:.2f}"
+                        for n in ("off", "on", "on2", "off2"))
+    steps = "; ".join(
+        f"{n} p50 {r['step_s']['p50'] * 1e3:.2f} ms p99 {r['step_s']['p99'] * 1e3:.2f} ms busy "
+        f"{r['busy_share']:.3f}" for n, r in runs.items())
+    print(f"  10b ResNet-50 bf16 b{RESNET_BATCH}, cudnn.deterministic, {SENTINEL_RESNET_STEPS} "
+          f"steps a run, the sentinel off, on, on, off: {steps}; params bit-equal "
+          f"{same}; the pre-step copy {clone_bytes / 1e6:.2f} MB, "
+          f"{clone_ms:.3f} ms of device and {rec['clone_host_s']['p50'] * 1e3:.3f} ms of host "
+          f"(p50) a step; judge p50 {rec['judge_s']['p50'] * 1e6:.1f} us; "
+          f"graphed set_fused_steps({SENTINEL_FUSED_K}) step (no sentinel) p50 "
+          f"{rec['graphed_step_s']['p50'] * 1e3:.2f} ms; phase-9 transfer (batch "
+          f"{RESNET_TRANSFER_BATCH}) step p50 off, on, on, off {transfer} ms (on: the frozen "
+          f"gradients taken), on {card}")
+    print("  10b a profiled step's device ms, on minus off, largest: " + "; ".join(
+        f"{d:+.3f} {k[:60]}" for d, k in extra))
+    return rec
+
+
+def sentinel_frozen_cost(torch, F, counts, DataSet, DataSetIterator, seed, card):
+    """The price of decision 2: the phase-9 ResNet-50 transfer net's step
+    without a sentinel (frozen leaves out of autograd) and with one (the
+    frozen gradients taken, for the norm only)."""
+    from deeplearning4j_tpu_torch.models.resnet import resnet50_network
+    from deeplearning4j_tpu_torch.nn.transferlearning import GraphTransferLearning
+    from deeplearning4j_tpu_torch.train.sentinel import DivergenceSentinel
+
+    def build():
+        src = resnet50_network(image_size=PHASE9_IMAGE, precision="bf16", seed=seed,
+                               learning_rate=RESNET_LR)
+        return (GraphTransferLearning(src)
+                .fine_tune_configuration(updater="nesterovs", learning_rate=TRANSFER_LR,
+                                         momentum=0.9)
+                .set_feature_extractor(RESNET_TRANSFER_FREEZE)
+                .n_out_replace("out", TRANSFER_CLASSES, weight_init="xavier").build())
+
+    data = vgg_batches(torch, F, DataSet, seed + 112, 2, RESNET_TRANSFER_BATCH, TRANSFER_CLASSES)
+    out = {}
+    for name in ("off", "on", "on2", "off2"):
+        net = build()
+        if name.startswith("on"):
+            net.set_sentinel(DivergenceSentinel())
+        clock = SyncClock(torch, DataSetIterator, data, SENTINEL_TRANSFER_STEPS // 2)
+        counts.reset()
+        net.fit(clock.it, async_prefetch=False)
+        out[name + "_s"] = quantiles(dispatch_times(clock, 1)[1:])
+        out[name + "_launches"] = counts.read()
+        out[name + "_gnorm"] = float(net._step_diag[1])
+        del net
+        torch.cuda.empty_cache()
+    check(out["on_gnorm"] > out["off_gnorm"],
+          f"10b: the transfer net's norm with frozen leaves {out['on_gnorm']} is not above "
+          f"the trainable one {out['off_gnorm']}")
+    return out
+
+
+def solver_phase(torch, counts, seed, card):
+    """10c: LeNet under each line-search solver, 5 batches on the card;
+    the first step against the same step on the CPU."""
+    import copy
+
+    from deeplearning4j_tpu_torch.data import DataSet, ExistingDataSetIterator
+    from deeplearning4j_tpu_torch.data.mnist import MnistDataFetcher, MnistDataSetIterator
+    from deeplearning4j_tpu_torch.models.lenet import lenet_conf
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+
+    os.environ["DL4J_TPU_DATA"] = os.path.join(HERE, "_no_mnist_cache")
+    it = MnistDataSetIterator(LENET_BATCH, train=True, seed=seed + 120,
+                              num_examples=LENET_BATCH * SOLVER_STEPS,
+                              fetcher=MnistDataFetcher(allow_download=False))
+    batches = list(it)
+    whole = DataSet.concat(batches)
+    rec = {}
+    for algo in SOLVERS:
+        conf = lenet_conf(seed=seed)
+        conf.net_conf.optimization_algo = algo
+        card_net = MultiLayerNetwork(conf, device="cuda").init()
+        cpu_net = MultiLayerNetwork(copy.deepcopy(conf), device="cpu").init()
+        s0 = card_net.score(whole)
+        counts.reset()
+        steps = []
+        for i, b in enumerate(batches):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            card_net.fit(ExistingDataSetIterator([b]), async_prefetch=False)
+            torch.cuda.synchronize()
+            steps.append(time.perf_counter() - t0)
+            if i == 0:
+                cpu_net.fit(ExistingDataSetIterator([b]), async_prefetch=False)
+                err = max(_close_rel(torch, p[k], q[k])
+                          for p, q in zip(card_net.params_list, cpu_net.params_list) for k in p)
+        launched = counts.read()
+        s1 = card_net.score(whole)
+        check(err <= SOLVER_RTOL, f"10c {algo}: first step card vs CPU {err:.2e} > {SOLVER_RTOL}")
+        check(math.isfinite(s1) and s1 < s0, f"10c {algo}: score {s0} -> {s1}")
+        check(sum(launched.values()) == 0, f"10c {algo}: kernels launched {launched}")
+        check(card_net._step_diag is None, f"10c {algo}: a diagnostic on the line-search path")
+        rec[algo] = {"first_step_rel": err, "score_before": s0, "score_after": s1,
+                     "step_s": quantiles(steps[1:]), "launches": launched}
+        print(f"  10c LeNet {algo}, {SOLVER_STEPS} batches of {LENET_BATCH}: the score over them "
+              f"{s0:.4f} -> {s1:.4f}; first step card vs CPU {err:.1e} of each tensor's "
+              f"largest entry (tolerance {SOLVER_RTOL}); step p50 "
+              f"{rec[algo]['step_s']['p50'] * 1e3:.2f} ms (synced), no kernel launches, on {card}")
+    rec["launches"] = {k: sum(rec[a]["launches"].get(k, 0) for a in SOLVERS)
+                       for k in rec[SOLVERS[0]]["launches"]}
+    return rec
+
+
+def import_phase(torch, counts, seed, card):
+    """10d: the two fixture zips onto the card (the model zip of the JAX
+    package's format v1, and the DL4J-format graph zip through the DL4J
+    importer), outputs held to the fixtures' expected values, then one
+    Adam step from the imported updater state against the same on the
+    CPU."""
+    from deeplearning4j_tpu_torch.data import DataSet, ExistingDataSetIterator
+    from deeplearning4j_tpu_torch.modelimport.dl4j import (
+        import_dl4j_computation_graph,
+        updater_state_to_flat,
+    )
+    from deeplearning4j_tpu_torch.utils.model_serializer import load_model
+
+    fx = os.path.join(HERE, "tests", "fixtures")
+    loaders = {"mln_adam_v1": lambda d: load_model(os.path.join(fx, "mln_adam_v1.zip"),
+                                                   device=d),
+               "cg_adam_v1": lambda d: import_dl4j_computation_graph(
+                   os.path.join(fx, "cg_adam_v1.zip"), device=d)}
+    rec = {}
+    counts.reset()
+    for name, load in loaders.items():
+        exp = np.load(os.path.join(fx, f"{name}_expected.npz"))
+        net, cpu = load("cuda"), load("cpu")
+        check(next(iter(net.params_list[0].values())).is_cuda, f"10d {name}: not on the card")
+        out = net.output(exp["x"]).cpu().numpy()
+        gap = float(np.max(np.abs(out - exp["out"]) - IMPORT_RTOL * np.abs(exp["out"])))
+        check(gap <= IMPORT_ATOL, f"10d {name}: output off the fixture by {gap:.2e} beyond "
+              f"rtol {IMPORT_RTOL}")
+        check(net.iteration == int(exp["iteration"]), f"10d {name}: iteration {net.iteration}")
+        if "updater_state" in exp.files:
+            order = [(net._pidx[n], net.conf.vertices[n].layer) for n in ("b", "a", "out")]
+            check(np.array_equal(updater_state_to_flat(net, indexed_layer_confs=order),
+                                 exp["updater_state"]), f"10d {name}: updater state")
+        rng = np.random.default_rng(seed + 130)
+        k = exp["out"].shape[1]
+        ds = DataSet(exp["x"], np.eye(k, dtype=np.float32)[rng.integers(0, k, len(exp["x"]))])
+        for n in (net, cpu):
+            n.fit(ExistingDataSetIterator([ds]), async_prefetch=False)
+        err = max(_close_rel(torch, p[kk], q[kk])
+                  for p, q in zip(net.params_list, cpu.params_list) for kk in p)
+        check(err <= IMPORT_STEP_RTOL, f"10d {name}: Adam step card vs CPU {err:.2e}")
+        rec[name] = {"output_gap": gap, "step_rel": err}
+        print(f"  10d {name}: on the card, output vs the fixture within rtol {IMPORT_RTOL} "
+              f"atol {IMPORT_ATOL} (excess {gap:.1e}); one Adam step from the imported state, "
+              f"card vs CPU {err:.1e} of each tensor's largest entry (tolerance "
+              f"{IMPORT_STEP_RTOL}), on {card}")
+    # the model zip's MLN has a BatchNormalization layer: its training step
+    # takes the BN pullback kernels (K7, K8), as any BN layer does
+    rec["launches"] = counts.read()
+    return rec
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3639,13 +4130,28 @@ def main(argv=None) -> int:
         torch, F, counts, helpers, metrics, DataSet, IterationListener, clocked,
         args.seed, card)
 
+    print("[10] the divergence sentinel (quarantine and rollback), the line-search "
+          "solvers, the DL4J-format importer")
+    torch.cuda.empty_cache()
+    p10 = {"rollback": sentinel_rollback_phase(torch, fl, char_lstm_network, DataSet,
+                                               DataSetIterator, metrics, args.seed, card)}
+    torch.cuda.empty_cache()
+    p10["cost"] = sentinel_cost_phase(torch, F, counts, resnet50_network, DataSet,
+                                      DataSetIterator, args.seed, card)
+    torch.cuda.empty_cache()
+    p10["solvers"] = solver_phase(torch, counts, args.seed, card)
+    p10["import"] = import_phase(torch, counts, args.seed, card)
+
     # each main path's count, read just after it ran from zero
     by_path = {"output": sl["launches"], "serve": sv["launches"],
                "train": tr["launches"], "train_resnet": rn["launches"],
                "checkpoint": ck["launches"], "fused": fu["launches"],
                "lenet": p9["lenet"]["launches"], "vgg16": p9["vgg16"]["train"]["launches"],
-               "resnet50_transfer": p9["resnet50_transfer"]["launches"]}
-    main_launches = {name: sum(c[name] for c in by_path.values())
+               "resnet50_transfer": p9["resnet50_transfer"]["launches"],
+               "sentinel_charlstm": p10["rollback"]["launches"],
+               "sentinel_resnet": p10["cost"]["launches"],
+               "solvers": p10["solvers"]["launches"], "dl4j_import": p10["import"]["launches"]}
+    main_launches = {name: sum(c.get(name, 0) for c in by_path.values())
                      for name in rows}
     meta = {
         "lstm_step": ("deeplearning4j_tpu_torch/csrc/lstm_step.cu",
@@ -3669,7 +4175,7 @@ def main(argv=None) -> int:
     kernels = [{
         "name": name, "route": "cuda", "source": meta[name][0],
         "replaces": meta[name][1], "launches": main_launches[name],
-        "launches_by_path": {p: c[name] for p, c in by_path.items()},
+        "launches_by_path": {p: c.get(name, 0) for p, c in by_path.items()},
         "max_abs_err": r["err_f32"], "max_abs_err_bf16": r["err_bf16"],
         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
         "bound_by": r["bound_by"], "library_ms": r["library_ms"],
@@ -3687,6 +4193,7 @@ def main(argv=None) -> int:
               "checkpoint": ck,
               "fused": fu,
               "phase9": p9,
+              "phase10": p10,
               "build": {k: v["seconds"] for k, v in info.items()},
               "ptxas": {k: v["log"] for k, v in info.items() if k not in cuda_build.SOURCES},
               "seconds": time.perf_counter() - t_start}

@@ -15,7 +15,10 @@ updaters, data iterators, MNIST, listeners), and the
 continuous-batching decode engine, the model zip (both packages load
 each other's), checkpointing with mid-epoch resume, evaluation and early
 stopping, with every kernel of the JAX package: the fused LSTM step, sequence and sequence-backward kernels,
-and the conv + BN-statistics, BN apply and BN backward kernels.
+and the conv + BN-statistics, BN apply and BN backward kernels; and the
+divergence sentinel (quarantine and checkpoint rollback), the
+line-search solvers, the gradient check, the DL4J-format zip importer,
+and the record, streaming and CIFAR/Iris/LFW data iterators.
 """
 
 __version__ = "0.1.0"

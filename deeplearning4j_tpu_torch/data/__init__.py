@@ -8,6 +8,8 @@ from deeplearning4j_tpu_torch.data.iterators import (
     ExistingDataSetIterator,
     ListDataSetIterator,
     MultiDataSetIterator,
+    MultipleEpochsIterator,
+    StackedDataSetIterator,
 )
 from deeplearning4j_tpu_torch.data.prefetch import (
     DevicePrefetchIterator,

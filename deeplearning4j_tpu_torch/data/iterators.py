@@ -156,6 +156,66 @@ class ExistingDataSetIterator(DataSetIterator):
         return sum(d.num_examples() for d in self._list)
 
 
+class MultipleEpochsIterator(DataSetIterator):
+    """Repeat an underlying iterator n times (reference:
+    MultipleEpochsIterator.java)."""
+
+    def __init__(self, epochs: int, base: DataSetIterator):
+        self.epochs = epochs
+        self.base = base
+
+    def __iter__(self):
+        for _ in range(self.epochs):
+            self.base.reset()
+            yield from self.base
+
+    def batch_size(self):
+        return self.base.batch_size()
+
+    def state(self):
+        return self.base.state()
+
+    def restore_state(self, state):
+        self.base.restore_state(state)
+
+
+class StackedDataSetIterator(DataSetIterator):
+    """Concatenate k consecutive minibatches into one global batch, as a
+    data-parallel trainer turns per-worker batches into one sharded batch
+    (reference: ParallelWrapper round-robin dispatch of one minibatch per
+    DefaultTrainer, ParallelWrapper.java:389-404)."""
+
+    def __init__(self, base: DataSetIterator, k: int):
+        self.base = base
+        self.k = max(1, int(k))
+
+    def __iter__(self):
+        pending: List[DataSet] = []
+        for ds in self.base:
+            pending.append(ds)
+            if len(pending) == self.k:
+                yield DataSet.concat(pending)
+                pending = []
+        if pending:
+            yield DataSet.concat(pending)
+
+    def reset(self):
+        self.base.reset()
+
+    def batch_size(self):
+        b = self.base.batch_size()
+        return None if b is None else b * self.k
+
+    def total_examples(self):
+        return self.base.total_examples()
+
+    def state(self):
+        return self.base.state()
+
+    def restore_state(self, state):
+        self.base.restore_state(state)
+
+
 class MultiDataSetIterator:
     """SPI: iterable over MultiDataSet minibatches with reset()
     (reference: nd4j MultiDataSetIterator, consumed by

@@ -35,8 +35,12 @@ fused ReLU (it is not a BatchNormalization vertex). A
 CenterLossOutputLayer head adds its center term to the score and keeps
 its class centers as layer state.
 
-Not ported yet: the scan over identical blocks (`set_block_scan`) and
-`rnn_time_step`.
+Streaming inference (`rnn_time_step`) carries each recurrent layer's
+(h, c) between calls, as MultiLayerNetwork's does. Any
+`optimization_algo` trains by SGD: the JAX package's graph never reads
+it (the line-search solvers are the sequential network's).
+
+Not ported yet: the scan over identical blocks (`set_block_scan`).
 """
 
 from __future__ import annotations
@@ -71,7 +75,7 @@ from deeplearning4j_tpu_torch.nn.multilayer import (
     _OUTPUT_LAYER_TYPES,
     _preout_of_output_layer,
 )
-from deeplearning4j_tpu_torch.nn.netbase import NetworkBase, _layer_seed
+from deeplearning4j_tpu_torch.nn.netbase import NetworkBase, _is_recurrent, _layer_seed
 from deeplearning4j_tpu_torch.ops.losses import loss_value, masked_example_mean
 from deeplearning4j_tpu_torch.train.evaluation import (
     Evaluation,
@@ -326,11 +330,8 @@ class ComputationGraph(NetworkBase):
             f.ndim == 3 for f in _as_multidataset(ds).features)
 
     def _fit_dataset(self, ds):
-        algo = self.net_conf.optimization_algo
-        if algo != "sgd":
-            raise NotImplementedError(
-                f"optimization algorithm {algo!r}: the line-search solvers "
-                "are not ported yet")
+        # trains by SGD whatever `optimization_algo` says: the line-search
+        # solvers are the sequential network's only, as in the JAX package
         data = tuple(self._data_list(a) for a in self._ds_arrays(ds))
         if self._is_tbptt(ds):
             self._fit_tbptt(ds, data)
@@ -451,6 +452,52 @@ class ComputationGraph(NetworkBase):
                 [self.policy.cast_input(self._as_input(x)) for x in inputs],
                 training=False, rng=None)
         return acts
+
+    # -- rnn streaming inference ---------------------------------------------
+
+    def rnn_time_step(self, *inputs):
+        """Stateful streaming inference over the graph (reference:
+        ComputationGraph.rnnTimeStep). Each input: [batch, time, nIn] (or
+        [batch, nIn] for a single step). Returns outputs in set_outputs
+        order (one tensor for a single-output graph). Only the recurrent
+        carry is held between calls; other layer state (BN running
+        statistics) is read from state_list on every call. A batch-size
+        change starts a new stream."""
+        self._require_init()
+        xs = [self._as_input(x) for x in inputs]
+        single = all(x.dim() == 2 for x in xs)
+        if single:
+            xs = [x[:, None, :] for x in xs]
+        carry = getattr(self, "_rnn_carry", None) or {}
+        bsz = xs[0].shape[0]
+        if carry and any(v.shape[0] != bsz
+                         for st in carry.values() for v in st.values()):
+            carry = {}
+            self._rnn_carry = None
+        # an empty dict seeds a recurrent layer's zero carry and makes it
+        # return its state
+        states = [carry.get(i, {}) if _is_recurrent(lc) else self.state_list[i]
+                  for i, lc in enumerate(self._layer_confs)]
+        with torch.no_grad():
+            acts, new_states = self._forward(
+                self.params_list, states,
+                [self.policy.cast_input(x) for x in xs],
+                training=False, rng=None)
+        merged = self._merge_states(states, new_states)
+        self._rnn_carry = {i: merged[i] for i, lc in enumerate(self._layer_confs)
+                           if _is_recurrent(lc)}
+        outs = [self.policy.cast_output(acts[n]) for n in self.conf.outputs]
+        if single:
+            outs = [o[:, 0] if o.dim() == 3 else o for o in outs]
+        return outs[0] if len(outs) == 1 else outs
+
+    def rnn_clear_previous_state(self):
+        self._rnn_carry = None
+
+    def clear_rnn_state(self):
+        """Alias of rnn_clear_previous_state (the MultiLayerNetwork
+        streaming API carries the same name)."""
+        self.rnn_clear_previous_state()
 
     def clone(self) -> "ComputationGraph":
         other = ComputationGraph(copy.deepcopy(self.conf), device=self.device)

@@ -17,7 +17,8 @@ segments as one program, and `set_fused_steps(k)` runs k same-shape
 batches (standard or TBPTT) as one; each is one CUDA graph on the card
 and the same loop of steps on the CPU. Layerwise pretraining
 (`pretrain`, `pretrain_layer`: AutoEncoder, VAE and RBM layers) runs its
-steps eagerly. The line-search solvers are not ported yet.
+steps eagerly, and so do the line-search solvers (train/solvers.py, an
+`optimization_algo` other than sgd: `_fit_line_search`).
 
 Parameters are a list of per-layer dicts of tensors on the network's
 device; the flattened view comes from nn/params.py. Mutable
@@ -374,9 +375,8 @@ class MultiLayerNetwork(NetworkBase):
     def _fit_dataset(self, ds: DataSet):
         algo = self.net_conf.optimization_algo
         if algo != "sgd":
-            raise NotImplementedError(
-                f"optimization algorithm {algo!r}: the line-search solvers "
-                "are not ported yet")
+            self._fit_line_search(ds, algo)
+            return
         data = tuple(self._as_data(a) for a in self._ds_arrays(ds))
         if (self.conf.backprop_type == BackpropType.TRUNCATED_BPTT
                 and data[0].dim() == 3):
@@ -385,6 +385,40 @@ class MultiLayerNetwork(NetworkBase):
             states, _ = self._fit_step(*data)
             self._commit_states(states)
             self._notify(ds.num_examples(), ds)
+
+    def _fit_line_search(self, ds: DataSet, algo: str):
+        """One batch through a line-search optimizer (LBFGS, CG, line
+        gradient descent; reference: BaseOptimizer.optimize :182-230): a
+        host search loop around the loss and its gradient on the flat
+        parameter vector, which stays on the net's device. The result is
+        copied into the parameter tensors in place. The step's random
+        numbers come from the SGD step's generator (`_step_rng`). No
+        diagnostic is left (`_step_diag` None): a sentinel judges the
+        score alone, as in the JAX package."""
+        from deeplearning4j_tpu_torch.nn.params import flat_to_params, params_to_flat
+        from deeplearning4j_tpu_torch.train.solvers import (
+            _FlatProblem,
+            make_line_search_optimizer,
+        )
+
+        if getattr(self, "_solver", None) is None or self._solver.name != algo:
+            self._solver = make_line_search_optimizer(algo)
+            self._flat_problem = _FlatProblem(self)
+        x, y, fm, lm = (self._as_data(a) for a in self._ds_arrays(ds))
+        problem = self._flat_problem.bind(self.state_list, x, y, fm, lm,
+                                          self._step_rng(self.iteration))
+        flat = params_to_flat(self.layer_confs, self.params_list)
+        step0 = schedule_lr(self.net_conf, self.iteration)
+        new_flat, f_new = self._solver.optimize(problem, flat, step0)
+        with torch.no_grad():
+            for live, new in zip(self.params_list, flat_to_params(
+                    self.layer_confs, self.params_list, new_flat)):
+                for k, v in live.items():
+                    v.copy_(new[k])
+        self._score = torch.tensor(f_new, dtype=torch.float32, device=self.device)
+        self._step_diag = None
+        self.iteration += 1
+        self._notify(ds.num_examples(), ds)
 
     # -- multi-batch fused fit (set_fused_steps) -----------------------------
 

@@ -14,8 +14,13 @@ program (`_run_fused`): a plain loop of `_step`s on the CPU, one CUDA
 graph on the card, captured from the second group of a signature on and
 replayed after it. The staged input pipeline (`_stage_input_pipeline`:
 a host prefetch thread, then data/prefetch.DevicePrefetchIterator) feeds
-the loop under `fit(async_prefetch=True)`. The divergence sentinel, mesh,
-run ledger and OOM forensics are not ported yet.
+the loop under `fit(async_prefetch=True)`. The divergence sentinel
+(train/sentinel.py, `set_sentinel`) judges each dispatch after it ran:
+an anomalous step is undone in place and its batch quarantined, and a
+streak of them rolls the fit back to the last good checkpoint
+(`_rollback_restore`). `set_collect_stats` computes per-layer mean
+magnitudes inside the step. The mesh, run ledger and OOM forensics are
+not ported yet.
 """
 
 from __future__ import annotations
@@ -39,6 +44,8 @@ from deeplearning4j_tpu_torch.nn.params import (
 from deeplearning4j_tpu_torch.ops import fused_conv_bn as _fused_conv_bn
 from deeplearning4j_tpu_torch.ops import fused_lstm as _fused_lstm
 from deeplearning4j_tpu_torch.ops import helpers as _helpers
+from deeplearning4j_tpu_torch.ops.activations import sign_abs
+from deeplearning4j_tpu_torch.train import sentinel as _sentinel
 from deeplearning4j_tpu_torch.train.updaters import normalize_gradients, schedule_lr
 from deeplearning4j_tpu_torch.utils import blackbox as _blackbox
 from deeplearning4j_tpu_torch.utils import faultpoints as _faults
@@ -134,6 +141,20 @@ def _uniform_time(data, T: int) -> bool:
     return ok[0]
 
 
+def _mean_magnitudes(params, grads, updates) -> dict:
+    """Per-layer mean |x| of the step's gradients (after normalization,
+    as the updater saw them), updates and new parameters (reference:
+    BaseStatsListener's mean magnitudes). A frozen layer's gradient and
+    update are 0, as in the JAX package's masked step."""
+    def mm(tree):
+        return [{k: (t[k].abs().mean() if k in t else
+                     torch.zeros((), dtype=v.dtype, device=v.device))
+                 for k, v in p.items()} for p, t in zip(params, tree)]
+
+    return {"grad_mm": mm(grads), "update_mm": mm(updates),
+            "param_mm": mm(params)}
+
+
 class _Program:
     """One fused group's program on a network, under its key (kind,
     shapes, batches, segments): on a CUDA device its static inputs
@@ -210,6 +231,12 @@ class NetworkBase:
         self._graph_stream = None
         self._draws = None  # whether a step draws random numbers (cached)
         self._fused_scores = None  # every step's score of the last fused group
+        # set_sentinel: the divergence sentinel judging every dispatch
+        self._sentinel = None
+        # set_collect_stats: per-layer mean |grad|, |update| and |param|
+        # of the last step, computed inside it
+        self._collect_stats = False
+        self._last_stats = None
 
     # -- to be provided by subclasses ----------------------------------------
 
@@ -260,7 +287,7 @@ class NetworkBase:
             for name, w in p.items():
                 if _regularizable(name):
                     if l1:
-                        reg = reg + l1 * w.abs().sum()
+                        reg = reg + l1 * sign_abs(w).sum()
                     if l2:
                         reg = reg + 0.5 * l2 * (w * w).sum()
         return reg
@@ -291,6 +318,16 @@ class NetworkBase:
         return [[] if isinstance(conf, L.FrozenLayer) else list(p)
                 for conf, p in zip(self._ordered_layer_confs(), self.params_list)]
 
+    def _norm_keys(self) -> List[List[str]]:
+        """The parameter names whose raw gradients the step's diagnostic
+        norm covers: every leaf while a sentinel is attached (the JAX
+        step's diag[1] covers frozen leaves too, and the sentinel is what
+        reads it), else the trainable ones, so that a step with no
+        sentinel takes no frozen gradient."""
+        if self._sentinel is None:
+            return self._trainable_keys()
+        return [list(p) for p in self.params_list]
+
     def _step(self, loss_builder, states, data, lr, t, rng):
         """One optimizer step: the loss and its gradients by autograd, then
         the shared tail — the diagnostic, gradient normalization, per-leaf
@@ -306,11 +343,15 @@ class NetworkBase:
         The JAX package multiplies their gradients by 0 instead; its
         zero-gradient update of a zero updater state is the same no-op,
         and zeros change no normalization. `self._step_diag` holds [loss,
-        raw global gradient norm of the trainable leaves] (before clipping,
-        in f32), as the JAX step's `diag`."""
+        raw global gradient norm] (before clipping, in f32), as the JAX
+        step's `diag`: over the trainable leaves, and over every leaf
+        while a sentinel is attached (`_norm_keys`), when autograd also
+        takes the frozen leaves' gradients, for the norm only. With
+        `set_collect_stats` the step also leaves `self._last_stats`."""
         params = self.params_list
         keys = self._trainable_keys()
-        leaves = [p[k] for p, ks in zip(params, keys) for k in ks]
+        norm_keys = self._norm_keys()
+        leaves = [p[k] for p, ks in zip(params, norm_keys) for k in ks]
         for v in leaves:
             v.requires_grad_(True)
         try:
@@ -323,11 +364,13 @@ class NetworkBase:
         score = score.detach()
         # a parameter the loss does not reach (an AutoEncoder's visible
         # bias, a VAE's decoder, outside pretraining) has a zero gradient
-        grads = [{k: _zero_if_none(next(flat), p[k]) for k in ks}
-                 for p, ks in zip(params, keys)]
+        raw = [{k: _zero_if_none(next(flat), p[k]) for k in ks}
+               for p, ks in zip(params, norm_keys)]
+        grads = raw if self._sentinel is None else [
+            {k: g[k] for k in ks} for g, ks in zip(raw, keys)]
         with torch.no_grad():
             # leaves in sorted-key order per layer, as jax.tree_util walks
-            gsq = sum((g[k].float().square().sum() for g in grads for k in sorted(g)),
+            gsq = sum((g[k].float().square().sum() for g in raw for k in sorted(g)),
                       torch.zeros((), device=score.device))
             self._step_diag = torch.stack([score.float(), torch.sqrt(gsq)])
             if not self.net_conf.minimize:
@@ -344,7 +387,10 @@ class NetworkBase:
                     if m[k] not in scaled:
                         scaled[m[k]] = lr * m[k]
                 lr_tree.append({k: scaled[m[k]] for k in g})
-            self.updater_def.step_(params, grads, self.upd_state, lr_tree, t)
+            updates = self.updater_def.step_(params, grads, self.upd_state,
+                                             lr_tree, t)
+            if self._collect_stats:
+                self._last_stats = _mean_magnitudes(params, grads, updates)
         return _detached(self._merge_states(states, new_states)), score
 
     def _run_step(self, loss_builder, data, stateful_states=None):
@@ -461,11 +507,15 @@ class NetworkBase:
                              in zip(states, self._recurrent_layers())])
 
     def _fit_tbptt(self, ds, data):
-        """Truncated BPTT for one batch: with no listeners and no ragged
-        tail, all its segments run as one fused program (one CUDA graph on
-        the card); listeners keep the loop, so that each callback sees
-        its iteration's parameters (the JAX package's rule)."""
-        n_seg = None if self.listeners else self._tbptt_fusable(data)
+        """Truncated BPTT for one batch: with no listeners, no stats
+        collection and no ragged tail, all its segments run as one fused
+        program (one CUDA graph on the card); listeners keep the loop, so
+        that each callback sees its iteration's parameters (the JAX
+        package's rule). A sentinel judges the fused batch once, on
+        [last loss, largest norm]; under the loop it judges the last
+        segment's diagnostic, as the JAX package does."""
+        n_seg = (None if self.listeners or self._collect_stats
+                 else self._tbptt_fusable(data))
         if n_seg is None:
             self._fit_tbptt_loop(ds, data)
         else:
@@ -656,6 +706,37 @@ class NetworkBase:
         self._fused_k = max(1, int(k))
         return self
 
+    def set_sentinel(self, sentinel):
+        """Attach a train/sentinel.DivergenceSentinel: every dispatch is
+        judged on the step's [loss, grad norm] diagnostic; an anomalous
+        step is undone (quarantine), persistent anomalies restore the last
+        good checkpoint (rollback) and bounded failures raise
+        TrainingDivergedError. None detaches it. A judged step waits for
+        its own diagnostic, and `set_fused_steps` groups run batch by
+        batch (each step must be judged alone); a TBPTT batch's segments
+        still run as one program. While attached, the step also takes the
+        frozen leaves' gradients for the norm (`_norm_keys`)."""
+        if (sentinel is None) != (self._sentinel is None) and \
+                self.params_list is not None and any(
+                    isinstance(c, L.FrozenLayer) for c in self._ordered_layer_confs()):
+            # the step's leaves change: captured programs would replay
+            # the other set
+            self._reset_step_programs()
+        self._sentinel = sentinel
+        return self
+
+    def set_collect_stats(self, flag: bool = True):
+        """Compute the per-layer mean |grad|, |update| and |param| inside
+        every step (`self._last_stats`, handed to listeners as
+        info["stats"]). Collecting turns fusion off and sends TBPTT down
+        its per-segment loop, as in the JAX package."""
+        flag = bool(flag)
+        if flag != self._collect_stats:
+            self._collect_stats = flag
+            self._last_stats = None
+            self._reset_step_programs()
+        return self
+
     def set_input_transform(self, transform):
         """Install an on-device batch transform (e.g.
         data.transforms.DeviceBatchTransform): under async_prefetch it
@@ -706,6 +787,7 @@ class NetworkBase:
             "score": lambda: self._score,
             "batch_size": batch_size,
             "etl_ms": self._last_etl_ms,
+            "stats": lambda: self._last_stats,
             # the batch that produced this iteration (lazy)
             "batch": lambda: ds,
         }
@@ -780,6 +862,10 @@ class NetworkBase:
         hb0 = self._fit_heartbeat
         if hb0 is not None:
             hb0.beat()
+        # sentinel pre-capture: one attribute read with no sentinel
+        # attached (the <10 us off-path contract); with one, device clones
+        # that make an anomalous step's update undoable
+        pre = _sentinel.pre_step(self)
         t0 = time.perf_counter()
         with _tracing.span("fit/step", data_wait_ms=round(data_wait * 1e3, 3)):
             with _tracing.span("fit/dispatch"):
@@ -808,6 +894,12 @@ class NetworkBase:
         ins["recorder"].record_step(self.iteration - 1, score=self._score,
                                     data_wait=data_wait, dispatch=dispatch,
                                     sync=sync)
+        # the judgment comes after the step's own records, so that an
+        # anomalous step stays visible in the flight recorder; it may
+        # raise RollbackSignal (answered by _run_fit) or
+        # TrainingDivergedError
+        if pre is not None:
+            _sentinel.post_step(self, pre, batches)
         hb = self._fit_heartbeat
         if hb is not None:
             hb.beat()
@@ -838,14 +930,21 @@ class NetworkBase:
                 if staged is not iterator:
                     iterator = owned = staged
             # fusion engages only where it is observationally equivalent to
-            # the per-step loop: no listeners, and the subclass supports it.
-            # The JAX package's other terms are vacuous here: the port has
-            # no stats collection, no divergence sentinel and no mesh batch
-            # sharding (its "batch transform"); the input transform runs
-            # on each batch before grouping, so it leaves fusion on.
+            # the per-step loop: no listeners, no stats collection, no
+            # sentinel (quarantine discards ONE step's update, not a
+            # group's), and the subclass supports it. The port has no
+            # mesh batch sharding (the JAX package's batch-transform
+            # term); the input transform runs on each batch before
+            # grouping, so it leaves fusion on.
             fuse_k = self._fused_k if (
                 self._fused_k > 1 and not self.listeners
+                and not self._collect_stats and self._sentinel is None
                 and self._fused_fit_supported()) else 1
+            if self._sentinel is not None:
+                self._sentinel.bind(self, resume_dir=resume_from)
+            # the epoch the rollback loop restores toward: `epochs` is
+            # already "remaining" here
+            total_epoch_target = int(self.epoch) + int(epochs)
             # liveness: the fit thread holds a busy slot on the "fit"
             # heartbeat for the whole run and beats once per dispatch.
             # With hang_timeout the watchdog's stall action dumps the
@@ -857,7 +956,16 @@ class NetworkBase:
             self._fit_heartbeat = hb
             try:
                 with hb.busy():
-                    self._fit_epochs(iterator, epochs, fuse_k, skip_batches)
+                    while True:
+                        try:
+                            self._fit_epochs(iterator, epochs, fuse_k,
+                                             skip_batches)
+                            break
+                        except _sentinel.RollbackSignal:
+                            # restore the last good checkpoint and replay;
+                            # note_rollback bounds the attempts
+                            skip_batches, epochs = self._rollback_restore(
+                                iterator, total_epoch_target)
             except _health.StepHangError as e:
                 if e.dump_path is not None:
                     raise  # already carries its forensics
@@ -933,7 +1041,10 @@ class NetworkBase:
         ts = self._train_state
         return None if ts is None else dict(ts)
 
-    def _restore_for_resume(self, directory: str, iterator, epochs: int):
+    def _restore_for_resume(self, directory: str, iterator, epochs: int,
+                            require_finite: bool = False,
+                            lr_drift_ok: bool = False,
+                            reject_iterations=()):
         """Load the newest GOOD checkpoint in `directory` into this net
         and prime the mid-epoch replay: restores the iterator's
         epoch-start state and returns (batches to skip in the first
@@ -941,7 +1052,13 @@ class NetworkBase:
         path or None). An empty or missing directory is a fresh start.
         Each candidate's SHA-256 manifest is verified before the load; a
         damaged or unloadable candidate is skipped (counted) and the
-        previous one used; a changed configuration raises."""
+        previous one used; a changed configuration raises. The sentinel's
+        rollback also rejects a checkpoint whose parameters are
+        non-finite (`require_finite`) or whose iteration fell inside a
+        quarantined step (`reject_iterations`: a listener can save during
+        the anomalous dispatch, before the judgment), and exempts the
+        learning rate from the configuration check (`lr_drift_ok`: a
+        backoff changed it)."""
         from deeplearning4j_tpu_torch.train.checkpoint import (
             NoUsableCheckpointError,
             checkpoint_candidates,
@@ -954,9 +1071,17 @@ class NetworkBase:
         )
 
         meta = path = None
-        for cand_path, _ in verified_checkpoints(directory):
+        for cand_path, cand_meta in verified_checkpoints(directory):
+            if reject_iterations and int(
+                    cand_meta.get("iteration", -1)) in reject_iterations:
+                # finite and digest-clean, and still holding the update
+                # the sentinel discarded
+                note_bad_checkpoint(
+                    cand_path, "captured from a quarantined step")
+                continue
             try:
-                meta = restore_fit_state(self, cand_path)
+                meta = restore_fit_state(self, cand_path,
+                                         ignore_lr=lr_drift_ok)
             except ConfigMismatchError:
                 # a changed architecture is a USER error every candidate
                 # repeats — raise it, don't discard the history
@@ -964,6 +1089,11 @@ class NetworkBase:
             except Exception as e:
                 note_bad_checkpoint(
                     cand_path, f"restore failed: {type(e).__name__}: {e}")
+                meta = None
+                continue
+            if require_finite and not self._params_finite():
+                note_bad_checkpoint(
+                    cand_path, "restored parameters are non-finite")
                 meta = None
                 continue
             path = cand_path
@@ -1002,6 +1132,53 @@ class NetworkBase:
             "resume", checkpoint=path, iteration=int(self.iteration),
             epoch=int(self.epoch), skip_batches=skip)
         return skip, remaining, path
+
+    def _params_finite(self) -> bool:
+        """Whether every parameter is finite: one device reduction, one
+        host read (the rollback's guard against a checkpoint saved after
+        the divergence reached the parameters)."""
+        flags = [torch.isfinite(v).all()
+                 for p in self.params_list for v in p.values()]
+        return bool(torch.stack(flags).all()) if flags else True
+
+    def _rollback_restore(self, iterator, total_epoch_target: int):
+        """Answer a sentinel RollbackSignal: account the attempt (bounded;
+        optional lr backoff), end the abandoned epoch's pipeline run and
+        rewind the iterator, then restore the newest checkpoint that
+        verifies, loads, is finite and was not saved during a quarantined
+        step. Returns the (skip_batches, epochs_remaining) of the
+        replay."""
+        from deeplearning4j_tpu_torch.train.checkpoint import (
+            NoUsableCheckpointError,
+        )
+
+        sent = self._sentinel
+        directory = sent.note_rollback(self)
+        hb = self._fit_heartbeat
+        if hb is not None:
+            hb.beat()
+        # the RollbackSignal left `for ds in iterator` mid-run: close the
+        # run (a staged pipeline's workers and in-flight copies end here)
+        # and rewind; restore_state below sets the position when the
+        # iterator keeps the resume protocol
+        close = getattr(iterator, "close", None)
+        if callable(close):
+            close()
+        iterator.reset()
+        try:
+            skip, remaining, path = self._restore_for_resume(
+                directory, iterator, total_epoch_target,
+                require_finite=True, lr_drift_ok=True,
+                reject_iterations=sent.tainted_iterations)
+        except NoUsableCheckpointError as e:
+            sent.diverged(str(e))
+        if path is None:
+            sent.diverged(
+                f"rollback found no usable checkpoint in {directory!r}")
+        self._step_diag = None
+        if hb is not None:
+            hb.beat()
+        return skip, remaining
 
     def _stage_input_pipeline(self, iterator, prefetch_buffer: int):
         """The staged input pipeline around a fit's iterator:
@@ -1077,6 +1254,14 @@ class NetworkBase:
                     # as in the original run), not dispatched (its update
                     # is in the restored params)
                     skip -= 1
+                    self._train_state["batch_in_epoch"] += 1
+                    t_etl = time.perf_counter()
+                    continue
+                if (self._sentinel is not None
+                        and self._sentinel.should_skip_batch(self, ds)):
+                    # a quarantined batch met again (the replay after a
+                    # rollback, or the next epoch's pass): consumed, not
+                    # dispatched, since it would diverge again
                     self._train_state["batch_in_epoch"] += 1
                     t_etl = time.perf_counter()
                     continue

@@ -6,6 +6,12 @@ activations (the reference's IActivation). Same functions and names as
 the JAX package's ops/activations.py, as torch element-wise ops. RReLU's
 random alpha at train time needs a generator, so every activation takes
 an optional `key` (a `torch.Generator`).
+
+At a kink or a tie each function takes the JAX package's subgradient, so
+that autograd and jax.grad agree there too: `clip` and `maximum` split a
+tie evenly between their arguments (`tie_clip`, `tie_max`; torch.maximum
+and torch.minimum do the same, torch.clamp does not), `abs` takes +1 at 0
+(`sign_abs`), and leaky ReLU takes slope 1 at 0.
 """
 
 from __future__ import annotations
@@ -22,6 +28,23 @@ _REGISTRY: Dict[str, Callable] = {}
 def register_activation(name: str, fn: Callable) -> None:
     """Custom-activation SPI (reference: IActivation implementations)."""
     _REGISTRY[name.lower()] = fn
+
+
+def tie_max(x, lo: float):
+    """max(x, lo) with jnp.maximum's gradient: half of it at x == lo."""
+    return torch.maximum(x, torch.full((), lo, dtype=x.dtype, device=x.device))
+
+
+def tie_clip(x, lo: float, hi: float):
+    """clip(x, lo, hi) with jnp.clip's gradient: half of it at either
+    edge, none outside."""
+    return torch.minimum(tie_max(x, lo),
+                         torch.full((), hi, dtype=x.dtype, device=x.device))
+
+
+def sign_abs(x):
+    """|x| with jnp.abs's gradient: +1 at 0."""
+    return torch.where(x >= 0, x, -x)
 
 
 def _simple(name):
@@ -59,8 +82,9 @@ def relu6(x):
 
 @_simple("leakyrelu")
 def leakyrelu(x):
-    # Reference default alpha 0.01 (ActivationLReLU.DEFAULT_ALPHA)
-    return F.leaky_relu(x, negative_slope=0.01)
+    # Reference default alpha 0.01 (ActivationLReLU.DEFAULT_ALPHA); slope
+    # 1 at x == 0, as jax.nn.leaky_relu's where(x >= 0, ...)
+    return torch.where(x == 0, x, F.leaky_relu(x, negative_slope=0.01))
 
 
 @_simple("elu")
@@ -85,13 +109,13 @@ def softsign(x):
 
 @_simple("hardtanh")
 def hardtanh(x):
-    return torch.clamp(x, -1.0, 1.0)
+    return tie_clip(x, -1.0, 1.0)
 
 
 @_simple("hardsigmoid")
 def hardsigmoid(x):
     # Reference ActivationHardSigmoid: clip(0.2*x + 0.5, 0, 1)
-    return torch.clamp(0.2 * x + 0.5, 0.0, 1.0)
+    return tie_clip(0.2 * x + 0.5, 0.0, 1.0)
 
 
 @_simple("cube")
@@ -111,7 +135,7 @@ def rationaltanh(x):
 
 @_simple("rectifiedtanh")
 def rectifiedtanh(x):
-    return torch.clamp_min(torch.tanh(x), 0.0)
+    return tie_max(torch.tanh(x), 0.0)
 
 
 @_simple("swish")

@@ -9,7 +9,8 @@ Every function returns a per-example score vector [batch]; the network
 averages over present examples (`masked_example_mean`). Masks multiply
 per-element scores before the feature-axis reduction. Gradients are never
 hand-written: autograd differentiates through these, as jax.grad does in
-the JAX package.
+the JAX package, and every clip, maximum and abs takes jnp's subgradient
+at its kink (ops/activations.py `tie_clip`, `tie_max`, `sign_abs`).
 """
 
 from __future__ import annotations
@@ -19,7 +20,12 @@ from typing import Callable, Dict, Optional
 import torch
 import torch.nn.functional as F
 
-from deeplearning4j_tpu_torch.ops.activations import apply_activation
+from deeplearning4j_tpu_torch.ops.activations import (
+    apply_activation,
+    sign_abs,
+    tie_clip,
+    tie_max,
+)
 
 _EPS = 1e-8
 
@@ -74,7 +80,7 @@ def l2(labels, preout, activation, mask=None):
 
 @_loss("l1")
 def l1(labels, preout, activation, mask=None):
-    return _reduce((_out(preout, activation) - labels).abs(), mask)
+    return _reduce(sign_abs(_out(preout, activation) - labels), mask)
 
 
 @_loss("mean_absolute_error")
@@ -85,7 +91,7 @@ def mean_absolute_error(labels, preout, activation, mask=None):
 @_loss("mean_absolute_percentage_error")
 def mape(labels, preout, activation, mask=None):
     out = _out(preout, activation)
-    per = ((labels - out) / (labels + _EPS)).abs() * 100.0
+    per = sign_abs((labels - out) / (labels + _EPS)) * 100.0
     return _reduce(per, mask) / labels.shape[-1]
 
 
@@ -103,7 +109,7 @@ def xent(labels, preout, activation, mask=None):
         # log(sigmoid(z)) = -softplus(-z); log(1-sigmoid(z)) = -softplus(z)
         per = labels * F.softplus(-preout) + (1.0 - labels) * F.softplus(preout)
     else:
-        out = _out(preout, activation).clamp(_EPS, 1.0 - _EPS)
+        out = tie_clip(_out(preout, activation), _EPS, 1.0 - _EPS)
         per = -(labels * torch.log(out) + (1.0 - labels) * torch.log(1.0 - out))
     return _reduce(per, mask)
 
@@ -115,7 +121,7 @@ def mcxent(labels, preout, activation, mask=None):
     if activation == "softmax":
         logp = torch.log_softmax(preout, dim=-1)
     else:
-        logp = torch.log(_out(preout, activation).clamp_min(_EPS))
+        logp = torch.log(tie_max(_out(preout, activation), _EPS))
     return _reduce(-labels * logp, mask)
 
 
@@ -127,8 +133,8 @@ def negativeloglikelihood(labels, preout, activation, mask=None):
 
 @_loss("kl_divergence")
 def kl_divergence(labels, preout, activation, mask=None):
-    out = _out(preout, activation).clamp(_EPS, 1.0 - _EPS)
-    lab = labels.clamp(_EPS, 1.0 - _EPS)
+    out = tie_clip(_out(preout, activation), _EPS, 1.0 - _EPS)
+    lab = tie_clip(labels, _EPS, 1.0 - _EPS)
     return _reduce(lab * (torch.log(lab) - torch.log(out)), mask)
 
 
@@ -147,7 +153,7 @@ def cosine_proximity(labels, preout, activation, mask=None):
     dot = (labels * out).sum(dim=-1)
     norm = (torch.linalg.vector_norm(labels, dim=-1)
             * torch.linalg.vector_norm(out, dim=-1))
-    cos = dot / norm.clamp_min(_EPS)
+    cos = dot / tie_max(norm, _EPS)
     while cos.dim() > 1:  # reduce any remaining time axes
         cos = cos.sum(dim=-1)
     return -cos
@@ -157,19 +163,19 @@ def cosine_proximity(labels, preout, activation, mask=None):
 def hinge(labels, preout, activation, mask=None):
     # labels in {-1, 1}
     out = _out(preout, activation)
-    return _reduce(torch.clamp_min(1.0 - labels * out, 0.0), mask)
+    return _reduce(tie_max(1.0 - labels * out, 0.0), mask)
 
 
 @_loss("squared_hinge")
 def squared_hinge(labels, preout, activation, mask=None):
-    h = torch.clamp_min(1.0 - labels * _out(preout, activation), 0.0)
+    h = tie_max(1.0 - labels * _out(preout, activation), 0.0)
     return _reduce(h * h, mask)
 
 
 @_loss("poisson")
 def poisson(labels, preout, activation, mask=None):
     out = _out(preout, activation)
-    return _reduce(out - labels * torch.log(out.clamp_min(_EPS)), mask)
+    return _reduce(out - labels * torch.log(tie_max(out, _EPS)), mask)
 
 
 @_loss("squared_loss")

@@ -1,3 +1,4 @@
 """Training stack: updaters, gradient normalization, listeners,
-checkpointing, evaluation and early stopping (the port of the JAX
+checkpointing, evaluation, early stopping, the divergence sentinel, the
+line-search solvers and the gradient check (the port of the JAX
 package's train/)."""

@@ -13,13 +13,9 @@ from __future__ import annotations
 
 import dataclasses
 import logging
-import math
 import os
 import time
 from typing import List
-
-from deeplearning4j_tpu_torch.utils import blackbox as _blackbox
-from deeplearning4j_tpu_torch.utils import metrics as _metrics
 
 logger = logging.getLogger("deeplearning4j_tpu_torch")
 
@@ -138,26 +134,17 @@ class InvalidScoreIterationTerminationCondition(IterationTerminationCondition):
     """Abort on NaN/Inf score (reference:
     InvalidScoreIterationTerminationCondition).
 
-    A termination lands in the books the JAX package's divergence
-    sentinel keeps: `train_anomaly_total{kind="nonfinite_loss"}` plus a
-    flight-recorder event (the sentinel itself is not ported yet)."""
+    Detection routes through train/sentinel.check_score, the one
+    non-finite classification path, so a termination here lands in the
+    same books as an in-fit sentinel anomaly:
+    `train_anomaly_total{kind="nonfinite_loss"}` plus a flight-recorder
+    event."""
 
     def terminate(self, iteration, score):
-        try:
-            finite = math.isfinite(float(score))
-        except (TypeError, ValueError):
-            finite = False
-        if finite:
-            return False
-        _metrics.get_registry().counter(
-            "train_anomaly_total", "training anomalies detected, by kind",
-            ("kind",)).labels("nonfinite_loss").inc()
-        _blackbox.get_recorder().record_event(
-            "train_anomaly", anomaly="nonfinite_loss", step=int(iteration),
-            origin="earlystopping", detail=f"score={score!r}")
-        logger.warning("earlystopping: non-finite score %r at iteration %d",
-                       score, iteration)
-        return True
+        from deeplearning4j_tpu_torch.train import sentinel as _sentinel
+
+        return _sentinel.check_score(iteration, score,
+                                     origin="earlystopping")
 
     def __repr__(self):
         return "InvalidScoreIterationTerminationCondition()"

@@ -67,7 +67,7 @@ class UpdaterDef:
 
     def step_(self, params, grads, state, lr_tree, t):
         """Apply one update in place: params += update, state <- new
-        state."""
+        state. Returns the updates."""
         with torch.no_grad():
             updates, new_state = self.apply_tree(grads, state, lr_tree, t)
             for p, u, s, ns in zip(params, updates, state, new_state):
@@ -75,6 +75,7 @@ class UpdaterDef:
                     p[k].add_(u[k])
                     for name, v in ns[k].items():
                         s[k][name].copy_(v)
+        return updates
 
 
 # -- implementations ---------------------------------------------------------
