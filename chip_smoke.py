@@ -197,6 +197,28 @@ result lines:
    outputs within the JAX tests' tolerance of `*_expected.npz`, then one
    Adam step from the imported updater state held to the same on the CPU
    (IMPORT_STEP_RTOL).
+11. The embeddings stack (nlp/, graph/, native/), on corpus A (bench.py's
+   Zipf generator, 20,000 sentences of 40 over 10,000 words) and corpus
+   B (the two-topic corpus of tests/test_word2vec.py); no kernel of K1-K8
+   lies on this path, and none launches. 11a: Word2Vec at
+   VectorsConfiguration's defaults, skip-gram then CBOW (the batched
+   path): words/s of train_indexed, synced; a profiled window of
+   W2V_PROFILE_GROUPS groups (host and device ms a group, the busy
+   share, the top device ops); card vs CPU from the same tables through
+   W2V_HOLD_GROUPS groups (NLP_FIT_RTOL / NLP_FIT_ATOL, the loss
+   NLP_LOSS_RTOL). 11b: the corpus-resident skip-gram path at
+   bench_word2vec's configuration: words/s over 3 epochs after a
+   warm-up, a profiled epoch's busy share, the dense trust-region clip's
+   share of the device time (its device ms at a live chunk's indices,
+   times the live chunks), and one epoch over the first CORPUS_HOLD_SENTS
+   sentences on the card against the CPU with the same injected draws.
+   11c: ParagraphVectors DM and DBOW (layer 100, HS): doc vectors nearer
+   within a topic than across, infer_vector card vs CPU. 11d:
+   GloVe.fit_file through the port's native corpus build on corpus A
+   (the loss falls) and B (cat's nearest are the animals), DeepWalk on
+   two joined cliques (the cliques separate). 11e: a full-model zip
+   written on the card equals its tables read on the CPU. Scratch files
+   go to `_nlp_smoke/` in the checkout, removed at the phase's end.
 The last three lines of standard output are the kernels JSON line, the
 card line, and {"ok": true, "device": {...}}. Imports nothing of JAX.
 """
@@ -3982,6 +4004,477 @@ def import_phase(torch, counts, seed, card):
     return rec
 
 
+# -- phase 11: the embeddings stack (nlp/, graph/, native/) ---------------------
+
+# scratch for phase 11's corpus files and zip, inside the checkout
+# (gitignored), removed when the phase ends
+NLP_DIR = os.path.join(HERE, "_nlp_smoke")
+# corpus A: bench.py's Zipf generator (bench.py:462-469: vocab 10,000,
+# p ~ 1/rank, sentences of 40 words) at 20,000 sentences, 800k tokens: a
+# real corpus's width, its depth cut for the script's time
+ZIPF_VOCAB, ZIPF_SENTS, ZIPF_LEN = 10_000, 20_000, 40
+# corpus B: the two-topic corpus of tests/test_word2vec.py:23-30
+TOPIC_SENTS, TOPIC_LEN = 400, 8
+ANIMALS = ["cat", "dog", "horse", "cow", "sheep"]
+TECH = ["cpu", "gpu", "ram", "disk", "cache"]
+W2V_HOLD_GROUPS = 4      # 11a: card vs CPU through this many groups
+W2V_PROFILE_GROUPS = 8   # 11a: the profiled window
+CORPUS_HOLD_SENTS = 2_000  # 11b: card vs CPU over one epoch of this prefix
+PV_EPOCHS = 12
+# card vs CPU, f32: a whole fit of at most 20 device calls (groups, or
+# the chunks of one corpus epoch) elementwise to rtol 1e-4 / atol 1e-6,
+# since index_add_ sums duplicate rows in another order on the card; one
+# step would be 1e-5 / 1e-7
+NLP_FIT_RTOL, NLP_FIT_ATOL = 1e-4, 1e-6
+NLP_LOSS_RTOL = 1e-5
+
+
+def zipf_corpus(seed):
+    """Corpus A as sentence strings (one draw of the whole corpus from
+    bench.py's distribution)."""
+    rng = np.random.default_rng(seed)
+    p = 1.0 / np.arange(1, ZIPF_VOCAB + 1)
+    p /= p.sum()
+    words = np.asarray([f"w{i}" for i in range(ZIPF_VOCAB)])
+    ids = rng.choice(ZIPF_VOCAB, p=p, size=(ZIPF_SENTS, ZIPF_LEN))
+    return [" ".join(words[row]) for row in ids]
+
+
+def topic_corpus(seed):
+    """Corpus B: (sentences, topic of each: 0 animals, 1 tech)."""
+    rng = np.random.default_rng(seed)
+    sents, topics = [], []
+    for _ in range(TOPIC_SENTS):
+        t = int(rng.random() >= 0.5)
+        sents.append(" ".join(rng.choice(TECH if t else ANIMALS, size=TOPIC_LEN)))
+        topics.append(t)
+    return sents, np.asarray(topics)
+
+
+def allclose_excess(torch, got, want, rtol, atol) -> float:
+    """max(|got - want| - rtol * |want|) over the entries: <= atol is
+    np.allclose(got, want, rtol, atol)."""
+    g, w = got.detach().double().cpu(), want.detach().double().cpu()
+    return float(((g - w).abs() - rtol * w.abs()).max())
+
+
+def step_counter(step, calls):
+    def run(*a, **k):
+        calls.append(1)
+        return step(*a, **k)
+    return run
+
+
+def timed_train(torch, model):
+    """Wrap model.train_indexed to record its synced wall seconds."""
+    orig, spent = model.train_indexed, []
+
+    def run(indexed):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        orig(indexed)
+        torch.cuda.synchronize()
+        spent.append(time.perf_counter() - t0)
+
+    model.train_indexed = run
+    return spent
+
+
+def top_ops(rows, n=5):
+    total = sum(rows.values()) or 1.0
+    return [(k, ms, ms / total) for k, ms in sorted(rows.items(), key=lambda kv: -kv[1])[:n]]
+
+
+def fmt_ops(ops, per=1) -> str:
+    """The top ops, each op's device ms over `per` (a group) and share."""
+    return "; ".join(f"{k.replace('void ', '')[:48]} {ms / per:.3f} ms ({share:.0%})"
+                     for k, ms, share in ops)
+
+
+def w2v_phase(torch, corpus_a, seed, card):
+    """11a: Word2Vec at VectorsConfiguration's defaults on corpus A,
+    skip-gram then CBOW (the batched path): the user's fit, a profiled
+    window, and card vs CPU through W2V_HOLD_GROUPS groups from the same
+    tables."""
+    from deeplearning4j_tpu_torch.nlp import InMemoryLookupTable, SequenceVectors, Word2Vec
+    from deeplearning4j_tpu_torch.nlp.learning import make_embedding_scan_step
+
+    rec = {}
+    for algo in ("skipgram", "cbow"):
+        w2v = Word2Vec.Builder().seed(seed).elements_learning_algorithm(algo) \
+            .iterate(corpus_a).build()
+        conf = w2v.conf
+        calls = []
+        w2v._scan_step = step_counter(make_embedding_scan_step(
+            use_hs=conf.use_hierarchic_softmax, negative=conf.negative, with_doc=False), calls)
+        spent = timed_train(torch, w2v)
+        t0 = time.perf_counter()
+        w2v.fit()
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        indexed = w2v._index_sentences(w2v._sequences)
+        words = sum(int(s.size) for s in indexed)
+        train_s, groups = spent[0], len(calls)
+        check(np.isfinite(w2v.last_loss), f"11a {algo}: loss {w2v.last_loss}")
+        check(w2v.lookup.syn0.is_cuda, f"11a {algo}: the tables are not on the card")
+        # the profiled window: the first W2V_PROFILE_GROUPS groups' worth
+        per_word = conf.window + 1 if algo == "skipgram" else 1
+        n_sents = max(1, W2V_PROFILE_GROUPS * conf.scan_size * conf.batch_size
+                      // (ZIPF_LEN * per_word))
+        calls.clear()
+        busy, wall, by_kernel = profiled(torch, lambda: w2v.train_indexed(indexed[:n_sents]))
+        pg = len(calls)
+        # card vs CPU through W2V_HOLD_GROUPS groups, from the same tables
+        n_hold = max(1, W2V_HOLD_GROUPS * conf.scan_size * conf.batch_size
+                     // (ZIPF_LEN * per_word))
+        models = {}
+        for dev in ("cuda", "cpu"):
+            m = SequenceVectors(conf, vocab=w2v.vocab, device=dev)
+            m.build_vocab()
+            models[dev] = m
+        models["cpu"].lookup = InMemoryLookupTable.from_numpy(
+            w2v.vocab, models["cuda"].lookup.syn0.cpu().numpy(),
+            models["cuda"].lookup.syn1.cpu().numpy(), device="cpu")
+        hold_calls = []
+        for dev, m in models.items():
+            m._scan_step = step_counter(make_embedding_scan_step(
+                use_hs=True, negative=0, with_doc=False), hold_calls)
+            m.train_indexed(indexed[:n_hold])
+        torch.cuda.synchronize()
+        hold_groups = len(hold_calls) // 2
+        excess = max(allclose_excess(torch, getattr(models["cuda"].lookup, t),
+                                     getattr(models["cpu"].lookup, t), NLP_FIT_RTOL, 0.0)
+                     for t in ("syn0", "syn1"))
+        loss_rel = abs(models["cuda"].last_loss - models["cpu"].last_loss) / abs(
+            models["cpu"].last_loss)
+        check(hold_groups <= 20, f"11a {algo}: the hold ran {hold_groups} groups")
+        check(excess <= NLP_FIT_ATOL, f"11a {algo}: card vs CPU after {hold_groups} groups "
+              f"exceeds rtol {NLP_FIT_RTOL} by {excess:.2e} > atol {NLP_FIT_ATOL}")
+        check(loss_rel <= NLP_LOSS_RTOL, f"11a {algo}: loss card vs CPU {loss_rel:.2e}")
+        rec[algo] = {
+            "words": words, "vocab": w2v.vocab.num_words(), "fit_s": fit_s, "train_s": train_s,
+            "words_per_s": words / train_s, "groups": groups, "loss": w2v.last_loss,
+            "group_s": train_s / groups,
+            "profiled": {"groups": pg, "wall_s": wall, "device_s": busy, "busy": busy / wall,
+                         "host_s_per_group": wall / pg, "device_s_per_group": busy / pg,
+                         "top_ops": top_ops(by_kernel)},
+            "hold": {"groups": hold_groups, "excess": excess, "loss_rel": loss_rel},
+            "model": w2v,
+        }
+        r = rec[algo]
+        print(f"  11a Word2Vec {algo} at the defaults (layer 100, window 5, min frequency 5, "
+              f"HS, batch 2048, scan 16, lr 0.025), corpus A ({words} words, vocab "
+              f"{r['vocab']}): {r['words_per_s']:.0f} words/s ({train_s:.2f} s of train_indexed, "
+              f"{groups} groups, {r['group_s'] * 1e3:.2f} ms a group synced; fit with vocab "
+              f"{fit_s:.2f} s), loss {w2v.last_loss:.4f}, on {card}")
+        p = r["profiled"]
+        print(f"      profiled {pg} groups: host {p['host_s_per_group'] * 1e3:.2f} ms a group beside "
+              f"device {p['device_s_per_group'] * 1e3:.2f} ms, busy {p['busy']:.3f}; top device "
+              f"ops of one group: {fmt_ops(p['top_ops'], pg)}")
+        print(f"      card vs CPU through {hold_groups} groups from the same tables: within "
+              f"rtol {NLP_FIT_RTOL} / atol {NLP_FIT_ATOL} (worst excess over rtol·|cpu| "
+              f"{excess:.1e}), loss {loss_rel:.1e} apart (tolerance {NLP_LOSS_RTOL})")
+    return rec
+
+
+def clip_ms(torch, table, idx):
+    """Device ms of one dense trust-region clip (learning._scatter_clipped)
+    of `table` at the scatter indices `idx`."""
+    from deeplearning4j_tpu_torch.nlp.learning import _scatter_clipped
+
+    t = table.clone()
+    delta = torch.randn(idx.shape[0], t.shape[1], device=t.device) * 1e-3
+    w = torch.ones(idx.shape[0], device=t.device)
+    return device_ms(torch, lambda: _scatter_clipped(t, idx, delta, w, 0.25))
+
+
+def corpus_phase(torch, tokens_a, seed, card):
+    """11b: the corpus-resident skip-gram path at bench_word2vec's
+    configuration on corpus A: words/s over 3 timed epochs after a
+    warm-up, the busy share, the dense clip's share of the device time,
+    and one epoch on the card with injected draws against the same on
+    the CPU."""
+    from deeplearning4j_tpu_torch.nlp import SequenceVectors, VectorsConfiguration
+    from deeplearning4j_tpu_torch.nlp.batching import keep_probabilities, subsample
+    from deeplearning4j_tpu_torch.nlp.devicegen import (
+        _chunk_pairs, live_length, make_corpus_skipgram_step, pack_corpus)
+
+    conf = VectorsConfiguration(layer_size=128, window=5, min_word_frequency=1, epochs=1,
+                                negative=5, use_hierarchic_softmax=False, batch_size=8192,
+                                sampling=1e-3, seed=seed)
+    sv = SequenceVectors(conf, tokens_a)
+    sv.build_vocab()
+    indexed = sv._index_sentences(tokens_a)
+    words = sum(int(s.size) for s in indexed)
+    sv.train_indexed(indexed)  # warm-up epoch
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sv.train_indexed(indexed)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    check(np.isfinite(sv.last_loss), f"11b: loss {sv.last_loss}")
+    dt = statistics.median(times)
+    busy, wall, by_kernel = profiled(torch, lambda: sv.train_indexed(indexed))
+    # the dense clip at this run's shapes: a live chunk's scatter indices
+    n_centers = conf.batch_size // (2 * conf.window)
+    keep = keep_probabilities(sv.vocab.counts(), conf.sampling)
+    flat = pack_corpus([subsample(s, keep, np.random.default_rng(seed)) for s in indexed],
+                       conf.window)
+    live = live_length(flat)
+    n_live = -(-live // n_centers)
+    corpus = torch.from_numpy(flat).cuda().long()
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    b = torch.randint(0, conf.window, (n_centers,), generator=gen, device="cuda")
+    ins, tgt, _ = _chunk_pairs(corpus, 0, n_centers, conf.window, b)
+    unigram = sv._unigram_dev()
+    r = torch.randint(0, unigram.shape[0], (ins.shape[0], conf.negative), generator=gen,
+                      device="cuda")
+    idx1 = torch.cat([tgt.clamp_min(0)[:, None], unigram[r]], 1).reshape(-1)
+    ms0 = clip_ms(torch, sv.lookup.syn0, ins.clamp_min(0))
+    ms1 = clip_ms(torch, sv.lookup.syn1neg, idx1)
+    clip_share = n_live * (ms0 + ms1) / (busy * 1e3)
+    # one epoch over a prefix of corpus A, card vs CPU, the same draws
+    sents = [subsample(s, keep, np.random.default_rng(seed + 1))
+             for s in indexed[:CORPUS_HOLD_SENTS]]
+    hflat = pack_corpus(sents, conf.window)
+    hlive = live_length(hflat)
+    cgen = torch.Generator().manual_seed(seed + 2)
+    n_pairs = n_centers * 2 * conf.window
+    draws = [(torch.randint(0, conf.window, (n_centers,), generator=cgen),
+              torch.randint(0, unigram.shape[0], (n_pairs, conf.negative), generator=cgen))
+             for _ in range(-(-hlive // n_centers))]
+    step = make_corpus_skipgram_step(negative=conf.negative, window=conf.window,
+                                     pairs_per_batch=conf.batch_size)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        out[dev] = step(sv.lookup.syn0.to(dev, copy=True), sv.lookup.syn1neg.to(dev, copy=True),
+                        unigram.to(dev), torch.from_numpy(hflat).to(dev).long(),
+                        conf.learning_rate, conf.min_learning_rate, float(hlive * 6),
+                        torch.zeros((), device=dev), live=hlive, draws=lambda i: draws[i])
+    torch.cuda.synchronize()
+    excess = max(allclose_excess(torch, out["cuda"][k], out["cpu"][k], NLP_FIT_RTOL, 0.0)
+                 for k in (0, 1))
+    loss_rel = abs(float(out["cuda"][2]) - float(out["cpu"][2])) / abs(float(out["cpu"][2]))
+    check(float(out["cuda"][3]) == float(out["cpu"][3]), "11b: pairs counted differ")
+    check(excess <= NLP_FIT_ATOL, f"11b: card vs CPU epoch exceeds rtol {NLP_FIT_RTOL} by "
+          f"{excess:.2e} > atol {NLP_FIT_ATOL}")
+    check(loss_rel <= NLP_LOSS_RTOL, f"11b: loss card vs CPU {loss_rel:.2e}")
+    rec = {"words": words, "vocab": sv.vocab.num_words(), "epoch_s": times,
+           "words_per_s": words / dt, "trained_tokens": int(np.sum(flat >= 0)),
+           "chunks": n_live, "loss": sv.last_loss,
+           "profiled": {"wall_s": wall, "device_s": busy, "busy": busy / wall,
+                        "top_ops": top_ops(by_kernel)},
+           "clip_ms": [ms0, ms1], "clip_share": clip_share,
+           "hold": {"sentences": CORPUS_HOLD_SENTS, "chunks": len(draws), "excess": excess,
+                    "loss_rel": loss_rel, "pairs": float(out["cpu"][3])}}
+    print(f"  11b corpus-resident skip-gram, bench_word2vec's configuration (layer 128, window "
+          f"5, negative 5, no HS, sample 1e-3, batch 8192), corpus A ({words} words, "
+          f"{rec['trained_tokens']} after subsampling, {n_live} chunks): {words / dt:.0f} words/s "
+          f"(epochs {', '.join(f'{t:.3f}' for t in times)} s after a warm-up), loss "
+          f"{sv.last_loss:.4f}, on {card}")
+    print(f"      profiled epoch: {busy * 1e3:.1f} ms of device in {wall * 1e3:.1f} ms, busy "
+          f"{busy / wall:.3f}; the dense clip {ms0:.4f} + {ms1:.4f} ms a chunk (syn0, syn1neg), "
+          f"{clip_share:.0%} of the device time; top device ops: {fmt_ops(top_ops(by_kernel))}")
+    print(f"      one epoch over the first {CORPUS_HOLD_SENTS} sentences ({len(draws)} chunks), "
+          f"the same draws: card vs CPU within rtol {NLP_FIT_RTOL} / atol {NLP_FIT_ATOL} "
+          f"(worst excess {excess:.1e}), loss {loss_rel:.1e} apart, pairs equal")
+    return rec
+
+
+def doc_separation(dv, topics) -> tuple:
+    """Mean cosine of doc vectors within a topic and across topics."""
+    n = dv / np.linalg.norm(dv, axis=1, keepdims=True)
+    sims = n @ n.T
+    same = topics[:, None] == topics[None, :]
+    off = ~np.eye(len(topics), dtype=bool)
+    return float(sims[same & off].mean()), float(sims[~same].mean())
+
+
+def pv_phase(torch, corpus_b, topics, seed, card):
+    """11c: ParagraphVectors DM and DBOW (layer 100, HS, a label per
+    sentence) on corpus B: doc vectors separate by topic; infer_vector on
+    the card against the CPU from the same tables."""
+    from deeplearning4j_tpu_torch.nlp import (InMemoryLookupTable, ParagraphVectors,
+                                              VectorsConfiguration)
+
+    conf = VectorsConfiguration(layer_size=100, window=4, min_word_frequency=1,
+                                epochs=PV_EPOCHS, learning_rate=0.05,
+                                use_hierarchic_softmax=True, negative=0, batch_size=256,
+                                seed=seed)
+    labels = [f"doc_{i}" for i in range(len(corpus_b))]
+    text = " ".join(["cat", "dog", "cow"] * 3)
+    rec = {}
+    for algo in ("dm", "dbow"):
+        pv = ParagraphVectors(conf, corpus_b, labels, sequence_learning_algorithm=algo)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pv.fit()
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        within, across = doc_separation(pv.doc_vectors.cpu().numpy(), topics)
+        check(within > across, f"11c {algo}: doc vectors within {within:.3f} <= across "
+              f"{across:.3f}")
+        cpu = ParagraphVectors(conf, corpus_b, labels, sequence_learning_algorithm=algo,
+                               device="cpu")
+        cpu.build_vocab()
+        cpu.lookup = InMemoryLookupTable.from_numpy(
+            cpu.vocab, pv.lookup.syn0.cpu().numpy(), pv.lookup.syn1.cpu().numpy(),
+            device="cpu")
+        cpu.set_doc_vectors(pv.doc_vectors.cpu().numpy())
+        v_card, v_cpu = pv.infer_vector(text), cpu.infer_vector(text)
+        gap = float(np.max(np.abs(v_card - v_cpu) - NLP_FIT_RTOL * np.abs(v_cpu)))
+        check(gap <= NLP_FIT_ATOL, f"11c {algo}: infer_vector card vs CPU excess {gap:.2e}")
+        hits = int(sum(topics[int(l.split("_")[1])] == 0
+                       for l, _ in pv.nearest_labels(v_card, 10)))
+        words = len(corpus_b) * TOPIC_LEN * PV_EPOCHS
+        rec[algo] = {"fit_s": fit_s, "words_per_s": words / fit_s, "within": within,
+                     "across": across, "infer_excess": gap, "nearest_animal_docs": hits}
+        print(f"  11c ParagraphVectors {algo.upper()} (layer 100, HS, {PV_EPOCHS} epochs, "
+              f"{len(labels)} labelled sentences of corpus B): fit {fit_s:.2f} s "
+              f"({words / fit_s:.0f} words/s), doc cosine within a topic {within:.3f} vs across "
+              f"{across:.3f}; infer_vector card vs CPU within rtol {NLP_FIT_RTOL} / atol "
+              f"{NLP_FIT_ATOL} (excess {gap:.1e}); {hits}/10 nearest labels of an animal text "
+              f"are animal docs, on {card}")
+    return rec
+
+
+def glove_graph_phase(torch, corpus_a, corpus_b, seed, card):
+    """11d: GloVe.fit_file through the port's native corpus build, on
+    corpus A (the loss falls) and corpus B (the topics separate), and
+    DeepWalk on two joined cliques (the communities separate)."""
+    import logging
+
+    from deeplearning4j_tpu_torch import native
+    from deeplearning4j_tpu_torch.graph import DeepWalk, Graph
+    from deeplearning4j_tpu_torch.nlp import Glove, VectorsConfiguration
+
+    check(native.native_available(), "11d: the port's native corpus library did not build")
+    losses = []
+
+    class Losses(logging.Handler):
+        def emit(self, record):
+            if record.getMessage().startswith("GloVe epoch"):
+                losses.append(float(record.getMessage().split()[-1]))
+
+    log = logging.getLogger("deeplearning4j_tpu_torch.nlp")
+    handler, level = Losses(), log.level
+    log.addHandler(handler)
+    log.setLevel(logging.INFO)
+    rec = {}
+    try:
+        for name, corpus, conf in (
+                ("A", corpus_a, VectorsConfiguration(learning_rate=0.05, epochs=2, seed=seed)),
+                ("B", corpus_b, VectorsConfiguration(layer_size=100, window=4,
+                                                     min_word_frequency=1, epochs=25,
+                                                     learning_rate=0.05, batch_size=1024,
+                                                     seed=seed, x_max=10.0))):
+            path = os.path.join(NLP_DIR, f"corpus_{name}.txt")
+            with open(path, "w") as f:
+                f.write("\n".join(corpus) + "\n")
+            losses.clear()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            g = Glove(conf).fit_file(path)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            check(g.lookup.syn0.is_cuda and len(losses) == conf.epochs
+                  and all(np.isfinite(losses)), f"11d GloVe {name}: losses {losses}")
+            rec[name] = {"fit_s": dt, "vocab": g.vocab.num_words(), "losses": list(losses)}
+            if name == "A":
+                check(losses[-1] < losses[0], f"11d GloVe A: loss {losses} does not fall")
+                print(f"  11d GloVe.fit_file on corpus A (layer 100, window 5, min frequency 5, "
+                      f"batch 2048, lr 0.05, 2 epochs; native vocab and co-occurrences): "
+                      f"{dt:.2f} s, vocab {g.vocab.num_words()}, loss a pair "
+                      f"{' -> '.join(f'{x:.4f}' for x in losses)}, on {card}")
+            else:
+                near = {w for w, _ in g.words_nearest("cat", 4)}
+                sim_in, sim_out = g.similarity("cat", "dog"), g.similarity("cat", "gpu")
+                check(near == set(ANIMALS) - {"cat"} and sim_in > sim_out,
+                      f"11d GloVe B: nearest of cat {near}, cat~dog {sim_in} cat~gpu {sim_out}")
+                rec[name].update(near=sorted(near), sim_in=sim_in, sim_out=sim_out)
+                print(f"  11d GloVe.fit_file on corpus B (layer 100, 25 epochs): {dt:.2f} s; "
+                      f"cat's 4 nearest are the other animals; cat~dog {sim_in:.3f}, cat~gpu "
+                      f"{sim_out:.3f}")
+    finally:
+        log.removeHandler(handler)
+        log.setLevel(level)
+    k = 6
+    graph = Graph(2 * k)
+    for base in (0, k):
+        for i in range(k):
+            for j in range(i + 1, k):
+                graph.add_edge(base + i, base + j)
+    graph.add_edge(k - 1, k)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    vec = DeepWalk(vector_size=100, window_size=4, walks_per_vertex=8, learning_rate=0.05,
+                   seed=seed, batch_size=512).fit(graph, walk_length=20)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    intra = np.mean([vec.similarity(a, b) for a in range(4) for b in range(1, 4) if a != b])
+    inter = np.mean([vec.similarity(a, b) for a in range(4) for b in range(k, k + 4)])
+    near = vec.verts_nearest(1, top_n=3)
+    check(intra > inter and all(v < k for v in near),
+          f"11d DeepWalk: intra {intra:.3f} inter {inter:.3f}, nearest of 1 {near}")
+    rec["deepwalk"] = {"fit_s": dt, "intra": float(intra), "inter": float(inter)}
+    print(f"  11d DeepWalk (vector 100, window 4, 8 walks of 20 a vertex) on two joined "
+          f"{k}-cliques: {dt:.2f} s; cosine within a clique {intra:.3f} vs across "
+          f"{inter:.3f}; vertex 1's 3 nearest {near}")
+    return rec
+
+
+def nlp_zip_phase(torch, model, card):
+    """11e: a full-model zip written on the card, read back on the CPU."""
+    from deeplearning4j_tpu_torch.nlp import WordVectorSerializer
+
+    path = os.path.join(NLP_DIR, "word2vec.zip")
+    WordVectorSerializer.write_full_model(model, path)
+    back = WordVectorSerializer.read_full_model(path, device="cpu")
+    same = (back.vocab.words() == model.vocab.words()
+            and np.array_equal(back.vocab.counts(), model.vocab.counts())
+            and all(torch.equal(getattr(back.lookup, t), getattr(model.lookup, t).cpu())
+                    for t in ("syn0", "syn1")))
+    check(same, "11e: the zip read on the CPU differs from the card's tables")
+    size = os.path.getsize(path)
+    print(f"  11e full-model zip of 11a's skip-gram model, written on the card, read on the "
+          f"CPU: {size / 1e6:.2f} MB, vocab, counts, syn0 and syn1 equal, on {card}")
+    return {"bytes": size, "equal": same}
+
+
+def embeddings_phase(torch, counts, seed, card):
+    """Phase 11: the embeddings stack on the card; no kernel of K1-K8 lies
+    on its path (the JAX package computes it with XLA ops)."""
+    import shutil
+
+    t0 = time.perf_counter()
+    shutil.rmtree(NLP_DIR, ignore_errors=True)
+    os.makedirs(NLP_DIR)
+    try:
+        corpus_a = zipf_corpus(seed)
+        corpus_b, topics = topic_corpus(seed)
+        print(f"  corpora: A {ZIPF_SENTS} Zipf sentences of {ZIPF_LEN} over {ZIPF_VOCAB} words, "
+              f"B {TOPIC_SENTS} two-topic sentences of {TOPIC_LEN} "
+              f"({time.perf_counter() - t0:.2f} s)")
+        counts.reset()
+        rec = {"w2v": w2v_phase(torch, corpus_a, seed, card)}
+        rec["corpus"] = corpus_phase(torch, [s.split() for s in corpus_a], seed, card)
+        rec["pv"] = pv_phase(torch, corpus_b, topics, seed, card)
+        rec["glove_graph"] = glove_graph_phase(torch, corpus_a, corpus_b, seed, card)
+        rec["zip"] = nlp_zip_phase(torch, rec["w2v"]["skipgram"].pop("model"), card)
+        rec["w2v"]["cbow"].pop("model")
+        torch.cuda.synchronize()
+        rec["launches"] = counts.read()
+    finally:
+        shutil.rmtree(NLP_DIR, ignore_errors=True)
+    check(sum(rec["launches"].values()) == 0, f"11: kernels launched {rec['launches']}")
+    rec["seconds"] = time.perf_counter() - t0
+    print(f"  phase 11: {rec['seconds']:.1f} s, no kernel of K1-K8 launched (none lies on "
+          f"this path)")
+    return rec
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4142,6 +4635,11 @@ def main(argv=None) -> int:
     p10["solvers"] = solver_phase(torch, counts, args.seed, card)
     p10["import"] = import_phase(torch, counts, args.seed, card)
 
+    print("[11] the embeddings stack: Word2Vec, ParagraphVectors, GloVe, DeepWalk, the "
+          "serializer")
+    torch.cuda.empty_cache()
+    p11 = embeddings_phase(torch, counts, args.seed, card)
+
     # each main path's count, read just after it ran from zero
     by_path = {"output": sl["launches"], "serve": sv["launches"],
                "train": tr["launches"], "train_resnet": rn["launches"],
@@ -4150,7 +4648,8 @@ def main(argv=None) -> int:
                "resnet50_transfer": p9["resnet50_transfer"]["launches"],
                "sentinel_charlstm": p10["rollback"]["launches"],
                "sentinel_resnet": p10["cost"]["launches"],
-               "solvers": p10["solvers"]["launches"], "dl4j_import": p10["import"]["launches"]}
+               "solvers": p10["solvers"]["launches"], "dl4j_import": p10["import"]["launches"],
+               "embeddings": p11["launches"]}
     main_launches = {name: sum(c.get(name, 0) for c in by_path.values())
                      for name in rows}
     meta = {
@@ -4194,6 +4693,7 @@ def main(argv=None) -> int:
               "fused": fu,
               "phase9": p9,
               "phase10": p10,
+              "phase11": p11,
               "build": {k: v["seconds"] for k, v in info.items()},
               "ptxas": {k: v["log"] for k, v in info.items() if k not in cuda_build.SOURCES},
               "seconds": time.perf_counter() - t_start}

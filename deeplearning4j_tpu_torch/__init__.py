@@ -18,7 +18,11 @@ stopping, with every kernel of the JAX package: the fused LSTM step, sequence an
 and the conv + BN-statistics, BN apply and BN backward kernels; and the
 divergence sentinel (quarantine and checkpoint rollback), the
 line-search solvers, the gradient check, the DL4J-format zip importer,
-and the record, streaming and CIFAR/Iris/LFW data iterators.
+and the record, streaming and CIFAR/Iris/LFW data iterators; and the
+embeddings stack — Word2Vec, ParagraphVectors, GloVe and the serializer
+(`nlp/`), DeepWalk and node2vec (`graph/`), and the native corpus
+pipeline (`native/`, built with g++ at first use) — whose device math
+is PyTorch ops, as the JAX package's is XLA ops.
 """
 
 __version__ = "0.1.0"

@@ -1,9 +1,11 @@
 """The port stands alone: it imports neither `jax` nor anything of the JAX
-package, and its entry points do not drop to the CPU when no GPU is
-there."""
+package, opens and maps no file of the JAX package's directory (its
+native corpus library included), and its entry points do not drop to the
+CPU when no GPU is there."""
 
 import os
 import re
+import shutil
 import subprocess
 import sys
 
@@ -27,6 +29,38 @@ bad = sorted(m for m in sys.modules
 print(len(names), bad)
 """
 
+# Drives the port's native corpus pipeline and a Word2Vec fit_file on a
+# temp file, recording every path the process opens or dlopens (audit
+# hooks), then lists whatever of the JAX package's directory it opened or
+# has mapped (/proc/self/maps).
+_FILES_CHILD = """
+import os, sys, tempfile
+JAX_PKG = sys.argv[1] + os.sep
+seen = []
+
+def hook(event, args):
+    if event in ("open", "ctypes.dlopen") and args and isinstance(args[0], (str, bytes)):
+        seen.append(os.fsdecode(args[0]))
+
+sys.addaudithook(hook)
+from deeplearning4j_tpu_torch import native
+from deeplearning4j_tpu_torch.nlp import SequenceVectors, VectorsConfiguration
+with tempfile.TemporaryDirectory() as d:
+    path = os.path.join(d, "corpus.txt")
+    with open(path, "w") as f:
+        f.write("a b c a b\\nb c d a\\n" * 20)
+    assert native.native_available(), "no C++ toolchain"
+    with native.NativeCorpus(path) as c:
+        c.vocab(1), c.indexed_sentences(1), c.cooccurrences(1, 2, True)
+    conf = VectorsConfiguration(layer_size=4, window=2, min_word_frequency=1)
+    SequenceVectors(conf, device="cpu").fit_file(path)
+with open("/proc/self/maps") as f:
+    maps = [l.split()[-1] for l in f if len(l.split()) >= 6]
+opened = sorted({os.path.realpath(p) for p in seen if os.path.isabs(p)})
+print(sorted({p for p in opened + maps if p.startswith(JAX_PKG)}))
+print(native._lib_path())
+"""
+
 
 def _sources():
     out = [os.path.join(ROOT, "chip_smoke.py")]
@@ -43,6 +77,19 @@ def test_importing_every_port_module_loads_no_jax():
     n, bad = res.stdout.strip().split(" ", 1)
     assert int(n) >= 15  # every module of the slice was imported
     assert bad == "[]", f"port imports pulled in {bad}"
+
+
+def test_the_port_opens_and_maps_no_file_of_the_jax_package():
+    if shutil.which("g++") is None:
+        pytest.skip("no C++ toolchain")
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    jax_pkg = os.path.realpath(os.path.join(ROOT, "deeplearning4j_tpu"))
+    res = subprocess.run([sys.executable, "-c", _FILES_CHILD, jax_pkg], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    touched, lib = res.stdout.strip().splitlines()[-2:]
+    assert touched == "[]", f"the port opened or mapped {touched}"
+    assert lib.startswith(os.path.join(PKG, "_build") + os.sep), lib
 
 
 @pytest.mark.parametrize("path", _sources(), ids=lambda p: os.path.relpath(p, ROOT))

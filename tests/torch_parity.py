@@ -21,6 +21,7 @@ import os
 import uuid
 
 import numpy as np
+import pytest
 import torch
 
 TOLERANCES = {
@@ -127,3 +128,16 @@ def jax_grads(net, x, y, f_mask=None, l_mask=None):
                             as_j(f_mask), as_j(l_mask), rng=None),
         has_aux=True)(net.params_list)
     return s, g
+
+
+@pytest.fixture
+def one_torch_thread():
+    """One intra-op thread for a test of many tiny ops (an embeddings fit).
+    Under several test workers a thread pool per process oversubscribes
+    the cores, and the small ops then wait on each other's threads. A
+    test module takes it with `pytestmark = pytest.mark.usefixtures(...)`
+    after importing it."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
