@@ -219,6 +219,36 @@ result lines:
    two joined cliques (the cliques separate). 11e: a full-model zip
    written on the card equals its tables read on the CPU. Scratch files
    go to `_nlp_smoke/` in the checkout, removed at the phase's end.
+12. Scale-out (parallel/): the data-parallel step on SCALE_RANKS
+   processes on the one card, spawned with torch.multiprocessing and
+   joined by gloo with CUDA tensors (every collective and every join
+   bounded; a rank that raises fails the script). 12c first: two NCCL
+   ranks on the card, recorded (NCCL takes one rank a GPU). The one-process
+   references run in this process. 12a: VGG16 through the Keras importer
+   (224x224x3, 1000 classes, bf16, global batch 32: 16 rows a rank, 2 SGD
+   steps) with bucket_bytes=0, the default 4 MiB and grad_dtype="bf16":
+   the ranks bit-equal, bucketed bit-equal to monolithic in scores and
+   parameters, allreduce_bytes_total the f32 parameter bytes a step
+   (138,357,544 parameters) and half under the bf16 wire, 2 ranks within
+   VGG_SCALE_* of one process; step p50 and
+   train_step_collective_seconds (estimate and measured). 12b: ResNet-50
+   (bf16, 2 ranks x 64 against one process at 128, 2 Nesterovs steps):
+   K4-K8 launched per step a rank as in phase 6, two BN all-reduces a BN a
+   step (K4/K5 -> K6 and K7 -> K8), a profiled step's all-reduces by site
+   (host and device ms), and score, BN running statistics and parameters
+   within SCALE_WITNESS of the one-process run's distance from itself with
+   the batches' rows reversed; the full-width char-LSTM on 2 ranks (two
+   TBPTT segments): K1/K3 launched a segment, the first score as one
+   process's. 12d on the same ranks: the TP Dense stack against the
+   unsharded net, pipeline_apply against sequential_apply (values and
+   gradients), ring attention against full attention (causal and not,
+   f32 and bf16; values and gradients), the point-to-point staged through
+   pinned host memory. 12c: a world-1 NCCL group in this process:
+   MeshPlan.reduce_grads on ResNet-50's bucketed gradients, eager and
+   captured in a CUDA graph, returns its input bit-equal; a world-1 meshed
+   fit books 0 bytes and issues no collective. Scratch files go to
+   `_scale_smoke/` in the checkout, removed at the phase's end; phase 12's
+   numbers are a JSON line before the last three.
 The last three lines of standard output are the kernels JSON line, the
 card line, and {"ok": true, "device": {...}}. Imports nothing of JAX.
 """
@@ -4475,6 +4505,858 @@ def embeddings_phase(torch, counts, seed, card):
     return rec
 
 
+# -- phase 12: scale-out ----------------------------------------------------------------
+
+SCALE_DIR = os.path.join(HERE, "_scale_smoke")
+SCALE_RANKS = 2            # processes on the one card, joined by gloo
+SCALE_GROUP_TIMEOUT = 300  # every collective of the ranks' group (s)
+SCALE_JOIN_TIMEOUT = 600   # the ranks' whole run (s)
+NCCL_PROBE_TIMEOUT = 90    # the two-NCCL-ranks-on-one-card probe (s)
+VGG_SCALE_BATCH, VGG_SCALE_STEPS = 32, 2
+RESNET_SCALE_BATCH, RESNET_SCALE_STEPS = 128, 2
+SCALE_IMAGE = 224          # ResNet-50's image side in 12b and 12c
+LSTM_SCALE_T = 100         # two TBPTT segments of 50 at char-LSTM's width
+VGG16_PARAMS = 138_357_544
+SCALE_TIMED_STEPS = 3      # steps timed after the compared ones (warm), for step p50
+# 2 ranks against 1 process in bf16. A data-parallel bf16 gradient is the
+# f32 sum of the ranks' partial gradients, each rounded to bf16 (8
+# significant bits) before the sum, where one process rounds the whole
+# batch's gradient once. On random-label noise images the examples'
+# gradients nearly cancel, so a partial's rounding is of the order of the
+# sum, and the two runs' parameters part by a good fraction of a step
+# (VGG16 after 2 steps: median 0.27, worst 0.37 of the step's own motion
+# on an H100 80GB HBM3 at 700 W). The witness with the same rounding is one process
+# taking its batch as SCALE_RANKS half-batch losses in one autograd
+# (`split_step`): the ranks compute the same partials and sum them in the
+# all-reduce instead of in autograd. 12a holds VGG16's parameters to that
+# witness, VGG_SPLIT_MEDIAN / VGG_SPLIT_WORST of each tensor's motion
+# (max |a - b| / max |b - p0|), and the scores to one process,
+# VGG_SCALE_SCORE_RTOL; the distance from one process is reported.
+VGG_SPLIT_MEDIAN, VGG_SPLIT_WORST, VGG_SCALE_SCORE_RTOL = 1e-3, 1e-2, 1e-2
+# ResNet-50 in bf16 (12b, 2 x 64 against 128): its BN statistics are
+# global, so no one-process split reproduces the ranks' rounding; the
+# first step's score (the forward from the same parameters: the BN sums
+# summed in two halves and across the ranks) is held to
+# RESNET_BF16_SCORE_RTOL and the rest reported. Phase 6's tolerances
+# hold in f32 (12b', 2 x 16 against 32, one Nesterovs step from init, as
+# phase 6's lockstep): the score RESNET_SCORE_RTOL, the BN running
+# statistics RESNET_STATE_RTOL of each tensor's largest entry, and the
+# parameters, whose f32 gradient at init is ill-conditioned (phase 6),
+# within SCALE_WITNESS times the distance of one process from itself
+# with the batch's rows reversed (the same sums in another order).
+RESNET_BF16_SCORE_RTOL = 1e-3
+SCALE_WITNESS = 10.0
+# 12d at the JAX tests' shapes and tolerances, on the card in f32 (TF32
+# off): the TP stack 2e-5 / 2e-6, the pipeline 2e-5 / 1e-6, ring attention
+# values 2e-5 / 2e-6 and gradients 5e-5 / 5e-6, bf16 values 0.05 / 0.02
+TP_RTOL, TP_ATOL = 2e-5, 2e-6
+PIPE_RTOL, PIPE_ATOL = 2e-5, 1e-6
+RING_RTOL, RING_ATOL, RING_GRAD_RTOL, RING_GRAD_ATOL = 2e-5, 2e-6, 5e-5, 5e-6
+RING_BF16_RTOL, RING_BF16_ATOL = 0.05, 0.02
+
+
+def _scale_setup(rank, world, root, backend="gloo"):
+    """A rank's process: the card, the port on the path, TF32 off, and the
+    group (every collective bounded by SCALE_GROUP_TIMEOUT)."""
+    import datetime
+
+    os.environ.setdefault("DISABLE_CUPTI_LAZY_REINIT", "1")
+    # the explicit meshes below only: no fit of a rank meshes by itself
+    os.environ["DL4J_AUTO_MESH"] = "0"
+    import torch
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    sys.path.insert(0, HERE)
+    from deeplearning4j_tpu_torch.common.dtypes import default_policy
+
+    default_policy().apply()
+    dist.init_process_group(backend, init_method="file://" + os.path.join(root, "store"),
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=SCALE_GROUP_TIMEOUT))
+    return torch, dist
+
+
+def nccl_probe_rank(rank, world, root):
+    """Two NCCL ranks on one card: records what NCCL does (it refuses a
+    second rank on a GPU it already serves)."""
+    torch, dist = _scale_setup(rank, world, root, backend="nccl")
+    t = torch.ones(4, device="cuda")
+    dist.all_reduce(t)  # raises here when NCCL refuses (no teardown of a failed group)
+    torch.cuda.synchronize()
+    dist.destroy_process_group()
+    return float(t[0])
+
+
+def _run_ranks(torch, fn, root, args=(), timeout=SCALE_JOIN_TIMEOUT, nprocs=SCALE_RANKS):
+    """Spawn `nprocs` processes running fn(rank, nprocs, root, *args); each
+    writes its result to root/rank<r>.json. A rank that raises makes this
+    raise (torch.multiprocessing's ProcessRaisedException); ranks still
+    running at the deadline are terminated and this raises."""
+    import torch.multiprocessing as mp
+
+    ctx = mp.start_processes(_rank_entry, args=(fn, nprocs, root, args), nprocs=nprocs,
+                             join=False, start_method="spawn")
+    deadline = time.monotonic() + timeout
+    try:
+        while not ctx.join(timeout=max(1.0, deadline - time.monotonic())):
+            if time.monotonic() >= deadline:
+                raise SmokeFailure(f"ranks of {fn.__name__} still running after {timeout} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.terminate()
+                p.join(10)
+    out = []
+    for r in range(nprocs):
+        with open(os.path.join(root, f"rank{r}.json")) as f:
+            out.append(json.load(f))
+    return out
+
+
+def _rank_entry(rank, fn, world, root, args):
+    res = fn(rank, world, root, *args)
+    with open(os.path.join(root, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+
+
+def _host_copy(t):
+    """A host copy of t (a copy also when t already lies on the host)."""
+    return t.detach().to("cpu", copy=True)
+
+
+def _flat_leaves(tree):
+    from deeplearning4j_tpu_torch.utils.model_serializer import tree_leaves
+
+    return tree_leaves(tree)
+
+
+def _exact_sum(torch, tensors) -> int:
+    """An order-free checksum of tensors' bits (int64 sum of their 32-bit
+    or 16-bit words): equal replicas give equal sums."""
+    tot = 0
+    for t in tensors:
+        t = t.detach().contiguous()
+        w = t.view(torch.int32) if t.element_size() == 4 else t.view(torch.int16)
+        tot += int(w.to(torch.int64).sum())
+    return tot
+
+
+def _step_dist(torch, got, ref, p0) -> tuple:
+    """Per tensor max |got - ref| over max |ref - p0| (the reference's own
+    motion): (median, worst)."""
+    d = []
+    for a, b, c in zip(got, ref, p0):
+        b = b.to(a.device)
+        motion = (b.double() - c.to(a.device).double()).abs().max().clamp_min(1e-30)
+        d.append(float((a.double() - b.double()).abs().max() / motion))
+    return float(np.median(d)), max(d)
+
+
+def _rel_max(torch, got, ref) -> float:
+    """Per tensor max |got - ref| over max |ref|, the worst."""
+    return max(float((a.double() - b.to(a.device).double()).abs().max()
+                     / b.double().abs().max().clamp_min(1e-30)) for a, b in zip(got, ref))
+
+
+def _timed_steps(torch, IterationListener, net, data, steps=SCALE_TIMED_STEPS):
+    """Synced seconds of each of `steps` more steps of `net` on `data`
+    (warm: after the compared ones)."""
+    from deeplearning4j_tpu_torch.data import ExistingDataSetIterator
+
+    log = _StepLog(torch, IterationListener)
+    net.set_listeners(log.listener)
+    net.fit(ExistingDataSetIterator((data * steps)[:steps]), epochs=1, async_prefetch=False)
+    return log.steps()
+
+
+class _StepLog:
+    """Scores (device tensors, read at the end) and synced step times."""
+
+    def __init__(self, torch, IterationListener):
+        log = self
+
+        class L(IterationListener):
+            def iteration_done(self, model, iteration, info):
+                torch.cuda.synchronize()
+                log.times.append(time.perf_counter())
+                log.scores.append(info["score"]())
+
+        self.listener, self.scores, self.times = L(), [], [time.perf_counter()]
+
+    def values(self):
+        return [float(s) for s in self.scores]
+
+    def steps(self):
+        return list(np.diff(self.times))
+
+
+def split_step(torch, net, ds, parts=SCALE_RANKS):
+    """One optimizer step of `net` on `ds` with the batch taken as `parts`
+    equal slices whose losses (each its share of the batch mean) are summed
+    in one autograd: the same bf16-rounded partial gradients the ranks of
+    a data-parallel step sum, in one process. Returns the score."""
+    x, y = ds.features, ds.labels
+    b = x.shape[0] // parts
+
+    def builder(p, states, data, rng):
+        total = 0.0
+        for i in range(parts):
+            loss, st = net._loss(p, states, x[i * b:(i + 1) * b], y[i * b:(i + 1) * b],
+                                 None, None, rng)
+            total = total + loss / parts
+        return total, st
+
+    _, score = net._run_step(builder, (x, y, None, None))
+    return score
+
+
+def scale_rank(rank, world, root, seed):
+    """One rank of phase 12 (12a VGG16, 12b ResNet-50 and the char-LSTM on
+    the data-parallel step, 12d TP, pipeline and ring attention), over
+    gloo with CUDA tensors. Returns its records; rank 0 also saves the
+    parameters the main process compares."""
+    torch, dist = _scale_setup(rank, world, root)
+    try:
+        return _scale_rank_body(torch, dist, rank, world, root, seed)
+    finally:
+        dist.destroy_process_group()
+
+
+def _scale_rank_body(torch, dist, rank, world, root, seed):
+    import torch.nn.functional as F
+
+    from deeplearning4j_tpu_torch.data import DataSet, ExistingDataSetIterator
+    from deeplearning4j_tpu_torch.models.charlstm import char_lstm_network
+    from deeplearning4j_tpu_torch.models.resnet import resnet50_network
+    from deeplearning4j_tpu_torch.models.vgg16 import vgg16_network
+    from deeplearning4j_tpu_torch.ops import fused_conv_bn as fcb
+    from deeplearning4j_tpu_torch.ops import fused_lstm as fl
+    from deeplearning4j_tpu_torch.parallel.mesh import data_parallel_mesh
+    from deeplearning4j_tpu_torch.parallel.sharded import MeshPlan
+    from deeplearning4j_tpu_torch.train.listeners import IterationListener
+    from deeplearning4j_tpu_torch.utils.metrics import get_registry
+
+    reg = get_registry()
+    books = {"bytes": reg.counter("allreduce_bytes_total", "").labels(),
+             "estimate": reg.counter("train_step_collective_seconds", "",
+                                     ("source",)).labels("estimate"),
+             "measured": reg.counter("train_step_collective_seconds", "",
+                                     ("source",)).labels("measured")}
+    mesh = data_parallel_mesh()
+    counts = LaunchCounts(fl, fcb)
+    out = {"rank": rank}
+    counts.reset()   # the main path's count starts here
+
+    def delta(before):
+        now = counts.read()
+        return {k: now[k] - before.get(k, 0) for k in now}
+
+    # 12a: VGG16, full width, bf16, global batch 32: 16 rows a rank
+    data = vgg_batches(torch, F, DataSet, seed + 120, 1, VGG_SCALE_BATCH, 1000)
+    runs, mono = {}, None
+    for name, kw in (("monolithic", {"bucket_bytes": 0}), ("bucketed", {}),
+                     ("bf16_wire", {"grad_dtype": "bf16"})):
+        net = vgg16_network(image_size=PHASE9_IMAGE, seed=seed)
+        plan = MeshPlan(mesh, sample_every=VGG_SCALE_STEPS, **kw)
+        net.set_mesh(plan=plan)
+        log = _StepLog(torch, IterationListener)
+        net.set_listeners(log.listener)
+        b0 = {k: c.value for k, c in books.items()}
+        mesh.stats.reset()
+        net.fit(ExistingDataSetIterator(data), epochs=VGG_SCALE_STEPS, async_prefetch=False)
+        leaves = _flat_leaves(net.params_list)
+        rec = {"scores": log.values(), "first_steps_s": log.steps(),
+               "books": {k: c.value - b0[k] for k, c in books.items()},
+               "payload": plan.grad_payload_bytes(net),
+               "describe": plan.collective_describe(net),
+               "stats": mesh.stats.snapshot(), "checksum": _exact_sum(torch, leaves),
+               "n_params": sum(v.numel() for v in leaves)}
+        if name == "monolithic":
+            mono = [_host_copy(v) for v in leaves]
+        elif name == "bucketed":
+            rec["bit_equal_monolithic"] = all(torch.equal(a.cpu(), b)
+                                              for a, b in zip(leaves, mono))
+            if rank == 0:
+                torch.save([_host_copy(v) for v in leaves], os.path.join(root, "vgg_rank0.pt"))
+        else:
+            rec["bf16_vs_f32_rel"] = _rel_max(torch, leaves, mono)
+        plan.sample_every = 0
+        rec["step_s"] = _timed_steps(torch, IterationListener, net, data)
+        runs[name] = rec
+        del net, plan
+        torch.cuda.empty_cache()
+    out["vgg16"] = runs
+    del mono, data
+
+    # 12b: ResNet-50, full width, bf16, global batch 128: 64 rows a rank
+    data = resnet_batches(torch, F, DataSet, seed + 121, RESNET_SCALE_STEPS, RESNET_SCALE_BATCH,
+                          size=SCALE_IMAGE)
+    net = resnet50_network(image_size=SCALE_IMAGE, precision="bf16", seed=seed,
+                           learning_rate=RESNET_LR)
+    net.set_mesh(plan=MeshPlan(mesh, sample_every=0))
+    log = _StepLog(torch, IterationListener)
+    net.set_listeners(log.listener)
+    b0 = {k: c.value for k, c in books.items()}
+    mesh.stats.reset()
+    c0 = counts.read()
+    net.fit(ExistingDataSetIterator(data), epochs=1, async_prefetch=False)
+    launches = delta(c0)
+    stats = mesh.stats.snapshot()
+    rn = {"scores": log.values(), "first_steps_s": log.steps(), "launches": launches,
+          "books": {k: c.value - b0[k] for k, c in books.items()}, "stats": stats,
+          "checksum": _exact_sum(torch, _flat_leaves([net.params_list, net.state_list]))}
+    saved = {"bf16": {"params": [_host_copy(v) for v in _flat_leaves(net.params_list)],
+                      "state": [_host_copy(v) for v in _flat_leaves(net.state_list)]}}
+    rn["step_s"] = _timed_steps(torch, IterationListener, net, data)
+    # a fused group on a gloo mesh: gloo's collectives cannot be captured,
+    # so the group runs eagerly and counts a stated decline
+    declined = reg.counter("fit_graph_declined_total", "", ("reason",)).labels("collective")
+    d0 = declined.value
+    net.set_listeners()
+    net.set_fused_steps(RESNET_SCALE_STEPS)
+    net.fit(ExistingDataSetIterator(data), epochs=1, async_prefetch=False)
+    net.set_fused_steps(1)
+    rn["fused_declined_collective"] = declined.value - d0
+    # one more step under the profiler: the per-BN all-reduces' host and
+    # device time (gloo: the copies to and from pinned host memory)
+    from torch.profiler import ProfilerActivity, profile
+
+    net.set_listeners()
+    torch.cuda.synchronize()
+    mesh.stats.reset()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        net.fit(ExistingDataSetIterator(data[:1]), epochs=1, async_prefetch=False)
+        torch.cuda.synchronize()
+    # host ms: the blocking all-reduce calls on the host clock (mesh.stats);
+    # device ms: the profiler's device time under each collective's range
+    # (its CPU and its GPU-annotation rows: the larger)
+    host = mesh.stats.snapshot()
+    rows = {}
+    for e in prof.key_averages():
+        if e.key.startswith("collective/"):
+            site = e.key.split("/", 1)[1]
+            r = rows.setdefault(e.key, {"calls": host.get(site, {}).get("calls", 0),
+                                        "host_ms": host.get(site, {}).get("seconds", 0) * 1e3,
+                                        "device_ms": 0.0})
+            r["device_ms"] = max(r["device_ms"], getattr(e, "device_time_total", 0.0) / 1e3)
+    rn["profile"] = rows
+    del net, data
+    torch.cuda.empty_cache()
+    # 12b': f32, 2 x 16 against one process at 32, one step from init
+    data = resnet_batches(torch, F, DataSet, seed + 124, 1, LOCKSTEP_BATCH, size=SCALE_IMAGE)
+    net = resnet50_network(image_size=SCALE_IMAGE, precision="f32", seed=seed,
+                           learning_rate=RESNET_LR)
+    net.set_mesh(plan=MeshPlan(mesh, sample_every=0))
+    log = _StepLog(torch, IterationListener)
+    net.set_listeners(log.listener)
+    net.fit(ExistingDataSetIterator(data), epochs=1, async_prefetch=False)
+    rn["f32"] = {"scores": log.values()}
+    saved["f32"] = {"params": [_host_copy(v) for v in _flat_leaves(net.params_list)],
+                    "state": [_host_copy(v) for v in _flat_leaves(net.state_list)]}
+    if rank == 0:
+        torch.save(saved, os.path.join(root, "resnet_rank0.pt"))
+    out["resnet50"] = rn
+    del net, data, saved
+    torch.cuda.empty_cache()
+
+    # the char-LSTM at full width: one batch of [32, 100, 77], two TBPTT
+    # segments of 50, 16 rows a rank
+    g = torch.Generator(device="cuda").manual_seed(seed + 122)
+    idx = torch.randint(0, VOCAB, (TRAIN_B, LSTM_SCALE_T + 1), generator=g, device="cuda")
+    eye = torch.eye(VOCAB, device="cuda")
+    lstm_data = [DataSet(eye[idx[:, :-1]], eye[idx[:, 1:]])]
+    net = char_lstm_network(vocab_size=VOCAB, hidden=HIDDEN, layers=LAYERS, seed=seed,
+                            learning_rate=TRAIN_LR)
+    net.set_mesh()
+    log = _StepLog(torch, IterationListener)
+    net.set_listeners(log.listener)
+    c0 = counts.read()
+    net.fit(ExistingDataSetIterator(lstm_data), epochs=1, async_prefetch=False)
+    out["charlstm"] = {"scores": log.values(), "launches": delta(c0)}
+    del net
+    out["launches"] = counts.read()   # the main path's count, read just after it ran
+
+    # 12d: tensor, pipeline and sequence parallelism on the card
+    out["parallel"] = _scale_parallel_checks(torch, rank, world)
+    out["staged_bytes"] = mesh.staged_bytes
+    out["transport"] = mesh.backend
+    return out
+
+
+def _scale_parallel_checks(torch, rank, world):
+    """12d on this rank: the TP dense stack against the unsharded net,
+    pipeline_apply against sequential_apply, ring attention against full
+    attention (values and gradients). Point-to-point and all-gather of CUDA
+    tensors stage through pinned host memory on gloo."""
+    from deeplearning4j_tpu_torch.nn.conf import (
+        DenseLayer, NeuralNetConfiguration, OutputLayer, Updater)
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.nn.params import flat_to_params
+    from deeplearning4j_tpu_torch.parallel import mesh_2d, shard_params_tp
+    from deeplearning4j_tpu_torch.parallel.mesh import Mesh, all_gather
+    from deeplearning4j_tpu_torch.parallel.pipeline import (
+        pipeline_apply, pipeline_parallel_mesh, sequential_apply, shard_stage_params)
+    from deeplearning4j_tpu_torch.parallel.sequence import (
+        SEQ_AXIS, full_attention, ring_attention_sharded)
+
+    res = {}
+    # TP: the JAX test's Dense stack, Adam, 2 epochs of 2 batches of 32
+    conf = (NeuralNetConfiguration.builder().seed(11).updater(Updater.ADAM)
+            .learning_rate(0.01).weight_init("xavier").list()
+            .layer(DenseLayer(n_in=12, n_out=32, activation="tanh"))
+            .layer(DenseLayer(n_in=32, n_out=16, activation="tanh"))
+            .layer(OutputLayer(n_in=16, n_out=4, activation="softmax", loss="mcxent"))
+            .build())
+    g = torch.Generator().manual_seed(9)
+    x = torch.randn((64, 12), generator=g).numpy()
+    y = np.eye(4, dtype=np.float32)[torch.randint(0, 4, (64,), generator=g).numpy()]
+    ref = MultiLayerNetwork(conf).init()
+    ref.fit(x, y, batch_size=32, epochs=2, async_prefetch=False)
+    tp = MultiLayerNetwork(conf).init()
+    shard_params_tp(tp, mesh_2d(1, world))
+    local = [tuple(p["W"].shape) for p in tp.params_list]
+    tp.fit(x, y, batch_size=32, epochs=2, async_prefetch=False)
+    glob = flat_to_params(tp.layer_confs, tp._global_params()[0], tp.params())
+    ok = all(torch.allclose(a, b, rtol=TP_RTOL, atol=TP_ATOL)
+             for a, b in zip(_flat_leaves(glob), _flat_leaves(ref.params_list)))
+    res["tp"] = {"ok": ok, "local_w_shapes": local,
+                 "max_abs": max(float((a - b).abs().max()) for a, b in
+                                zip(_flat_leaves(glob), _flat_leaves(ref.params_list)))}
+
+    # pipeline: 2 stages, 4 microbatches, D 16, B 32 (values and gradients)
+    S, M, D, B = world, 4, 16, 32
+    g = torch.Generator(device="cuda").manual_seed(4)
+    W = torch.randn((S, D, D), generator=g, device="cuda") / D ** 0.5
+    b = torch.randn((S, D), generator=g, device="cuda") * 0.1
+    xp = torch.randn((B, D), generator=g, device="cuda")
+    yp = torch.randn((B, D), generator=g, device="cuda")
+
+    def stage(p, v):
+        return torch.tanh(v @ p["W"] + p["b"])
+
+    pmesh = pipeline_parallel_mesh()
+    mine = shard_stage_params({"W": W, "b": b}, pmesh)
+    for v in mine.values():
+        v.requires_grad_(True)
+    got = pipeline_apply(stage, mine, xp, mesh=pmesh, n_microbatches=M)
+    gW, gb = torch.autograd.grad(((got - yp) ** 2).mean(), [mine["W"], mine["b"]])
+    full = {"W": W.clone().requires_grad_(True), "b": b.clone().requires_grad_(True)}
+    want = sequential_apply(stage, full, xp)
+    rW, rb = torch.autograd.grad(((want - yp) ** 2).mean(), [full["W"], full["b"]])
+    s = pmesh.axis_index("stage")
+    res["pipeline"] = {
+        "values_ok": bool(torch.allclose(got, want, rtol=PIPE_RTOL, atol=PIPE_ATOL)),
+        "grads_ok": bool(torch.allclose(gW, rW[s:s + 1], rtol=PIPE_RTOL, atol=PIPE_ATOL)
+                         and torch.allclose(gb, rb[s:s + 1], rtol=PIPE_RTOL, atol=PIPE_ATOL)),
+        "max_abs": float((got - want).detach().abs().max())}
+
+    # ring attention: B 2, T 16, H 4, D 8, causal and not, f32 and bf16
+    smesh = Mesh(np.arange(world), (SEQ_AXIS,))
+    Bq, T, H, Dh = 2, 16, 4, 8
+    g = torch.Generator(device="cuda").manual_seed(5)
+    q, k, v = (torch.randn((Bq, T, H, Dh), generator=g, device="cuda") * 0.5 for _ in range(3))
+    Tl = T // world
+    sl = slice(rank * Tl, (rank + 1) * Tl)
+    ring = {}
+    for causal in (False, True):
+        fq, fk, fv = (t.clone().requires_grad_(True) for t in (q, k, v))
+        fo = full_attention(fq, fk, fv, causal=causal)
+        fgrads = torch.autograd.grad(fo.square().sum(), [fq, fk, fv])
+        for dt in (torch.float32, torch.bfloat16):
+            blocks = [t[:, sl].to(dt).detach().requires_grad_(True) for t in (q, k, v)]
+            o = ring_attention_sharded(*blocks, mesh=smesh, causal=causal)
+            whole = all_gather(o.transpose(0, 1).contiguous(), smesh, SEQ_AXIS).transpose(0, 1)
+            grads = torch.autograd.grad(whole.float().square().sum(), blocks)
+            key = f"{'causal' if causal else 'full'}_{str(dt)[6:]}"
+            if dt == torch.float32:
+                ok = bool(torch.allclose(whole, fo, rtol=RING_RTOL, atol=RING_ATOL)) and all(
+                    torch.allclose(a, w[:, sl], rtol=RING_GRAD_RTOL, atol=RING_GRAD_ATOL)
+                    for a, w in zip(grads, fgrads))
+            else:
+                ok = bool(torch.allclose(whole.float(), fo, rtol=RING_BF16_RTOL,
+                                         atol=RING_BF16_ATOL)) and all(
+                    bool(torch.isfinite(a).all()) for a in grads)
+            ring[key] = {"ok": ok, "max_abs": float((whole.float() - fo).detach().abs().max())}
+    res["ring"] = ring
+    res["staged_bytes"] = smesh.staged_bytes + pmesh.staged_bytes
+    return res
+
+
+def nccl_world1_phase(torch, resnet50_network, F, DataSet, seed, root):
+    """12c: a world-1 NCCL group. MeshPlan.reduce_grads on ResNet-50's
+    bucketed gradients, eagerly and captured in a CUDA graph (after the
+    eager call warmed the communicator): both return their input
+    bit-equal. A world-1 meshed fit issues no collective and books 0
+    bytes."""
+    import datetime
+
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+
+    from deeplearning4j_tpu_torch.data import ExistingDataSetIterator
+    from deeplearning4j_tpu_torch.parallel.mesh import data_parallel_mesh
+    from deeplearning4j_tpu_torch.parallel.sharded import MeshPlan
+    from deeplearning4j_tpu_torch.utils.metrics import get_registry
+
+    dist.init_process_group("nccl", init_method="file://" + os.path.join(root, "nccl1"),
+                            rank=0, world_size=1,
+                            timeout=datetime.timedelta(seconds=SCALE_GROUP_TIMEOUT))
+    try:
+        mesh = data_parallel_mesh()
+        net = resnet50_network(image_size=SCALE_IMAGE, precision="bf16", seed=seed,
+                               learning_rate=RESNET_LR)
+        plan = MeshPlan(mesh).place_net(net)
+        batch = resnet_batches(torch, F, DataSet, seed + 123, 1, 16, size=SCALE_IMAGE)[0]
+        keys = [list(p) for p in net.params_list]
+        leaves = [p[k] for p, ks in zip(net.params_list, keys) for k in ks]
+        for v in leaves:
+            v.requires_grad_(True)
+        s_, _ = net._loss(net.params_list, net.state_list, [batch.features], [batch.labels],
+                          None, None, None)
+        flat = torch.autograd.grad(s_, leaves)
+        for v in leaves:
+            v.requires_grad_(False)
+        it = iter(flat)
+        grads = [{k: next(it).detach() for k in ks} for ks in keys]
+        want = [{k: g.clone() for k, g in d.items()} for d in grads]
+        score = s_.detach().float()
+
+        def call():
+            live = [dict(d) for d in grads]
+            return plan.reduce_grads(net, live, score)
+
+        eager, eager_score = call()
+        eager_equal = all(torch.equal(eager[i][k], want[i][k]) for i in range(len(want))
+                          for k in want[i]) and bool(torch.equal(eager_score, score))
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side), torch.cuda.graph(graph, stream=side):
+            captured, captured_score = call()
+        torch.cuda.current_stream().wait_stream(side)
+        graph.replay()
+        torch.cuda.synchronize()
+        graph_equal = all(torch.equal(captured[i][k], want[i][k]) for i in range(len(want))
+                          for k in want[i]) and bool(torch.equal(captured_score, score))
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            graph.replay()
+            torch.cuda.synchronize()
+        kernels = sorted({e.key[:60] for e in prof.key_averages()
+                          if getattr(e, "self_device_time_total", 0) > 0})
+        buckets = plan.collective_describe(net)["n_buckets"]
+        # a world-1 meshed fit: no collective, 0 bytes
+        ctr = get_registry().counter("allreduce_bytes_total", "").labels()
+        b0 = ctr.value
+        net.set_mesh(mesh)
+        mesh.stats.reset()
+        net.fit(ExistingDataSetIterator([batch]), epochs=1, async_prefetch=False)
+        torch.cuda.synchronize()
+        fit_books, fit_calls = ctr.value - b0, mesh.stats.snapshot()
+        return {"eager_bit_equal": eager_equal, "graph_bit_equal": graph_equal,
+                "graph_kernels": kernels, "nccl_kernels": [k for k in kernels if "nccl" in k.lower()],
+                "buckets": buckets, "fit_books": fit_books, "fit_collectives": fit_calls,
+                "transport": mesh.backend}
+    finally:
+        dist.destroy_process_group()
+
+
+def scale_summary(p12) -> dict:
+    """Phase 12's numbers for its JSON line: step p50s, books, collective
+    seconds by source, the BN all-reduces' times, the distances from one
+    process, and the transport of each."""
+    v, r = p12["vgg16"], p12["resnet50"]
+    prof = r["profile"]
+    return {
+        "transport": v["transport"], "ranks": SCALE_RANKS,
+        "vgg16": {n: {"step_p50_s": float(np.median(x["step_s"])),
+                      "allreduce_bytes_per_step": x["books"]["bytes"] / VGG_SCALE_STEPS,
+                      "collective_seconds_estimate_per_step":
+                          x["books"]["estimate"] / VGG_SCALE_STEPS,
+                      "collective_seconds_measured_per_step":
+                          x["books"]["measured"] / VGG_SCALE_STEPS}
+                  for n, x in v["runs"].items()},
+        "vgg16_one_process_step_p50_s": float(np.median(v["reference_step_s"])),
+        "vgg16_vs_one_process": v["vs_one_process"],
+        "resnet50": {"step_p50_s": float(np.median(r["step_s"])),
+                     "one_process_step_p50_s": float(np.median(r["reference_step_s"])),
+                     "launches_per_step": r["launches_per_step"],
+                     "bn_allreduce": prof.get("collective/bn_stats"),
+                     "grad_allreduce": prof.get("collective/grads"),
+                     "vs_one_process": r["vs_one_process"], "witness": r["witness"],
+                     "f32_vs_one_process": r["f32_vs_one_process"],
+                     "f32_witness": r["f32_witness"]},
+        "vgg16_vs_split_witness": v["vs_split"],
+        "nccl_world1": {k: p12["nccl_world1"][k] for k in
+                        ("eager_bit_equal", "graph_bit_equal", "nccl_kernels", "fit_books")},
+        "nccl_two_ranks_one_gpu": p12["nccl_two_ranks_one_gpu"]["outcome"],
+        "seconds": p12["seconds"]}
+
+
+def scale_out_phase(torch, F, counts, metrics, seed, card):
+    """12: the data-parallel step and the parallel helpers on the one card.
+    The ranks are processes joined by gloo with CUDA tensors (NCCL takes
+    one rank a GPU, 12c's probe records how it refuses a second); NCCL is
+    held as one rank (12c). Scratch files go to _scale_smoke/, removed at
+    the end."""
+    import shutil
+
+    from deeplearning4j_tpu_torch.data import DataSet, ExistingDataSetIterator
+    from deeplearning4j_tpu_torch.models.charlstm import char_lstm_network
+    from deeplearning4j_tpu_torch.models.resnet import resnet50_network
+    from deeplearning4j_tpu_torch.models.vgg16 import vgg16_network
+    from deeplearning4j_tpu_torch.train.listeners import IterationListener
+
+    t_phase = time.perf_counter()
+    shutil.rmtree(SCALE_DIR, ignore_errors=True)
+    os.makedirs(SCALE_DIR)
+    rec = {}
+    try:
+        # 12c first: two NCCL ranks on the one card (an observation: NCCL
+        # takes one rank a GPU)
+        probe = os.path.join(SCALE_DIR, "probe")
+        os.makedirs(probe)
+        try:
+            _run_ranks(torch, nccl_probe_rank, probe, timeout=NCCL_PROBE_TIMEOUT)
+            rec["nccl_two_ranks_one_gpu"] = {"outcome": "ran"}
+        except Exception as e:  # the expected outcome: NCCL refuses
+            msg = str(e)
+            dup = "Duplicate GPU" in msg
+            rec["nccl_two_ranks_one_gpu"] = {
+                "outcome": "refused" if dup else "failed",
+                "error": [ln for ln in msg.splitlines() if ln.strip()][-4:]}
+        print(f"  12c two NCCL ranks on one card: {rec['nccl_two_ranks_one_gpu']}")
+
+        # the one-process references, on this process
+        leaves = _flat_leaves
+        net = vgg16_network(image_size=PHASE9_IMAGE, seed=seed)
+        p0 = [_host_copy(v) for v in leaves(net.params_list)]
+        data = vgg_batches(torch, F, DataSet, seed + 120, 1, VGG_SCALE_BATCH, 1000)
+        log = _StepLog(torch, IterationListener)
+        net.set_listeners(log.listener)
+        net.fit(ExistingDataSetIterator(data), epochs=VGG_SCALE_STEPS, async_prefetch=False)
+        vgg_ref = {"scores": log.values(),
+                   "params": [_host_copy(v) for v in leaves(net.params_list)]}
+        vgg_ref["step_s"] = _timed_steps(torch, IterationListener, net, data)
+        del net
+        net = vgg16_network(image_size=PHASE9_IMAGE, seed=seed)
+        split_scores = [float(split_step(torch, net, data[0])) for _ in range(VGG_SCALE_STEPS)]
+        vgg_split = [_host_copy(v) for v in leaves(net.params_list)]
+        del net, data
+        torch.cuda.empty_cache()
+
+        def resnet_ref(precision, batch, steps, seed_off, reverse):
+            d = resnet_batches(torch, F, DataSet, seed + seed_off, steps, batch,
+                               size=SCALE_IMAGE)
+            if reverse:
+                d = [DataSet(b.features.flip(0), b.labels.flip(0)) for b in d]
+            n = resnet50_network(image_size=SCALE_IMAGE, precision=precision, seed=seed,
+                                 learning_rate=RESNET_LR)
+            p_init = [_host_copy(v) for v in leaves(n.params_list)]
+            lg = _StepLog(torch, IterationListener)
+            n.set_listeners(lg.listener)
+            n.fit(ExistingDataSetIterator(d), epochs=1, async_prefetch=False)
+            r = {"scores": lg.values(), "p0": p_init,
+                 "params": [_host_copy(v) for v in leaves(n.params_list)],
+                 "state": [_host_copy(v) for v in leaves(n.state_list)]}
+            if not reverse:
+                r["step_s"] = _timed_steps(torch, IterationListener, n, d)
+            del n, d
+            torch.cuda.empty_cache()
+            return r
+
+        rn_ref = resnet_ref("bf16", RESNET_SCALE_BATCH, RESNET_SCALE_STEPS, 121, False)
+        rn_wit = resnet_ref("bf16", RESNET_SCALE_BATCH, RESNET_SCALE_STEPS, 121, True)
+        f32_ref = resnet_ref("f32", LOCKSTEP_BATCH, 1, 124, False)
+        f32_wit = resnet_ref("f32", LOCKSTEP_BATCH, 1, 124, True)
+        g = torch.Generator(device="cuda").manual_seed(seed + 122)
+        idx = torch.randint(0, VOCAB, (TRAIN_B, LSTM_SCALE_T + 1), generator=g, device="cuda")
+        eye = torch.eye(VOCAB, device="cuda")
+        lnet = char_lstm_network(vocab_size=VOCAB, hidden=HIDDEN, layers=LAYERS, seed=seed,
+                                 learning_rate=TRAIN_LR)
+        lg = _StepLog(torch, IterationListener)
+        lnet.set_listeners(lg.listener)
+        lnet.fit(ExistingDataSetIterator([DataSet(eye[idx[:, :-1]], eye[idx[:, 1:]])]),
+                 epochs=1, async_prefetch=False)
+        lstm_ref = lg.values()
+        del lnet
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+
+        # the ranks
+        t0 = time.perf_counter()
+        ranks = _run_ranks(torch, scale_rank, SCALE_DIR, args=(seed,))
+        rec["ranks_seconds"] = time.perf_counter() - t0
+        r0 = ranks[0]
+
+        # 12a
+        a = {name: r0["vgg16"][name] for name in r0["vgg16"]}
+        f32_bytes = 4 * VGG16_PARAMS
+        vgg_rank0 = torch.load(os.path.join(SCALE_DIR, "vgg_rank0.pt"), map_location="cuda")
+        one = _step_dist(torch, vgg_rank0, vgg_ref["params"], p0)
+        split = _step_dist(torch, vgg_rank0, vgg_split, p0)
+        split_one = _step_dist(torch, [v.to("cuda") for v in vgg_split], vgg_ref["params"], p0)
+        srel = max(abs(x - y) / abs(y) for x, y in zip(a["bucketed"]["scores"],
+                                                       vgg_ref["scores"]))
+        del vgg_rank0, p0, vgg_split
+        rec["vgg16"] = {
+            "runs": {n: {k: v for k, v in r.items() if k != "checksum"} for n, r in a.items()},
+            "reference_scores": vgg_ref["scores"], "reference_step_s": vgg_ref["step_s"],
+            "split_scores": split_scores,
+            "vs_one_process": {"param_median": one[0], "param_worst": one[1], "score_rel": srel},
+            "vs_split": {"param_median": split[0], "param_worst": split[1]},
+            "split_vs_one_process": {"param_median": split_one[0], "param_worst": split_one[1]},
+            "transport": r0["transport"]}
+        for name, r in a.items():
+            st = r["step_s"]
+            print(f"  12a VGG16 {name}: 2 ranks x 16 (gloo, CUDA tensors, 2 processes on one "
+                  f"card), step p50 {np.median(st):.3f} s (the first of the compared steps "
+                  f"{r['first_steps_s'][0]:.3f} s), books "
+                  f"{r['books']['bytes'] / VGG_SCALE_STEPS / 1e6:.2f} MB a step, "
+                  f"{r['describe'].get('n_buckets', 1)} bucket(s), collective seconds a step: "
+                  f"estimate {r['books']['estimate'] / VGG_SCALE_STEPS:.5f} (NVLink's figure; "
+                  f"no link is crossed here), measured "
+                  f"{r['books']['measured'] / VGG_SCALE_STEPS:.4f} (gloo, host loopback), "
+                  f"on {card}")
+        print(f"  12a bucketed == monolithic bit for bit: {a['bucketed']['bit_equal_monolithic']}; "
+              f"bf16 vs f32 wire params max rel {a['bf16_wire']['bf16_vs_f32_rel']:.2e}; 2 ranks "
+              f"vs the split witness: params median {split[0]:.2e} worst {split[1]:.2e}; vs 1 "
+              f"process (batch 32, step p50 {np.median(vgg_ref['step_s']):.3f} s): params "
+              f"median {one[0]:.2e} worst {one[1]:.2e} (the split witness itself {split_one[0]:.2e}"
+              f" / {split_one[1]:.2e}), score rel {srel:.2e}")
+        for name in a:
+            check(all(r["vgg16"][name]["checksum"] == a[name]["checksum"] for r in ranks),
+                  f"12a: the ranks' VGG16 parameters differ after the {name} run")
+        check(a["bucketed"]["bit_equal_monolithic"] and
+              a["bucketed"]["scores"] == a["monolithic"]["scores"],
+              "12a: the bucketed run is not bit-equal to the monolithic one")
+        check(a["monolithic"]["n_params"] == VGG16_PARAMS,
+              f"12a: VGG16 has {a['monolithic']['n_params']} parameters")
+        for name in ("monolithic", "bucketed"):
+            check(a[name]["books"]["bytes"] == f32_bytes * VGG_SCALE_STEPS,
+                  f"12a: {name} booked {a[name]['books']['bytes']} bytes, expected "
+                  f"{f32_bytes} a step")
+        check(a["bf16_wire"]["books"]["bytes"] * 2 == a["bucketed"]["books"]["bytes"],
+              "12a: the bf16 wire does not halve the books")
+        check(split[0] <= VGG_SPLIT_MEDIAN and split[1] <= VGG_SPLIT_WORST
+              and srel <= VGG_SCALE_SCORE_RTOL,
+              f"12a: 2 ranks vs the split witness: params median {split[0]:.2e} worst "
+              f"{split[1]:.2e} (bounds {VGG_SPLIT_MEDIAN}, {VGG_SPLIT_WORST}); score rel to 1 "
+              f"process {srel:.2e} (bound {VGG_SCALE_SCORE_RTOL})")
+
+        # 12b
+        b = r0["resnet50"]
+        got = torch.load(os.path.join(SCALE_DIR, "resnet_rank0.pt"), map_location="cuda")
+
+        def dists(run, ref):
+            return {"score": max(abs(x - y) / abs(y) for x, y in zip(run["scores"],
+                                                                     ref["scores"])),
+                    "first_score": abs(run["scores"][0] - ref["scores"][0]) / abs(
+                        ref["scores"][0]),
+                    "state": _rel_max(torch, run["state"], ref["state"]),
+                    "params": _step_dist(torch, run["params"], ref["params"], ref["p0"])}
+
+        mine = dists({"scores": b["scores"], **got["bf16"]}, rn_ref)
+        wit = dists(rn_wit, rn_ref)
+        mine32 = dists({"scores": b["f32"]["scores"], **got["f32"]}, f32_ref)
+        wit32 = dists(f32_wit, f32_ref)
+        del got
+        prof = b["profile"]
+        rec["resnet50"] = {"launches_per_step": {k: v / RESNET_SCALE_STEPS
+                                                 for k, v in b["launches"].items()},
+                           "step_s": b["step_s"], "reference_step_s": rn_ref["step_s"],
+                           "vs_one_process": mine, "witness": wit,
+                           "f32_vs_one_process": mine32, "f32_witness": wit32,
+                           "profile": prof, "stats": b["stats"], "books": b["books"],
+                           "fused_declined_collective": b["fused_declined_collective"],
+                           "transport": r0["transport"]}
+        pb = prof.get("collective/bn_stats", {})
+        pg = prof.get("collective/grads", {})
+        print(f"  12b ResNet-50 bf16 2 ranks x 64 (gloo): step p50 {np.median(b['step_s']):.3f} s "
+              f"vs 1 process at 128 {np.median(rn_ref['step_s']):.3f} s; K4-K8 a step a rank "
+              f"{rec['resnet50']['launches_per_step']}; a profiled step's {pb.get('calls')} BN "
+              f"all-reduces: host {pb.get('host_ms', 0):.1f} ms, device "
+              f"{pb.get('device_ms', 0):.2f} ms; {pg.get('calls')} gradient all-reduces: host "
+              f"{pg.get('host_ms', 0):.1f} ms, device {pg.get('device_ms', 0):.2f} ms (gloo: "
+              f"copies through pinned host memory), on {card}")
+        print(f"  12b bf16 2 ranks vs 1 process {mine}; witness (rows reversed) {wit}")
+        print(f"  12b' f32 2 ranks x 16 vs 1 process at {LOCKSTEP_BATCH}, one step {mine32}; "
+              f"witness {wit32}")
+        check(all(r["resnet50"]["checksum"] == b["checksum"] for r in ranks),
+              "12b: the ranks' ResNet-50 parameters or BN statistics differ")
+        for k, per in RESNET_PER_STEP.items():
+            check(b["launches"].get(k, 0) == per * RESNET_SCALE_STEPS,
+                  f"12b: {k} launched {b['launches'].get(k, 0)} times a rank in "
+                  f"{RESNET_SCALE_STEPS} steps, expected {per} a step (phase 6)")
+        bn_calls = b["stats"].get("bn_stats", {}).get("calls", 0)
+        check(bn_calls == 2 * RESNET_PER_STEP["bn_apply"] * RESNET_SCALE_STEPS,
+              f"12b: {bn_calls} BN all-reduces, expected 2 a BN a step")
+        check(pb.get("calls") == 2 * RESNET_PER_STEP["bn_apply"],
+              f"12b: the profile shows {pb} for the BN all-reduces")
+        check(b["fused_declined_collective"] == 1,
+              f"12b: a fused group on the gloo mesh counted "
+              f"{b['fused_declined_collective']} collective declines, expected 1")
+        check(mine["first_score"] <= RESNET_BF16_SCORE_RTOL,
+              f"12b: bf16 first score rel {mine['first_score']:.2e} "
+              f"(bound {RESNET_BF16_SCORE_RTOL})")
+        check(mine32["score"] <= RESNET_SCORE_RTOL and mine32["state"] <= RESNET_STATE_RTOL
+              and mine32["params"][0] <= SCALE_WITNESS * max(wit32["params"][0], 1e-6)
+              and mine32["params"][1] <= SCALE_WITNESS * max(wit32["params"][1], 1e-6),
+              f"12b': f32 2 ranks vs 1 process {mine32}; witness {wit32} (score "
+              f"{RESNET_SCORE_RTOL}, statistics {RESNET_STATE_RTOL}, parameters "
+              f"{SCALE_WITNESS} x the witness)")
+        # the char-LSTM on the data-parallel step
+        c = r0["charlstm"]
+        for k in ("lstm_sequence", "lstm_sequence_backward"):
+            check(c["launches"].get(k, 0) == 2 * LAYERS,
+                  f"12b: char-LSTM {k} launched {c['launches'].get(k, 0)} times a rank in 2 "
+                  f"segments, expected {LAYERS} a segment")
+        lrel = abs(c["scores"][0] - lstm_ref[0]) / abs(lstm_ref[0])
+        check(lrel <= TRAIN_SCORE_RTOL and all(math.isfinite(s) for s in c["scores"]),
+              f"12b: char-LSTM first score 2 ranks {c['scores'][0]} vs 1 process "
+              f"{lstm_ref[0]} (rel {lrel:.2e})")
+        rec["charlstm"] = {"scores": c["scores"], "reference_scores": lstm_ref,
+                           "first_score_rel": lrel, "launches": c["launches"]}
+        print(f"  12b char-LSTM 2 ranks x 16, 2 TBPTT segments: K1/K3 {c['launches']}; "
+              f"first score rel to 1 process {lrel:.1e}")
+
+        # 12d
+        for r in ranks:
+            p = r["parallel"]
+            check(p["tp"]["ok"], f"12d: TP vs unsharded on rank {r['rank']}: {p['tp']}")
+            check(p["pipeline"]["values_ok"] and p["pipeline"]["grads_ok"],
+                  f"12d: pipeline vs sequential on rank {r['rank']}: {p['pipeline']}")
+            for k, v in p["ring"].items():
+                check(v["ok"], f"12d: ring attention {k} on rank {r['rank']}: {v}")
+            check(p["staged_bytes"] > 0, "12d: no point-to-point was staged on gloo")
+        rec["parallel"] = r0["parallel"]
+        print(f"  12d TP (1x2) max |diff| {r0['parallel']['tp']['max_abs']:.1e}, pipeline "
+              f"(S 2, M 4) {r0['parallel']['pipeline']['max_abs']:.1e}, ring "
+              + ", ".join(f"{k} {v['max_abs']:.1e}" for k, v in r0["parallel"]["ring"].items())
+              + f"; {r0['parallel']['staged_bytes']} bytes staged through pinned host memory")
+
+        # 12c: one NCCL rank
+        torch.cuda.empty_cache()
+        n1 = nccl_world1_phase(torch, resnet50_network, F, DataSet, seed, SCALE_DIR)
+        check(n1["eager_bit_equal"] and n1["graph_bit_equal"],
+              f"12c: reduce_grads on one NCCL rank did not return its input: {n1}")
+        check(n1["fit_books"] == 0 and not n1["fit_collectives"],
+              f"12c: a world-1 meshed fit booked {n1['fit_books']} bytes, "
+              f"{n1['fit_collectives']}")
+        rec["nccl_world1"] = n1
+        print(f"  12c one NCCL rank: reduce_grads over {n1['buckets']} buckets bit-equal eager "
+              f"and replayed from a CUDA graph; NCCL kernels in the replay "
+              f"{n1['nccl_kernels'] or 'none'}; a world-1 meshed fit booked "
+              f"{n1['fit_books']:.0f} bytes and issued {len(n1['fit_collectives'])} collectives")
+        rec["launches"] = r0["launches"]
+        rec["seconds"] = time.perf_counter() - t_phase
+        print(f"  phase 12 took {rec['seconds']:.1f} s ({rec['ranks_seconds']:.1f} s in the ranks)")
+        return rec
+    finally:
+        shutil.rmtree(SCALE_DIR, ignore_errors=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4640,6 +5522,12 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     p11 = embeddings_phase(torch, counts, args.seed, card)
 
+    print(f"[12] scale-out: the data-parallel step over {SCALE_RANKS} processes on the card "
+          "(gloo, CUDA tensors): VGG16 and ResNet-50 at full width, the char-LSTM; TP, "
+          "pipeline and ring attention; one NCCL rank")
+    torch.cuda.empty_cache()
+    p12 = scale_out_phase(torch, F, counts, metrics, args.seed, card)
+
     # each main path's count, read just after it ran from zero
     by_path = {"output": sl["launches"], "serve": sv["launches"],
                "train": tr["launches"], "train_resnet": rn["launches"],
@@ -4649,7 +5537,7 @@ def main(argv=None) -> int:
                "sentinel_charlstm": p10["rollback"]["launches"],
                "sentinel_resnet": p10["cost"]["launches"],
                "solvers": p10["solvers"]["launches"], "dl4j_import": p10["import"]["launches"],
-               "embeddings": p11["launches"]}
+               "embeddings": p11["launches"], "scale_out": p12["launches"]}
     main_launches = {name: sum(c.get(name, 0) for c in by_path.values())
                      for name in rows}
     meta = {
@@ -4694,6 +5582,7 @@ def main(argv=None) -> int:
               "phase9": p9,
               "phase10": p10,
               "phase11": p11,
+              "phase12": p12,
               "build": {k: v["seconds"] for k, v in info.items()},
               "ptxas": {k: v["log"] for k, v in info.items() if k not in cuda_build.SOURCES},
               "seconds": time.perf_counter() - t_start}
@@ -4701,6 +5590,7 @@ def main(argv=None) -> int:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:
             json.dump(record, f, indent=2)
+    print(json.dumps({"scale_out": scale_summary(p12)}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -97,10 +97,13 @@ def _ds_nbytes(ds) -> int:
 
 def _carry_metadata(src, dst):
     """Propagate the bookkeeping a staging step must not drop: the staged
-    marker. Every stage that rebuilds a DataSet routes through here
-    (transforms.py too)."""
-    if getattr(src, "_pipeline_staged", False):
-        dst._pipeline_staged = True
+    marker, and a mesh-sharded batch's marker and real global example
+    count (parallel/sharded.MeshPlan.shard_batch). Every stage that
+    rebuilds a DataSet routes through here (transforms.py too)."""
+    for name in ("_pipeline_staged", "_mesh_sharded", "reported_examples"):
+        v = getattr(src, name, None)
+        if v:
+            setattr(dst, name, v)
     return dst
 
 

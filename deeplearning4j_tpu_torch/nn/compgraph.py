@@ -75,7 +75,12 @@ from deeplearning4j_tpu_torch.nn.multilayer import (
     _OUTPUT_LAYER_TYPES,
     _preout_of_output_layer,
 )
-from deeplearning4j_tpu_torch.nn.netbase import NetworkBase, _is_recurrent, _layer_seed
+from deeplearning4j_tpu_torch.nn.netbase import (
+    NetworkBase,
+    _examples_of,
+    _is_recurrent,
+    _layer_seed,
+)
 from deeplearning4j_tpu_torch.ops.losses import loss_value, masked_example_mean
 from deeplearning4j_tpu_torch.train.evaluation import (
     Evaluation,
@@ -338,7 +343,7 @@ class ComputationGraph(NetworkBase):
             return
         states, _ = self._fit_step(*data)
         self._commit_states(states)
-        self._notify(_as_multidataset(ds).num_examples(), ds)
+        self._notify(_examples_of(ds), ds)
 
     # -- multi-batch fused fit (set_fused_steps) -----------------------------
 

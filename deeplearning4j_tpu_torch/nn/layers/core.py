@@ -17,7 +17,8 @@ from deeplearning4j_tpu_torch.nn.conf import layers as L
 from deeplearning4j_tpu_torch.nn.layers.registry import LayerContext, register_layer
 from deeplearning4j_tpu_torch.nn.weights import init_weights
 from deeplearning4j_tpu_torch.ops.activations import apply_activation
-from deeplearning4j_tpu_torch.ops.losses import example_presence
+from deeplearning4j_tpu_torch.ops.losses import example_presence, global_present_count
+from deeplearning4j_tpu_torch.parallel.mesh import copy_to_axis, data_sum, draw_rows, psum
 
 
 def apply_dropout(x, retain_prob, ctx: LayerContext):
@@ -28,7 +29,9 @@ def apply_dropout(x, retain_prob, ctx: LayerContext):
         return x
     if ctx.rng is None:
         return x
-    keep = torch.rand(x.shape, generator=ctx.rng, device=x.device) < retain_prob
+    # inside a data-parallel step: the global batch's draw, this rank's rows
+    keep = draw_rows(lambda s: torch.rand(s, generator=ctx.rng, device=x.device),
+                     x.shape) < retain_prob
     return torch.where(keep, x / retain_prob, torch.zeros_like(x))
 
 
@@ -50,7 +53,18 @@ def dense_init(gen, conf: L.DenseLayer, dtype):
 
 def dense_forward(conf, params, x, ctx: LayerContext):
     x = apply_dropout(x, conf.dropout, ctx)
-    z = affine(x, params["W"], params["b"])
+    if ctx.tp is None:
+        z = affine(x, params["W"], params["b"])
+    else:
+        # Megatron's pair (parallel/tensor.py): a column layer's input
+        # collects its gradient from every rank; a row layer sums its
+        # partial products, then adds the replicated bias
+        role, mesh, axis = ctx.tp
+        if role == "column":
+            z = affine(copy_to_axis(x, mesh, axis), params["W"], params["b"])
+        else:
+            dt = torch.promote_types(x.dtype, params["W"].dtype)
+            z = psum(x.to(dt) @ params["W"].to(dt), mesh, axis) + params["b"].to(dt)
     return apply_activation(conf.activation, z, key=ctx.rng, training=ctx.training), None
 
 
@@ -98,13 +112,18 @@ def center_loss_term(conf: L.CenterLossOutputLayer, state, feats, y, per_ex,
     diff = feats - y32 @ centers  # one-hot pick
     center_per_ex = 0.5 * (diff * diff).sum(-1)
     present = example_presence(per_ex, l_mask)
-    term = conf.lambda_ * (center_per_ex * present).sum() / present.sum().clamp_min(1.0)
+    term = (conf.lambda_ * (center_per_ex * present).sum()
+            / global_present_count(present).clamp_min(1.0))
     if not training:
         return term, None
     with torch.no_grad():
         yw = y32 * present[:, None]  # pad rows excluded from the EMA
-        counts = yw.sum(0)[:, None]  # [classes, 1]
-        means = (yw.T @ feats.detach()) / counts.clamp_min(1.0)
+        # the class counts and feature sums of the global batch (one
+        # buffer, summed over the data axis inside a data-parallel step)
+        sums = data_sum(torch.cat([yw.sum(0)[:, None], yw.T @ feats.detach()], 1),
+                        "center_loss")
+        counts = sums[:, :1]  # [classes, 1]
+        means = sums[:, 1:] / counts.clamp_min(1.0)
         updated = torch.where(counts > 0,
                               (1.0 - conf.alpha) * centers + conf.alpha * means,
                               centers)
@@ -173,7 +192,8 @@ def autoencoder_init(gen, conf: L.AutoEncoder, dtype):
 def autoencoder_keep(conf: L.AutoEncoder, shape, gen, device=None):
     """The corruption draw: True where an input entry survives (with
     probability 1 - corruption_level)."""
-    return torch.rand(shape, generator=gen, device=device) < 1.0 - conf.corruption_level
+    return draw_rows(lambda s: torch.rand(s, generator=gen, device=device),
+                     shape) < 1.0 - conf.corruption_level
 
 
 def autoencoder_reconstruct(conf: L.AutoEncoder, params, x, ctx: LayerContext,

@@ -6,6 +6,12 @@ The builtin training path is `BNTrain`, an autograd Function with the
 hand-written backward of the JAX package's `_bn_train` custom_vjp: every
 full-size tensor stays in x's dtype and only per-channel statistics are
 f32, with bf16 statistics centered on bf16(mean) so they do not cancel.
+Inside a data-parallel step (parallel/mesh.data_parallel_scope) the
+statistics are the global batch's: the per-channel sums are summed over
+the data axis before each pass that needs them — the mean, then the sums
+about it (the second pass centres on the GLOBAL mean, so two all-reduces,
+not one) — and the backward's two sums likewise, as GSPMD's cross-device
+batch reduction gives them in the JAX package.
 Its backward consults the "bn_backward" helper (the fused K7 + K8 passes
 of ops/fused_conv_bn.py); the forward consults "batch_norm", which takes
 over when x is a conv output whose statistics the conv kernel already
@@ -24,6 +30,17 @@ from deeplearning4j_tpu_torch.nn.conf import layers as L
 from deeplearning4j_tpu_torch.nn.layers.registry import LayerContext, register_layer
 from deeplearning4j_tpu_torch.ops.fused_conv_bn import bn_backward_pieces
 from deeplearning4j_tpu_torch.ops.helpers import HelperError, get_helper
+from deeplearning4j_tpu_torch.parallel.mesh import (
+    DATA_AXIS,
+    active_data_mesh,
+    all_reduce_,
+    data_shards,
+)
+
+
+def _global_sum(t, dp):
+    """t summed over the data axis of `dp` (t itself for None)."""
+    return t if dp is None else all_reduce_(t, dp, DATA_AXIS, site="bn_stats")
 
 
 def _acc_dtype(dtype):
@@ -31,52 +48,62 @@ def _acc_dtype(dtype):
     return torch.promote_types(dtype, torch.float32)
 
 
-def _bn_stats_centered(x):
+def _bn_stats_centered(x, dp=None):
     """bf16 statistics without catastrophic cancellation: the mean with
     f32 sums; xc = x - bf16(mean) (exact in bf16 near the mean, by
     Sterbenz); then E[xc^2] - E[xc]^2 in f32. Returns (mean, var, xc,
-    delta), delta = mean - bf16(mean), so that x - mean == xc - delta."""
+    delta), delta = mean - bf16(mean), so that x - mean == xc - delta.
+    With `dp` (a mesh) the sums are the global batch's."""
     c = x.shape[-1]
     n = x.numel() // c
+    n_all = n if dp is None else n * data_shards(dp)
     x2 = x.reshape(n, c)
-    mean = x2.float().sum(0) / n
+    mean = _global_sum(x2.float().sum(0), dp) / n_all
     mean_b = mean.to(x.dtype)
     xc = x - mean_b
     xc2 = xc.reshape(n, c)
-    mu_r = xc2.float().sum(0) / n
-    var = torch.clamp_min((xc2 * xc2).float().sum(0) / n - mu_r * mu_r, 0.0)
+    sums = _global_sum(torch.stack([xc2.float().sum(0), (xc2 * xc2).float().sum(0)]), dp)
+    mu_r = sums[0] / n_all
+    var = torch.clamp_min(sums[1] / n_all - mu_r * mu_r, 0.0)
     return mean, var, xc, mean - mean_b.float()
 
 
-def _bn_stats(x):
-    """Per-channel (mean, var) in the statistics dtype."""
+def _bn_stats(x, dp=None):
+    """Per-channel (mean, var) in the statistics dtype; with `dp` (a mesh)
+    the global batch's, the mean then the squares about it, as below."""
     if x.dtype == torch.bfloat16:
-        mean, var, _, _ = _bn_stats_centered(x)
+        mean, var, _, _ = _bn_stats_centered(x, dp)
         return mean, var
     dims = tuple(range(x.dim() - 1))
     xf = x.to(_acc_dtype(x.dtype))
-    mean = xf.mean(dims)
-    return mean, (xf - mean).square().mean(dims)
+    if dp is None:
+        mean = xf.mean(dims)
+        return mean, (xf - mean).square().mean(dims)
+    n_all = (x.numel() // x.shape[-1]) * data_shards(dp)
+    mean = _global_sum(xf.sum(dims), dp) / n_all
+    return mean, _global_sum((xf - mean).square().sum(dims), dp) / n_all
 
 
 class BNTrain(torch.autograd.Function):
     """(y, mean, var) = BNTrain.apply(x, gamma, beta, eps): training-mode
     batch norm over every axis but the last. mean and var feed the running
     averages only and carry no gradient (as in the reference, where the
-    global statistics are state, not parameters)."""
+    global statistics are state, not parameters). Inside a data-parallel
+    step the statistics and the backward's sums are the global batch's."""
 
     @staticmethod
     def forward(ctx, x, gamma, beta, eps):
         acc = _acc_dtype(x.dtype)
+        dp = ctx.dp = active_data_mesh()
         if x.dtype == torch.bfloat16:
-            mean, var, xc, delta = _bn_stats_centered(x)
+            mean, var, xc, delta = _bn_stats_centered(x, dp)
             inv = torch.rsqrt(var + eps)
             scale = gamma.to(acc) * inv
             # y = scale * (x - mean) + beta = scale * (xc - delta) + beta
             shift = beta.to(acc) - delta * scale
             y = xc * scale.to(x.dtype) + shift.to(x.dtype)
         else:
-            mean, var = _bn_stats(x)
+            mean, var = _bn_stats(x, dp)
             inv = torch.rsqrt(var + eps)
             scale = gamma.to(acc) * inv
             shift = beta.to(acc) - mean * scale
@@ -89,7 +116,9 @@ class BNTrain(torch.autograd.Function):
     def backward(ctx, g, _dmean, _dvar):
         x, gamma, mean, inv = ctx.saved_tensors
         n = x.numel() // x.shape[-1]
-        dx, dgamma, dbeta = bn_backward_pieces(g.to(x.dtype), x, mean, inv, gamma, n)
+        # the mesh only inside a data-parallel step
+        dx, dgamma, dbeta = bn_backward_pieces(g.to(x.dtype), x, mean, inv, gamma, n,
+                                               **({} if ctx.dp is None else {"dp": ctx.dp}))
         return dx, dgamma.to(gamma.dtype), dbeta.to(gamma.dtype), None
 
 

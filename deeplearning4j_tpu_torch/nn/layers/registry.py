@@ -38,6 +38,9 @@ class LayerContext:
     # (ComputationGraph decides it, in training): the BN returns its output
     # rectified, and the graph passes it through the relu vertex
     fuse_relu: bool = False
+    # a tensor-parallel Dense layer's (role, mesh, axis): role "column" or
+    # "row" (parallel/tensor.py); None when the layer is not split
+    tp: Optional[tuple] = None
 
 
 def register_layer(conf_cls, init_fn, forward_fn, order_fn=None, state_fn=None):

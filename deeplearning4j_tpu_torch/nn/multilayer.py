@@ -62,7 +62,12 @@ from deeplearning4j_tpu_torch.nn.layers.registry import (
     init_layer_params,
     init_layer_state,
 )
-from deeplearning4j_tpu_torch.nn.netbase import NetworkBase, _is_recurrent, _layer_seed
+from deeplearning4j_tpu_torch.nn.netbase import (
+    NetworkBase,
+    _examples_of,
+    _is_recurrent,
+    _layer_seed,
+)
 from deeplearning4j_tpu_torch.ops.losses import loss_value, masked_example_mean
 from deeplearning4j_tpu_torch.train.evaluation import (
     Evaluation,
@@ -143,7 +148,7 @@ class MultiLayerNetwork(NetworkBase):
                 st = {}  # empty dict triggers zero-state seed + state return
             ctx = LayerContext(training=training, rng=rng,
                                mask=f_mask if x.dim() == 3 else None,
-                               timesteps=timesteps, state=st)
+                               timesteps=timesteps, state=st, tp=self._tp_context(i))
             if (preout_last and i == len(confs) - 1
                     and isinstance(conf, _OUTPUT_LAYER_TYPES)):
                 # input dropout applies to the output layer too (reference:
@@ -156,6 +161,14 @@ class MultiLayerNetwork(NetworkBase):
 
     def _merge_states(self, old, new):
         return [n if n is not None else o for o, n in zip(old, new)]
+
+    def _tp_context(self, i: int):
+        """Layer i's tensor-parallel (role, mesh, axis), or None."""
+        if self._tp_specs is None or self._tp_specs[i] is None:
+            return None
+        from deeplearning4j_tpu_torch.parallel.tensor import tp_role
+
+        return (tp_role(self._tp_specs[i], self._tp_axis), self._tp_mesh, self._tp_axis)
 
     # -- loss ----------------------------------------------------------------
 
@@ -384,7 +397,7 @@ class MultiLayerNetwork(NetworkBase):
         else:
             states, _ = self._fit_step(*data)
             self._commit_states(states)
-            self._notify(ds.num_examples(), ds)
+            self._notify(_examples_of(ds), ds)
 
     def _fit_line_search(self, ds: DataSet, algo: str):
         """One batch through a line-search optimizer (LBFGS, CG, line
@@ -401,6 +414,10 @@ class MultiLayerNetwork(NetworkBase):
             make_line_search_optimizer,
         )
 
+        if self._mesh_plan is not None and self._mesh_plan.n_data_shards > 1:
+            raise NotImplementedError(
+                "the line-search solvers are not data-parallel in the port: "
+                "train a meshed net by SGD")
         if getattr(self, "_solver", None) is None or self._solver.name != algo:
             self._solver = make_line_search_optimizer(algo)
             self._flat_problem = _FlatProblem(self)
@@ -418,7 +435,7 @@ class MultiLayerNetwork(NetworkBase):
         self._score = torch.tensor(f_new, dtype=torch.float32, device=self.device)
         self._step_diag = None
         self.iteration += 1
-        self._notify(ds.num_examples(), ds)
+        self._notify(_examples_of(ds), ds)
 
     # -- multi-batch fused fit (set_fused_steps) -----------------------------
 

@@ -19,8 +19,12 @@ the loop under `fit(async_prefetch=True)`. The divergence sentinel
 an anomalous step is undone in place and its batch quarantined, and a
 streak of them rolls the fit back to the last good checkpoint
 (`_rollback_restore`). `set_collect_stats` computes per-layer mean
-magnitudes inside the step. The mesh, run ledger and OOM forensics are
-not ported yet.
+magnitudes inside the step. `set_mesh` makes the step data-parallel over
+a process mesh (parallel/sharded.py): each rank's batch is its rows of
+the global batch (sharded in the host prefetch stage, before grouping),
+its loss is its share of the global-batch loss, and its gradients and
+score are summed over the data axis right after autograd. The run ledger
+and OOM forensics are not ported yet.
 """
 
 from __future__ import annotations
@@ -45,6 +49,7 @@ from deeplearning4j_tpu_torch.ops import fused_conv_bn as _fused_conv_bn
 from deeplearning4j_tpu_torch.ops import fused_lstm as _fused_lstm
 from deeplearning4j_tpu_torch.ops import helpers as _helpers
 from deeplearning4j_tpu_torch.ops.activations import sign_abs
+from deeplearning4j_tpu_torch.parallel import mesh as _pmesh
 from deeplearning4j_tpu_torch.train import sentinel as _sentinel
 from deeplearning4j_tpu_torch.train.updaters import normalize_gradients, schedule_lr
 from deeplearning4j_tpu_torch.utils import blackbox as _blackbox
@@ -177,6 +182,32 @@ class _Program:
         self.replays = 0
 
 
+def _examples_of(ds) -> int:
+    """A batch's real example count: under a mesh, the global batch's
+    (`reported_examples`), not this rank's padded rows."""
+    return int(getattr(ds, "reported_examples", None) or ds.num_examples())
+
+
+class _ShardingIterator:
+    """A host stage of the input pipeline: each batch of `base` cut to this
+    rank's rows by the mesh plan (`MeshPlan.shard_batch`), in the thread
+    that pulls it."""
+
+    def __init__(self, base, plan):
+        self.base = base
+        self.plan = plan
+
+    def __iter__(self):
+        for ds in self.base:
+            yield self.plan.shard_batch(ds)
+
+    def reset(self):
+        self.base.reset()
+
+    def __getattr__(self, name):
+        return getattr(self.base, name)
+
+
 def _layer_seed(seed: int, i: int) -> int:
     """Per-layer generator seed: layer i's draws do not depend on how many
     numbers earlier layers drew (the role jax.random.fold_in plays in the
@@ -237,6 +268,11 @@ class NetworkBase:
         # of the last step, computed inside it
         self._collect_stats = False
         self._last_stats = None
+        # set_mesh: the data-parallel plan (parallel/sharded.MeshPlan), and
+        # the tensor-parallel split shard_params_tp left (per-layer specs)
+        self._mesh_plan = None
+        self._tp_specs = None
+        self._tp_mesh = None
 
     # -- to be provided by subclasses ----------------------------------------
 
@@ -290,6 +326,11 @@ class NetworkBase:
                         reg = reg + l1 * sign_abs(w).sum()
                     if l2:
                         reg = reg + 0.5 * l2 * (w * w).sum()
+        dp = _pmesh.active_data_mesh()
+        if dp is not None and not isinstance(reg, float):
+            # the penalty enters the global loss once: 1/R on each rank,
+            # whose shares the gradient reduction sums
+            reg = reg / _pmesh.data_shards(dp)
         return reg
 
     def _lr_mult_tree(self):
@@ -352,10 +393,12 @@ class NetworkBase:
         keys = self._trainable_keys()
         norm_keys = self._norm_keys()
         leaves = [p[k] for p, ks in zip(params, norm_keys) for k in ks]
+        plan = self._mesh_plan
         for v in leaves:
             v.requires_grad_(True)
         try:
-            score, new_states = loss_builder(params, states, data, rng)
+            with _pmesh.data_parallel_scope(None if plan is None else plan.mesh):
+                score, new_states = loss_builder(params, states, data, rng)
             flat = iter(torch.autograd.grad(score, leaves, allow_unused=True)
                         if leaves else ())
         finally:
@@ -366,6 +409,11 @@ class NetworkBase:
         # bias, a VAE's decoder, outside pretraining) has a zero gradient
         raw = [{k: _zero_if_none(next(flat), p[k]) for k in ks}
                for p, ks in zip(params, norm_keys)]
+        if plan is not None and plan.n_data_shards > 1:
+            # the data-parallel reduction, before the diagnostic: the
+            # sentinel, the clipping and the updater see the global
+            # gradient, and every rank takes the same decisions
+            raw, score = plan.reduce_grads(self, raw, score)
         grads = raw if self._sentinel is None else [
             {k: g[k] for k in ks} for g, ks in zip(raw, keys)]
         with torch.no_grad():
@@ -499,7 +547,7 @@ class NetworkBase:
         notified to the listeners; only non-recurrent state persists."""
         def step(builder, states, seg_data):
             states, _ = self._run_step(builder, seg_data, states)
-            self._notify(ds.num_examples(), ds)
+            self._notify(_examples_of(ds), ds)
             return states
 
         states = self._tbptt_batch(data, self._seeded_states(), step)
@@ -544,8 +592,11 @@ class NetworkBase:
         the second is captured and every group from then on replays it.
         A step that draws random numbers cannot replay (its generator is
         seeded per step on the host), so such groups run eagerly on the
-        card, counted in `fit_graph_declined_total{reason="rng"}`. A
-        capture or a replay that fails raises."""
+        card, counted in `fit_graph_declined_total{reason="rng"}`; so do
+        groups of a step whose collectives cannot be captured (a gloo mesh:
+        `{reason="collective"}`; NCCL's are captured once its communicator
+        is warm, after the eager warm-up). A capture or a replay that fails
+        raises."""
         cuda = self.device.type == "cuda"
         prog = self._programs.get(key)
         if prog is None:
@@ -577,6 +628,10 @@ class NetworkBase:
             run()
         elif rngs[0] is not None:
             self._fit_obs()["graph_declined_rng"].inc()
+            run()
+        elif self._mesh_plan is not None and not self._mesh_plan.capturable():
+            # gloo collectives cannot be captured in a CUDA graph
+            self._fit_obs()["graph_declined_collective"].inc()
             run()
         else:
             self._graph_dispatch(prog, run)
@@ -692,6 +747,75 @@ class NetworkBase:
                  "pool_bytes": p.pool_bytes}
                 for p in self._programs.values() if p.graph is not None]
 
+    # -- the process mesh ------------------------------------------------------
+
+    def set_mesh(self, mesh=None, *, plan=None, bucket_bytes=None, grad_dtype=None):
+        """Attach a process mesh: the data-parallel training path. The
+        first data rank's params, layer state and updater state are
+        broadcast over the data axis, each fit batch is cut to this rank's
+        rows by the input pipeline, and the step sums its gradients and
+        score over the data axis, bucketed per the plan's CollectivePlan
+        (parallel/sharded.py). `mesh=None` builds a 1-D "data" mesh over
+        every rank; `plan` overrides the MeshPlan (the multi-host plan
+        does). `bucket_bytes` sets the gradient-bucket size (0 = one
+        monolithic buffer; default DL4J_GRAD_BUCKET_BYTES or 4 MiB);
+        `grad_dtype="bf16"` puts the all-reduce's payload in bf16 (never
+        the default). `fit()` calls this itself when a process group of
+        more than one rank is up (DL4J_AUTO_MESH=0 disables)."""
+        from deeplearning4j_tpu_torch.parallel.mesh import data_parallel_mesh
+        from deeplearning4j_tpu_torch.parallel.sharded import MeshPlan
+
+        self._require_init()
+        if mesh is None:
+            mesh = data_parallel_mesh()
+        if plan is None:
+            plan = MeshPlan(mesh, bucket_bytes=bucket_bytes, grad_dtype=grad_dtype)
+        elif bucket_bytes is not None or grad_dtype is not None:
+            raise ValueError(
+                "bucket_bytes/grad_dtype are MeshPlan knobs — pass them to the "
+                "plan's constructor, not alongside plan=")
+        plan.place_net(self)
+        self._mesh_plan = plan
+        self._reset_step_programs()
+        return self
+
+    def unset_mesh(self):
+        """Detach the mesh plan: single-process semantics again (the
+        tensors stay where they are: every rank already holds them whole)."""
+        if self._mesh_plan is not None:
+            self._mesh_plan = None
+            self._reset_step_programs()
+        return self
+
+    def _maybe_auto_mesh(self):
+        """The fit-loop default: with a process group of more than one rank
+        up and no mesh attached, engage the data-parallel step over every
+        rank. DL4J_AUTO_MESH=0 opts a process out (tests/conftest.py does);
+        a tensor-parallel split (shard_params_tp) is a deliberate
+        parallelism decision the auto mesh leaves alone."""
+        from deeplearning4j_tpu_torch.parallel.mesh import n_devices
+        from deeplearning4j_tpu_torch.parallel.sharded import auto_mesh_enabled
+
+        if self._mesh_plan is not None or self._tp_specs is not None:
+            return
+        if not auto_mesh_enabled() or n_devices() < 2:
+            return
+        logger.info("process group of %d ranks: engaging the data-parallel "
+                    "train step (net.set_mesh; DL4J_AUTO_MESH=0 disables)",
+                    n_devices())
+        self.set_mesh()
+
+    def _global_params(self):
+        """(params_list, upd_state) with tensor-parallel slices gathered
+        into the global tensors (the live lists when nothing is split), as
+        the JAX package's global arrays read."""
+        if self._tp_specs is None:
+            return self.params_list, self.upd_state
+        from deeplearning4j_tpu_torch.parallel.tensor import gather_tp
+
+        return gather_tp(self, self.params_list), (
+            None if self.upd_state is None else gather_tp(self, self.upd_state))
+
     # -- fusion API ------------------------------------------------------------
 
     def set_fused_steps(self, k: int):
@@ -720,8 +844,10 @@ class NetworkBase:
                 self.params_list is not None and any(
                     isinstance(c, L.FrozenLayer) for c in self._ordered_layer_confs()):
             # the step's leaves change: captured programs would replay
-            # the other set
+            # the other set, and the reduction's schedule covers the other
             self._reset_step_programs()
+            if self._mesh_plan is not None:
+                self._mesh_plan.invalidate()
         self._sentinel = sentinel
         return self
 
@@ -831,6 +957,27 @@ class NetworkBase:
                     "fit_graph_declined_total",
                     "fused fit groups run eagerly on the card instead of "
                     "from a CUDA graph", ("reason",)).labels("rng"),
+                "graph_declined_collective": reg.counter(
+                    "fit_graph_declined_total",
+                    "fused fit groups run eagerly on the card instead of "
+                    "from a CUDA graph", ("reason",)).labels("collective"),
+                "allreduce_bytes": reg.counter(
+                    "allreduce_bytes_total",
+                    "gradient bytes all-reduced by the data-parallel train "
+                    "step (logical payload: summed gradient leaf bytes at "
+                    "the wire dtype per optimizer step)").labels(),
+                "collective_seconds": reg.counter(
+                    "train_step_collective_seconds",
+                    "time attributed to the train step's gradient "
+                    "all-reduce, by accounting source (estimate = ring wire "
+                    "bytes / the card's link bandwidth, a cost model; "
+                    "measured = a sampled blocking run of the bucket "
+                    "schedule's all-reduces)", ("source",)).labels("estimate"),
+                "collective_seconds_measured": reg.counter(
+                    "train_step_collective_seconds",
+                    "time attributed to the train step's gradient "
+                    "all-reduce, by accounting source",
+                    ("source",)).labels("measured"),
                 "recorder": _blackbox.get_recorder(),
             }
         return ins
@@ -885,10 +1032,22 @@ class NetworkBase:
                         torch.cuda.current_stream(self._score.device).synchronize()
                 sync = time.perf_counter() - t1
                 ins["sync"].observe(sync)
-        ins["steps"].inc(max(1, self.iteration - it0))
+        n_steps = max(1, self.iteration - it0)
+        ins["steps"].inc(n_steps)
         ins["examples"].inc(n_examples)
         ins["data_wait"].observe(data_wait)
         ins["dispatch"].observe(dispatch)
+        # collective books: each sharded optimizer step all-reduced one
+        # gradient payload
+        plan = self._mesh_plan
+        if plan is not None and plan.n_data_shards > 1:
+            ins["allreduce_bytes"].inc(plan.grad_payload_bytes(self) * n_steps)
+            est = plan.collective_seconds_estimate(self)
+            if est is not None:
+                ins["collective_seconds"].inc(est * n_steps)
+            measured = plan.maybe_measure_collective(self, n_steps)
+            if measured is not None:
+                ins["collective_seconds_measured"].inc(measured)
         # black box: one ring append, the score kept as a device tensor
         # (resolved only at dump time, never synced here)
         ins["recorder"].record_step(self.iteration - 1, score=self._score,
@@ -918,12 +1077,24 @@ class NetworkBase:
         # a batch is pulled, at each listener notification, at an epoch's
         # end, or when the fit ends)
         with _sigchain.deferred():
+            # with a process group of several ranks up: the data-parallel
+            # step, BEFORE restore and staging, so that the restored state
+            # is broadcast and the pipeline shards the batches
+            self._maybe_auto_mesh()
+            plan = self._mesh_plan
+            if plan is not None:
+                plan.reset_pad_target()
             skip_batches = 0
             if resume_from is not None:
+                if plan is not None:
+                    # every rank reads what the writer (rank 0) finished
+                    _pmesh.barrier(plan.mesh)
                 # restore BEFORE staging: the iterator state lands on the
                 # caller's iterator, not the pipeline wrapped around it
                 skip_batches, epochs, _ = self._restore_for_resume(
                     resume_from, iterator, epochs)
+                if plan is not None:
+                    plan.place_net(self)
             owned = None
             if async_prefetch:
                 staged = self._stage_input_pipeline(iterator, prefetch_buffer)
@@ -932,10 +1103,9 @@ class NetworkBase:
             # fusion engages only where it is observationally equivalent to
             # the per-step loop: no listeners, no stats collection, no
             # sentinel (quarantine discards ONE step's update, not a
-            # group's), and the subclass supports it. The port has no
-            # mesh batch sharding (the JAX package's batch-transform
-            # term); the input transform runs on each batch before
-            # grouping, so it leaves fusion on.
+            # group's), and the subclass supports it. The mesh's batch
+            # sharding and the input transform run on each batch before
+            # grouping, so they leave fusion on.
             fuse_k = self._fused_k if (
                 self._fused_k > 1 and not self.listeners
                 and not self._collect_stats and self._sentinel is None
@@ -1175,6 +1345,8 @@ class NetworkBase:
         if path is None:
             sent.diverged(
                 f"rollback found no usable checkpoint in {directory!r}")
+        if self._mesh_plan is not None:
+            self._mesh_plan.place_net(self)
         self._step_diag = None
         if hb is not None:
             hb.beat()
@@ -1208,6 +1380,10 @@ class NetworkBase:
         host, wrapped = iterator, False
         if not isinstance(host, (AsyncDataSetIterator, ParallelDataSetIterator)):
             host, wrapped = AsyncDataSetIterator(host, prefetch_buffer), True
+        if self._mesh_plan is not None:
+            # this rank's rows are cut in the device stage's worker, before
+            # its copy
+            host = _ShardingIterator(host, self._mesh_plan)
         return DevicePrefetchIterator(
             host, depth=self._prefetch_depth, device=self.device,
             transform=self._input_transform, close_base=wrapped)
@@ -1233,7 +1409,7 @@ class NetworkBase:
             buf, sig, wait_accum = [], None, 0.0
 
             def flush():
-                group, n = list(buf), sum(d.num_examples() for d in buf)
+                group, n = list(buf), sum(_examples_of(d) for d in buf)
                 self._timed_fit(lambda: self._flush_fused(group, fuse_k),
                                 wait_accum, n, n_batches=len(group),
                                 batches=group)
@@ -1242,6 +1418,10 @@ class NetworkBase:
             for ds in iterator:
                 wait = time.perf_counter() - t_etl
                 self._last_etl_ms = wait * 1e3
+                if self._mesh_plan is not None:
+                    # prefetch off: this rank's rows, inline (a no-op on a
+                    # batch the pipeline already sharded)
+                    ds = self._mesh_plan.shard_batch(ds)
                 if not getattr(ds, "_pipeline_staged", False) and \
                         self._input_transform is not None:
                     # prefetch off: the staging work runs inline (the same
@@ -1282,7 +1462,7 @@ class NetworkBase:
                         wait_accum = 0.0
                 else:
                     self._timed_fit(lambda: self._fit_dataset(ds), wait,
-                                    ds.num_examples(), batches=[ds])
+                                    _examples_of(ds), batches=[ds])
                 t_etl = time.perf_counter()
             if buf:
                 flush()
@@ -1340,9 +1520,10 @@ class NetworkBase:
     # -- flattened params API ------------------------------------------------
 
     def params(self):
-        """Flattened parameter vector (reference: Model.params())."""
+        """Flattened parameter vector (reference: Model.params()); a
+        tensor-parallel net's global values."""
         self._require_init()
-        return params_to_flat(self._ordered_layer_confs(), self.params_list)
+        return params_to_flat(self._ordered_layer_confs(), self._global_params()[0])
 
     def set_params(self, flat):
         self._require_init()

@@ -175,7 +175,10 @@ def _rrelu(x, key=None, training=False, lower=1.0 / 8.0, upper=1.0 / 3.0):
     """Randomized leaky ReLU (reference ActivationRReLU: U[l,u] alpha when
     training, (l+u)/2 at inference)."""
     if training and key is not None:
-        u = torch.rand(x.shape, generator=key, device=x.device, dtype=x.dtype)
+        from deeplearning4j_tpu_torch.parallel.mesh import draw_rows
+
+        u = draw_rows(lambda s: torch.rand(s, generator=key, device=x.device, dtype=x.dtype),
+                      x.shape)
         alpha = lower + (upper - lower) * u
     else:
         alpha = (lower + upper) / 2.0

@@ -53,6 +53,12 @@ import torch
 import torch.nn.functional as F
 
 from deeplearning4j_tpu_torch.ops import cuda_build
+from deeplearning4j_tpu_torch.parallel.mesh import (
+    DATA_AXIS,
+    active_data_mesh,
+    all_reduce_,
+    data_shards,
+)
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -569,11 +575,26 @@ def conv2d_bn_stats(x, w, strides):
 # -- BN apply from the statistics (autograd Function) ---------------------------
 
 
-def _bn_fwd(x, s1, s2, gamma, beta, eps, n, relu):
+def _global_count(n: int, dp) -> int:
+    """Elements per channel of the global batch: every rank of a
+    data-parallel step holds the same number of rows (the pad-and-mask
+    rule of parallel/sharded.py), so R times this rank's."""
+    return n if dp is None else n * data_shards(dp)
+
+
+def _bn_fwd(x, s1, s2, gamma, beta, eps, n, relu, dp=None):
+    """K6 from K4/K5's sums; with `dp` (a mesh) the sums are first summed
+    over the data axis as ONE [2, C] buffer (the global batch's
+    statistics)."""
     acc = _math_dtype(x.dtype)
     c = x.shape[-1]
-    mean = s1.to(acc) / n
-    var = torch.clamp_min(s2.to(acc) / n - mean * mean, 0.0)
+    if dp is not None:
+        s12 = all_reduce_(torch.stack([s1.to(acc), s2.to(acc)]), dp, DATA_AXIS,
+                          site="bn_stats")
+        s1, s2 = s12[0], s12[1]
+    n_all = _global_count(n, dp)
+    mean = s1.to(acc) / n_all
+    var = torch.clamp_min(s2.to(acc) / n_all - mean * mean, 0.0)
     inv = torch.rsqrt(var + eps)
     scale = gamma.to(acc) * inv
     # centered application: y = (x - bf16(mean)) * scale + (beta - delta *
@@ -590,11 +611,14 @@ class BNApply(torch.autograd.Function):
     (K7 + K8, with the ReLU gate on their loads) through
     `bn_backward_pieces`. mean and var
     feed the running averages only and carry no gradient; s1 and s2 get a
-    zero cotangent, since dx is the total derivative."""
+    zero cotangent, since dx is the total derivative. Inside a
+    data-parallel step the sums between K4/K5 and K6, and between K7 and
+    K8, are summed over the data axis."""
 
     @staticmethod
     def forward(ctx, x, s1, s2, gamma, beta, eps, n, relu):
-        y, mean, var, inv = _bn_fwd(x, s1, s2, gamma, beta, eps, n, relu)
+        dp = ctx.dp = active_data_mesh()
+        y, mean, var, inv = _bn_fwd(x, s1, s2, gamma, beta, eps, n, relu, dp)
         ctx.save_for_backward(x, gamma, mean, inv, y)
         ctx.n, ctx.relu = n, relu
         ctx.mark_non_differentiable(mean, var)
@@ -604,7 +628,8 @@ class BNApply(torch.autograd.Function):
     def backward(ctx, g, _dmean, _dvar):
         x, gamma, mean, inv, y = ctx.saved_tensors
         dx, dgamma, dbeta = bn_backward_pieces(g.to(x.dtype), x, mean, inv, gamma, ctx.n,
-                                               gate_y=y if ctx.relu else None)
+                                               gate_y=y if ctx.relu else None,
+                                               **({} if ctx.dp is None else {"dp": ctx.dp}))
         return (dx, None, None, dgamma.to(gamma.dtype), dbeta.to(gamma.dtype),
                 None, None, None)
 
@@ -618,7 +643,8 @@ def bn_apply(x, s1, s2, gamma, beta, eps, n, relu):
 # -- the BN pullback ------------------------------------------------------------
 
 
-def bn_backward_fused(g, x_for_dx, center, gamma, inv, n, *, mean_b=None, gate_y=None):
+def bn_backward_fused(g, x_for_dx, center, gamma, inv, n, *, mean_b=None, gate_y=None,
+                      dp=None):
     """The fused-BN pullback in two kernels (K7 reduce, K8 apply).
 
     g: cotangent in the activation dtype; x_for_dx: the tensor dx is
@@ -632,6 +658,9 @@ def bn_backward_fused(g, x_for_dx, center, gamma, inv, n, *, mean_b=None, gate_y
     x's dtype) the second argument is raw x and x_for_dx = x - mean_b,
     rounded to x's dtype. Neither tensor is materialised.
 
+    With `dp` (a mesh), K7's two sums are summed over the data axis as one
+    [2, C] buffer before K8, and n counts the global batch.
+
     Returns (dx, dgamma, dbeta): dx in g's dtype, dgamma and dbeta in the
     math dtype. The coefficient algebra is the JAX package's exactly."""
     c = g.shape[-1]
@@ -642,16 +671,23 @@ def bn_backward_fused(g, x_for_dx, center, gamma, inv, n, *, mean_b=None, gate_y
            "gate_y2": None if gate_y is None else gate_y.contiguous().reshape(n, c)}
     sum_g, sgx_raw = bn_backward_reduce(g2, x2, **pro)
     center = center.to(acc)
+    # dgamma and dbeta are this rank's shares (the step's gradient
+    # reduction sums them); dx needs the global sums
+    dgamma, dbeta = inv * (sgx_raw - center * sum_g), sum_g
+    if dp is not None:
+        sums = all_reduce_(torch.stack([sum_g, sgx_raw]), dp, DATA_AXIS, site="bn_stats")
+        sum_g, sgx_raw = sums[0], sums[1]
+    n_all = _global_count(n, dp)
     sum_gx = sgx_raw - center * sum_g
     gamma_f = gamma.to(acc)
     c1 = gamma_f * inv
-    c3 = gamma_f * inv * inv * inv * sum_gx / n
-    c0 = -(c1 * sum_g / n) + c3 * center
+    c3 = gamma_f * inv * inv * inv * sum_gx / n_all
+    c0 = -(c1 * sum_g / n_all) + c3 * center
     dx2 = bn_backward_apply(g2, x2, c1, c3, c0, **pro)
-    return dx2.reshape(g.shape), inv * sum_gx, sum_g
+    return dx2.reshape(g.shape), dgamma, dbeta
 
 
-def bn_backward_pieces(g, x, mean, inv, gamma, n, *, gate_y=None):
+def bn_backward_pieces(g, x, mean, inv, gamma, n, *, gate_y=None, dp=None):
     """The BN pullback from the saved x, shared by `BNApply` and
     nn/layers/norm.py's builtin BN: g ReLU-gated by the saved output
     `gate_y` when given, the dtype's recentering (bf16: x - bf16(mean) and
@@ -659,7 +695,8 @@ def bn_backward_pieces(g, x, mean, inv, gamma, n, *, gate_y=None):
     the fused pullback if the "bn_backward" helper engages — which forms
     the gated g and the centred x on its loads from raw x, `mean_b` and
     `gate_y` — else the builtin reductions on both materialised in plain
-    torch. Returns (dx, dgamma, dbeta) in (x.dtype, math dtype, math
+    torch. With `dp` (a mesh) the two per-channel sums are the global
+    batch's. Returns (dx, dgamma, dbeta) in (x.dtype, math dtype, math
     dtype)."""
     from deeplearning4j_tpu_torch.ops.helpers import HelperError, get_helper
 
@@ -672,7 +709,8 @@ def bn_backward_pieces(g, x, mean, inv, gamma, n, *, gate_y=None):
                         training=True, device=x.device)
     if helper is not None:
         try:
-            return helper(g, x, center, gamma, inv, n, mean_b=mean_b, gate_y=gate_y)
+            return helper(g, x, center, gamma, inv, n, mean_b=mean_b, gate_y=gate_y,
+                          **({} if dp is None else {"dp": dp}))
         except HelperError:
             pass  # the helper disabled itself; builtin path below
     if gate_y is not None:
@@ -687,12 +725,19 @@ def bn_backward_pieces(g, x, mean, inv, gamma, n, *, gate_y=None):
         g2, x2 = g.to(acc).reshape(n, c), x_for_dx.to(acc).reshape(n, c)
         sum_g = g2.sum(0)
         sum_gx = (g2 * x2).sum(0) - center * sum_g
+    # dgamma and dbeta are this rank's shares (the step's gradient
+    # reduction sums them); dx needs the global sums
+    dgamma, dbeta = inv * sum_gx, sum_g
+    if dp is not None:
+        sums = all_reduce_(torch.stack([sum_g, sum_gx]), dp, DATA_AXIS, site="bn_stats")
+        sum_g, sum_gx = sums[0], sums[1]
+    n = _global_count(n, dp)
     gamma_f = gamma.to(acc)
     c1 = gamma_f * inv
     c3 = gamma_f * inv * inv * inv * sum_gx / n
     c0 = -(c1 * sum_g / n) + c3 * center
     dx = (c1.to(x.dtype) * g - c3.to(x.dtype) * x_for_dx + c0.to(x.dtype))
-    return dx, inv * sum_gx, sum_g
+    return dx, dgamma, dbeta
 
 
 # -- the helper SPI ---------------------------------------------------------------

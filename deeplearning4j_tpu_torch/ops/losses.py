@@ -18,6 +18,8 @@ from __future__ import annotations
 from typing import Callable, Dict, Optional
 
 import torch
+
+from deeplearning4j_tpu_torch.parallel.mesh import active_data_mesh, data_sum
 import torch.nn.functional as F
 
 from deeplearning4j_tpu_torch.ops.activations import (
@@ -223,16 +225,25 @@ def example_presence(per_ex, mask: Optional[torch.Tensor]):
     return (m > 0).to(per_ex.dtype)
 
 
+def global_present_count(present):
+    """The present-example count a loss divides by: this batch's, or,
+    inside a data-parallel step (parallel/mesh.data_parallel_scope), the
+    global batch's, summed over the data axis, so that each rank's loss is
+    its share of the one global-batch mean."""
+    return data_sum(present.sum(), "loss_count")
+
+
 def masked_example_mean(per_ex, mask: Optional[torch.Tensor]):
     """Mean of per-example losses over PRESENT examples only: the plain
     mean when no example is fully masked. Dividing by the present count
     (not the batch, as the reference does) keeps the per-real-example
     gradient scale constant across padded batches, as in the JAX
-    package."""
-    if mask is None:
+    package. Inside a data-parallel step the count is the global batch's
+    (`global_present_count`)."""
+    if mask is None and active_data_mesh() is None:
         return per_ex.mean()
     present = example_presence(per_ex, mask)
-    return (per_ex * present).sum() / present.sum().clamp_min(1.0)
+    return (per_ex * present).sum() / global_present_count(present).clamp_min(1.0)
 
 
 def loss_value(name: str, labels, preout, activation: str,

@@ -329,6 +329,12 @@ class CheckpointListener(IterationListener):
         background writer will publish)."""
         from deeplearning4j_tpu_torch.utils.model_serializer import ModelSnapshot
 
+        plan = getattr(model, "_mesh_plan", None)
+        if plan is not None and not plan.is_writer():
+            # under a mesh every rank holds the same state and only rank 0
+            # writes; every rank restores (fit(resume_from=...) waits for
+            # the writer, then the plan re-broadcasts rank 0's state)
+            return None
         if not self._lock.acquire(blocking=blocking):
             logger.warning("checkpoint save already in flight; skipping "
                            "(%s)", reason)

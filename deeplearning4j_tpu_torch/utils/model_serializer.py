@@ -216,9 +216,11 @@ class ModelSnapshot:
         snap.layer_confs = list(net._ordered_layer_confs())
         with torch.no_grad():
             clone = lambda t: t.detach().clone()  # noqa: E731
-            snap.params_list = tree_map(clone, list(net.params_list))
+            # a tensor-parallel net's global values (gathered slices)
+            params_list, upd_state = net._global_params()
+            snap.params_list = tree_map(clone, list(params_list))
             snap.state_list = tree_map(clone, list(net.state_list))
-            snap.upd_state = (tree_map(clone, net.upd_state)
+            snap.upd_state = (tree_map(clone, upd_state)
                               if save_updater else None)
         snap.ready = None
         if getattr(net, "device", None) is not None and net.device.type == "cuda":
