@@ -249,6 +249,34 @@ result lines:
    fit books 0 bytes and issues no collective. Scratch files go to
    `_scale_smoke/` in the checkout, removed at the phase's end; phase 12's
    numbers are a JSON line before the last three.
+13. The serving front end (parallel/inference.py, serving/
+   inference_server.py, utils/resourcemeter.py), weights from --seed at
+   full width; servers bind 127.0.0.1 on port 0. 13a: the char-LSTM of
+   phase 3 behind InferenceServer (max_batch_size 32, buckets 1-32 in
+   powers of two warmed at (100, 77) before the port opens, 8 decode
+   slots whose graphs are captured before it opens, metering on): 16
+   client threads send 128 /predict requests of one-hot [n, 100, 77], n in
+   1-32 drawn with weight 1/n, while 8 more send phase 4's 24 /generate
+   requests (tenants a:b 3:1 by X-Tenant, one streamed as NDJSON). Each
+   /predict row is held to output() of that request alone (SLICE_ATOL;
+   bit-equal rows counted), each /generate to the sequential greedy loop;
+   no forward-cache entry and no decode capture after warm-up; bucket hits
+   sum to the batches; the /tenants books conserve per tenant and tier;
+   K1 launches 2 a bucket forward and K2 2 a decode step; the Prometheus
+   text parses. 13b: ResNet-50 (bf16, 224x224x3, 1000 classes) through a
+   ReplicaPool of 2 replicas sharing the weights, every bucket warmed, 16
+   clients and 192 requests sized as in 13a, evict(0) once in mid-run:
+   rows within BF16_ULP*max(1, |v|) of each request's own output(), no
+   error but the in-flight group's, the books conserve, one respawn, no
+   K4-K8 launch (inference declines the conv kernels and BN uses its
+   running statistics). 13c: the char-LSTM pipeline in-process, after a
+   closed-loop capacity probe, for OVERLOAD_SECONDS with twice what it
+   can finish within the 100 ms deadline kept in flight (queue capacity
+   64): shed rate, admitted p99 against the deadline, the largest queue
+   depth against its capacity, the books. For 13a and 13b the busy share
+   is estimated from each hit bucket's device ms (torch.profiler) times
+   its hits over the traffic's wall. Phase 13's numbers are a JSON line
+   before the last three.
 The last three lines of standard output are the kernels JSON line, the
 card line, and {"ok": true, "device": {...}}. Imports nothing of JAX.
 """
@@ -5357,6 +5385,564 @@ def scale_out_phase(torch, F, counts, metrics, seed, card):
         shutil.rmtree(SCALE_DIR, ignore_errors=True)
 
 
+# -- phase 13: the serving front end -------------------------------------------------------
+
+SERVE_T = 100              # the char-LSTM requests' sequence length (13a, 13c)
+SERVE_MAX_BATCH = 32       # ParallelInference max_batch_size; buckets 1, 2, 4, ..., 32
+SERVE_CLIENTS = 16         # client threads (13a /predict, 13b)
+SERVE_PREDICTS = 128       # 13a /predict requests
+SERVE_SLOTS = 8            # 13a decode slots
+POOL_REQUESTS = 192        # 13b requests through the ReplicaPool
+POOL_REPLICAS = 2
+POOL_IMAGE = 224
+OVERLOAD_SECONDS = 3.0     # 13c
+OVERLOAD_DEADLINE_MS = 100.0
+OVERLOAD_QUEUE = 64
+OVERLOAD_PROBE_SECONDS = 1.0  # 13c's closed-loop capacity probe, before the overload
+SERVE_GEN_CLIENTS = 8      # 13a /generate client threads, beside the /predict ones
+SERVE_HTTP_TIMEOUT = 120
+
+
+def request_sizes(rng, n, top=SERVE_MAX_BATCH):
+    """`n` request sizes in 1..top drawn with weight 1/size (bench.py's
+    serving profile: small requests dominate)."""
+    sizes = np.arange(1, top + 1)
+    p = 1.0 / sizes
+    return [int(s) for s in rng.choice(sizes, size=n, p=p / p.sum())]
+
+
+def prometheus_parses(text: str) -> int:
+    """The number of samples in a Prometheus text exposition; raises if a
+    line is neither a comment nor `name{labels} value`."""
+    import re
+
+    pat = re.compile(r'^[a-zA-Z_:][a-zA-Z0-9_:]*(\{([a-zA-Z_][a-zA-Z0-9_]*="(\\.|[^"\\])*",?)*\})?'
+                     r' (-?[0-9.eE+-]+|NaN|[+-]Inf)$')
+    n = 0
+    for line in text.splitlines():
+        if not line or line.startswith("#"):
+            continue
+        check(pat.match(line) is not None, f"13a: unparsable Prometheus line {line!r}")
+        float(line.rsplit(" ", 1)[1])
+        n += 1
+    return n
+
+
+def latency_stats(lat, wall, examples) -> dict:
+    lat = sorted(lat)
+    return {"requests": len(lat), "examples": examples, "seconds": wall,
+            "requests_per_s": len(lat) / wall, "examples_per_s": examples / wall,
+            "p50_ms": float(np.percentile(lat, 50)) * 1e3 if lat else None,
+            "p99_ms": float(np.percentile(lat, 99)) * 1e3 if lat else None}
+
+
+def bucket_device_share(torch, net, make_x, bucket_hits, wall) -> dict:
+    """Device ms of one warm forward at each bucket that traffic hit
+    (torch.profiler, device activity only) and its synced host wall, and
+    the device's busy share over the traffic's wall estimated from them:
+    sum over buckets of hits x device ms, over the wall."""
+    rows, busy_ms = {}, 0.0
+    for b, hits in bucket_hits.items():
+        if not hits:
+            continue
+        x = make_x(int(b))
+        dev = device_ms(torch, lambda: net.output(x), reps=5)
+        t = time.perf_counter()
+        for _ in range(5):
+            net.output(x)
+        torch.cuda.synchronize()
+        rows[str(b)] = {"hits": hits, "device_ms": dev,
+                        "host_ms": (time.perf_counter() - t) / 5 * 1e3}
+        busy_ms += hits * (dev or 0.0)
+    return {"by_bucket": rows, "device_s": busy_ms / 1e3,
+            "busy_share_est": busy_ms / 1e3 / wall}
+
+
+def run_clients(n_clients, jobs, fn):
+    """`jobs` spread over `n_clients` threads, each taking the next job
+    index until none is left; fn(i) per job. Returns (per-job results or
+    exceptions, wall seconds)."""
+    import threading
+
+    out = [None] * len(jobs)
+    nxt = [0]
+    lock = threading.Lock()
+
+    def worker():
+        while True:
+            with lock:
+                i = nxt[0]
+                nxt[0] += 1
+            if i >= len(jobs):
+                return
+            try:
+                out[i] = fn(i)
+            except Exception as e:  # recorded; the caller decides
+                out[i] = e
+
+    threads = [threading.Thread(target=worker, name=f"smoke-client-{k}", daemon=True)
+               for k in range(n_clients)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    check(not any(t.is_alive() for t in threads), "13: a client thread hung")
+    return out, time.perf_counter() - t0
+
+
+def post_json(url, payload, headers=None, timeout=SERVE_HTTP_TIMEOUT):
+    import urllib.request
+
+    req = urllib.request.Request(url, data=json.dumps(payload).encode(),
+                                 headers={"Content-Type": "application/json",
+                                          **(headers or {})})
+    with urllib.request.urlopen(req, timeout=timeout) as resp:
+        return resp.status, resp.read()
+
+
+def get_body(url, timeout=SERVE_HTTP_TIMEOUT):
+    import urllib.request
+
+    with urllib.request.urlopen(url, timeout=timeout) as resp:
+        return resp.read()
+
+
+def charlstm_server_phase(torch, counts, metrics, seed, card, device="cuda"):
+    """13a: the full-width char-LSTM behind InferenceServer, /predict and
+    /generate traffic at once over HTTP on 127.0.0.1."""
+    import threading
+
+    from deeplearning4j_tpu_torch.models.charlstm import char_lstm_network
+    from deeplearning4j_tpu_torch.serving import InferenceServer
+    from deeplearning4j_tpu_torch.utils import resourcemeter
+
+    rng = np.random.default_rng(seed + 13)
+    net = char_lstm_network(vocab_size=VOCAB, hidden=HIDDEN, layers=LAYERS, seed=seed,
+                            device=device)
+    resourcemeter.enable()
+    t0 = time.perf_counter()
+    server = InferenceServer(net, port=0, max_batch_size=SERVE_MAX_BATCH,
+                             warmup_shape=(SERVE_T, VOCAB), decode_slots=SERVE_SLOTS,
+                             decode_tenant_weights={"a": 3.0, "b": 1.0})
+    t_warm = time.perf_counter() - t0
+    eng = server.decode
+    port = server.start()
+    base = f"http://127.0.0.1:{port}"
+    try:
+        warm_compiles = net.output_compile_count
+        captures0 = dict(eng.metrics()["captures"])
+        check(warm_compiles == len(server.inference.buckets),
+              f"13a: warm-up made {warm_compiles} forward-cache entries for "
+              f"{len(server.inference.buckets)} buckets")
+        sizes = request_sizes(rng, SERVE_PREDICTS)
+        tokens = [rng.integers(0, VOCAB, (n, SERVE_T)) for n in sizes]
+        eye = np.eye(VOCAB, dtype=np.int8)
+        # phase 4's generate mix: prompts of 1-32 tokens, 32-64 new tokens,
+        # tenants a:b = 3:1 by X-Tenant, one request streamed
+        grng = np.random.default_rng(seed + 1)
+        gens = [(grng.integers(0, VOCAB, size=int(grng.integers(1, 33))).tolist(),
+                 int(grng.integers(32, 65)), "a" if i % 4 else "b") for i in range(24)]
+        stream_idx = 5
+        lat = {"predict": [None] * len(sizes), "generate": [None] * len(gens)}
+
+        def predict(i):
+            body = {"features": eye[tokens[i]].tolist()}
+            t = time.perf_counter()
+            status, raw = post_json(f"{base}/predict", body)
+            lat["predict"][i] = time.perf_counter() - t
+            check(status == 200, f"13a: /predict answered {status}")
+            return np.asarray(json.loads(raw)["predictions"], np.float32)
+
+        def generate(i):
+            prompt, mx, tenant = gens[i]
+            body = {"prompt": prompt, "max_tokens": mx, "stream": i == stream_idx}
+            t = time.perf_counter()
+            status, raw = post_json(f"{base}/generate", body, headers={"X-Tenant": tenant})
+            lat["generate"][i] = time.perf_counter() - t
+            check(status == 200, f"13a: /generate answered {status}")
+            if i != stream_idx:
+                return json.loads(raw)["tokens"]
+            lines = [json.loads(ln) for ln in raw.decode().splitlines() if ln]
+            streamed = [ln["token"] for ln in lines[:-1]]
+            check(lines[-1].get("done") and lines[-1]["tokens"] == streamed,
+                  f"13a: the NDJSON stream's tokens and its closing line disagree: {lines[-1]}")
+            return streamed
+
+        counts.reset()
+        hits0 = decode_hits(metrics)
+        # the /generate clients run beside the /predict clients, so decode
+        # steps interleave with bucket forwards on the card
+        gen_res = {}
+        gen_thread = threading.Thread(
+            target=lambda: gen_res.update(zip(("out", "wall"), run_clients(
+                SERVE_GEN_CLIENTS, list(range(len(gens))), generate))),
+            name="smoke-generate-clients", daemon=True)
+        gen_thread.start()
+        preds, wall = run_clients(SERVE_CLIENTS, list(range(len(sizes))), predict)
+        gen_thread.join(timeout=600)
+        check(not gen_thread.is_alive(), "13a: the /generate clients hung")
+        if device == "cuda":
+            torch.cuda.synchronize()
+        launches = counts.read()
+        hits = decode_hits(metrics) - hits0
+        gen_out = gen_res["out"]
+        bad = [repr(o) for o in list(preds) + list(gen_out) if isinstance(o, Exception)]
+        check(not bad, f"13a: requests failed: {bad[:3]}")
+        pm = json.loads(get_body(f"{base}/metrics"))
+        tenants = json.loads(get_body(f"{base}/tenants"))
+        prom = get_body(f"{base}/metrics?format=prometheus").decode()
+        health = json.loads(get_body(f"{base}/health"))
+        em = eng.metrics()
+        after_compiles = net.output_compile_count
+    finally:
+        server.stop()
+        resourcemeter.disable()
+    # holds
+    check(after_compiles == warm_compiles,
+          f"13a: traffic added {after_compiles - warm_compiles} forward-cache entries after warm-up")
+    check(sum(pm["bucket_hits"].values()) == pm["batches"],
+          f"13a: bucket hits {pm['bucket_hits']} do not sum to {pm['batches']} batches")
+    check(pm["admitted"] == pm["completed"] == len(sizes) and pm["conservation_ok"],
+          f"13a: /predict books {pm}")
+    check(em["captures"] == captures0 == {1: 2},
+          f"13a: decode captures {captures0} at warm-up, {em['captures']} after traffic")
+    check(tenants["conservation"]["ok"], f"13a: /tenants conservation {tenants['conservation']}")
+    for tier, books in tenants["books_by_tier"].items():
+        for t, b in books.items():
+            check(b["conservation_ok"], f"13a: tier {tier} tenant {t} books {b}")
+    spent = {t: rec["device_seconds"] for t, rec in tenants["tenants"].items()}
+    check(spent.get("a", {}).get("decode", 0) > 0 and spent.get("b", {}).get("decode", 0) > 0,
+          f"13a: decode spend by tenant {spent}")
+    n_prom = prometheus_parses(prom)
+    # K1: one launch per GravesLSTM layer per bucket forward; K2: one per
+    # layer per decode step replay (K = 1), as many lstm_decode_step hits
+    k1, k2 = launches["lstm_sequence"], launches["lstm_step"]
+    if device == "cuda":
+        check(k1 == LAYERS * pm["batches"],
+              f"13a: {k1} K1 launches for {pm['batches']} forwards of {LAYERS} layers")
+        check(k2 == LAYERS * em["steps"] == hits and k2 > 0,
+              f"13a: {k2} K2 launches, {hits} lstm_decode_step hits, {em['steps']} steps")
+    # every /generate equals the sequential greedy rnn_time_step loop
+    bad = [i for i, (p, mx, _) in enumerate(gens)
+           if gen_out[i] != greedy_reference(torch, net, p, mx)]
+    check(not bad, f"13a: /generate tokens differ from the sequential loop for {bad}")
+    # every /predict row against output() of that request alone
+    errs, bit_equal = [], 0
+    for i, n in enumerate(sizes):
+        ref = net.output(np.eye(VOCAB, dtype=np.float32)[tokens[i]]).float().cpu().numpy()
+        err = float(np.abs(preds[i] - ref).max())
+        errs.append(err)
+        bit_equal += int(np.array_equal(preds[i], ref))
+    check(max(errs) <= SLICE_ATOL,
+          f"13a: a /predict row differs from its own output() by {max(errs)} > {SLICE_ATOL}")
+    n_ex = sum(sizes)
+    share = None
+    if device == "cuda":
+        share = bucket_device_share(
+            torch, net, lambda b: torch.from_numpy(
+                np.eye(VOCAB, dtype=np.float32)[rng.integers(0, VOCAB, (b, SERVE_T))]).cuda(),
+            pm["bucket_hits"], wall)
+    rec = {"warmup_s": t_warm, "forward_compiles": warm_compiles,
+           "compiles_after_traffic": after_compiles - warm_compiles,
+           "batches": pm["batches"], "bucket_hits": pm["bucket_hits"],
+           "decode_captures": em["captures"], "decode_steps": em["steps"],
+           "k1_launches": k1, "k2_launches": k2, "launches": launches,
+           "predict_max_abs_err": max(errs), "predict_rows_bit_equal": bit_equal,
+           "predict_requests": len(sizes), "prometheus_samples": n_prom,
+           "server_latency_ms": pm["latency_ms"], "device": share,
+           "health": health["status"],
+           "tenants": {t: {"device_seconds": v["device_seconds"], "tokens": v["tokens"],
+                           "books": v["books"]} for t, v in tenants["tenants"].items()},
+           "predict": latency_stats(lat["predict"], wall, n_ex),
+           "generate": {**latency_stats(lat["generate"], gen_res["wall"],
+                                        sum(len(g) for g in gen_out)),
+                        "tokens": sum(len(g) for g in gen_out)},
+           "wall_s": wall}
+    print(f"  13a /predict: {len(sizes)} requests ({n_ex} examples, sizes 1-{SERVE_MAX_BATCH} "
+          f"weighted 1/n) from {SERVE_CLIENTS} client threads over HTTP, beside 24 /generate "
+          f"from {SERVE_GEN_CLIENTS}, {wall:.2f} s: {rec['predict']['requests_per_s']:.1f} requests/s, "
+          f"{rec['predict']['examples_per_s']:.1f} examples/s, p50 "
+          f"{rec['predict']['p50_ms']:.1f} ms p99 {rec['predict']['p99_ms']:.1f} ms on {card}")
+    print(f"  13a /generate: {rec['generate']['tokens']} tokens, p50 "
+          f"{rec['generate']['p50_ms']:.1f} ms p99 {rec['generate']['p99_ms']:.1f} ms; tokens equal "
+          f"the sequential loop (one streamed as NDJSON)")
+    print(f"  13a holds: rows vs own output() max abs {max(errs):.3e} (tolerance {SLICE_ATOL}), "
+          f"{bit_equal}/{len(sizes)} bit-equal; forward-cache entries after warm-up "
+          f"{after_compiles - warm_compiles}; {pm['batches']} batches = bucket hits "
+          f"{pm['bucket_hits']}; K1 {k1} = {LAYERS} x forwards, K2 {k2} = {LAYERS} x "
+          f"{em['steps']} steps; decode captures {em['captures']} before and after; "
+          f"books conserve per tenant and tier; {n_prom} Prometheus samples parse")
+    print(f"  13a where the time goes: in-server /predict latency (admission to result) p50 "
+          f"{pm['latency_ms']['p50_ms']} ms p99 {pm['latency_ms']['p99_ms']} ms against the "
+          f"clients' {rec['predict']['p50_ms']:.1f} / {rec['predict']['p99_ms']:.1f} ms (the rest "
+          f"is JSON and HTTP on the host); bucket forwards "
+          + (", ".join(f"{b}: {v['device_ms']:.3f} ms device / {v['host_ms']:.3f} ms host"
+                       for b, v in share["by_bucket"].items())
+             + f"; device busy ~{share['busy_share_est']:.4f} of the wall" if share else "")
+          + f" on {card}")
+    del net
+    return rec
+
+
+def resnet_pool_phase(torch, counts, seed, card, device="cuda", image=POOL_IMAGE):
+    """13b: ResNet-50 (bf16) through a ReplicaPool of two replicas sharing
+    the weights, in-process; one eviction in mid-run."""
+    import threading
+
+    from deeplearning4j_tpu_torch.models.resnet import resnet50_network
+    from deeplearning4j_tpu_torch.parallel.inference import ReplicaPool
+
+    rng = np.random.default_rng(seed + 15)
+    net = resnet50_network(precision="bf16", image_size=image, seed=seed, device=device)
+    pool = ReplicaPool(net, n_replicas=POOL_REPLICAS, max_batch_size=SERVE_MAX_BATCH,
+                       component_prefix="smoke_pool")
+    try:
+        t0 = time.perf_counter()
+        pool.warmup((image, image, 3))
+        t_warm = time.perf_counter() - t0
+        warm_compiles = net.output_compile_count
+        images = rng.standard_normal((SERVE_MAX_BATCH, image, image, 3)).astype(np.float32)
+        sizes = request_sizes(rng, POOL_REQUESTS)
+        offs = [int(rng.integers(0, SERVE_MAX_BATCH - n + 1)) for n in sizes]
+        lat = [None] * len(sizes)
+        done = [0]
+        lock = threading.Lock()
+        evictor = threading.Thread(target=lambda: pool.evict(0, "evicted in mid-run"),
+                                   name="smoke-evictor", daemon=True)
+
+        def call(i):
+            x = images[offs[i]:offs[i] + sizes[i]]
+            t = time.perf_counter()
+            try:
+                return pool.output(x)
+            finally:
+                lat[i] = time.perf_counter() - t
+                with lock:
+                    done[0] += 1
+                    if done[0] == len(sizes) // 2:
+                        evictor.start()  # on its own thread, while traffic runs
+
+        counts.reset()
+        out, wall = run_clients(SERVE_CLIENTS, list(range(len(sizes))), call)
+        evictor.join(timeout=120)
+        check(not evictor.is_alive(), "13b: the mid-run eviction did not finish")
+        if device == "cuda":
+            torch.cuda.synchronize()
+        launches = counts.read()
+        m = pool.metrics()
+        after_compiles = net.output_compile_count
+    finally:
+        pool.shutdown()
+    errors = [(i, o) for i, o in enumerate(out) if isinstance(o, Exception)]
+    for i, e in errors:
+        check(isinstance(e, RuntimeError) and "in flight" in str(e),
+              f"13b: request {i} saw {e!r}, not the in-flight group's failure")
+    check(len(errors) <= SERVE_MAX_BATCH and sum(sizes[i] for i, _ in errors) <= SERVE_MAX_BATCH,
+          f"13b: {len(errors)} failures are more than the one group in flight")
+    check(m["admitted"] == m["completed"] + m["shed"] + m["failed"],
+          f"13b: books {m['admitted']} admitted != {m['completed']} + {m['shed']} + {m['failed']}")
+    # the books count attempts: a request queued on the evicted replica is
+    # booked failed there and served by its sibling (ReplicaPool resubmits
+    # it), so failed >= the failures callers saw, and completed == served
+    check(m["completed"] == len(sizes) - len(errors) and m["failed"] >= len(errors)
+          and m["shed"] == 0,
+          f"13b: books {m['completed']} completed / {m['failed']} failed / {m['shed']} shed, "
+          f"{len(errors)} errors seen of {len(sizes)}")
+    check(m["evictions"] == 1 and m["respawns"] == 1 and m["in_rotation"] == POOL_REPLICAS,
+          f"13b: evictions {m['evictions']}, respawns {m['respawns']}, "
+          f"in rotation {m['in_rotation']}")
+    check(after_compiles == warm_compiles,
+          f"13b: {after_compiles - warm_compiles} forward-cache entries after warm-up")
+    conv_bn = {k: launches.get(k, 0) for k in ("conv1x1_stats", "conv_kxk_stats", "bn_apply",
+                                               "bn_backward_reduce", "bn_backward_apply")}
+    # inference declines K4/K5 ("inference", ops/fused_conv_bn.py, as in the
+    # JAX package) and BN normalises with its running statistics (no K6),
+    # and nothing runs backward (K7/K8)
+    check(not any(conv_bn.values()), f"13b: conv/BN kernels launched while serving: {conv_bn}")
+    # rows against each request's own output(), bf16 rule
+    worst = 0.0
+    bit_equal = 0
+    for i, o in enumerate(out):
+        if isinstance(o, Exception):
+            continue
+        x = images[offs[i]:offs[i] + sizes[i]]
+        ref = net.output(torch.from_numpy(x).to(device)).float().cpu().numpy()
+        excess = float((np.abs(o - ref) / np.maximum(1.0, np.abs(ref))).max())
+        worst = max(worst, excess)
+        bit_equal += int(np.array_equal(o, ref))
+    check(worst <= BF16_ULP, f"13b: a served row differs from its own output() by "
+                             f"{worst} x max(1, |v|) > {BF16_ULP}")
+    served = [lat[i] for i, o in enumerate(out) if not isinstance(o, Exception)]
+    n_ex = sum(sizes[i] for i, o in enumerate(out) if not isinstance(o, Exception))
+    share = None
+    if device == "cuda":
+        share = bucket_device_share(
+            torch, net, lambda b: torch.from_numpy(images[:b]).cuda(), m["bucket_hits"], wall)
+    rec = {"warmup_s": t_warm, "forward_compiles": warm_compiles, "batches": m["batches"],
+           "bucket_hits": {str(k): v for k, v in m["bucket_hits"].items()},
+           "failed_in_flight": len(errors), "evictions": m["evictions"],
+           "respawns": m["respawns"], "launches": launches, "conv_bn_launches": conv_bn,
+           "max_rel_err": worst, "rows_bit_equal": bit_equal, "device": share,
+           "books": {k: m[k] for k in ("admitted", "completed", "shed", "failed", "rejected")},
+           "predict": latency_stats(served, wall, n_ex)}
+    print(f"  13b ResNet-50 bf16 {image}x{image}x3 through ReplicaPool({POOL_REPLICAS}): "
+          f"{len(sizes)} requests ({n_ex} images served), {SERVE_CLIENTS} clients, "
+          f"{wall:.2f} s: {rec['predict']['requests_per_s']:.1f} requests/s, "
+          f"{rec['predict']['examples_per_s']:.1f} images/s, p50 {rec['predict']['p50_ms']:.1f} ms "
+          f"p99 {rec['predict']['p99_ms']:.1f} ms on {card}")
+    print(f"  13b holds: evict(0) in mid-run -> {len(errors)} in-flight failures, 1 respawn, "
+          f"books {rec['books']}; rows vs own output() {worst:.3e} x max(1,|v|) "
+          f"(tolerance {BF16_ULP}), {bit_equal} bit-equal; K4-K8 launches {conv_bn} "
+          f"(inference declines the conv kernels; BN uses running statistics)")
+    if share:
+        print("  13b where the time goes: bucket forwards "
+              + ", ".join(f"{b}: {v['device_ms']:.3f} ms device / {v['host_ms']:.3f} ms host"
+                          for b, v in share["by_bucket"].items())
+              + f"; device busy ~{share['busy_share_est']:.4f} of the wall on {card}")
+    del net
+    return rec
+
+
+def overload_phase(torch, counts, seed, card, device="cuda"):
+    """13c: the char-LSTM pipeline of 13a in-process under about twice the
+    load it can serve within the deadline, for OVERLOAD_SECONDS."""
+    import threading
+
+    from deeplearning4j_tpu_torch.models.charlstm import char_lstm_network
+    from deeplearning4j_tpu_torch.parallel.inference import (
+        _WAIT_SHED_GRACE,
+        DeadlineExceeded,
+        ParallelInference,
+        RequestRejected,
+    )
+
+    rng = np.random.default_rng(seed + 16)
+    net = char_lstm_network(vocab_size=VOCAB, hidden=HIDDEN, layers=LAYERS, seed=seed,
+                            device=device)
+    eye = np.eye(VOCAB, dtype=np.float32)
+    pool_x = [eye[rng.integers(0, VOCAB, (n, SERVE_T))] for n in request_sizes(rng, 64)]
+    pi = ParallelInference(net, max_batch_size=SERVE_MAX_BATCH, queue_capacity=OVERLOAD_QUEUE,
+                           component_prefix="smoke_overload")
+    try:
+        pi.warmup((SERVE_T, VOCAB))
+
+        def closed_loop(n_clients, seconds, deadline_ms):
+            stop = threading.Event()
+            lat, shed, fails = [], [0], []
+            lock = threading.Lock()
+            depth = [0]
+
+            def client(k):
+                j = k
+                while not stop.is_set():
+                    x = pool_x[j % len(pool_x)]
+                    j += n_clients
+                    t = time.perf_counter()
+                    try:
+                        pi.output(x, deadline_ms=deadline_ms)
+                        with lock:
+                            lat.append(time.perf_counter() - t)
+                    except (DeadlineExceeded, RequestRejected) as e:
+                        with lock:
+                            shed[0] += 1
+                        # a client backs off as a 429's Retry-After says
+                        time.sleep(min(max(0.002, e.retry_after),
+                                       OVERLOAD_DEADLINE_MS / 1e3))
+                    except Exception as e:
+                        with lock:
+                            fails.append(repr(e))
+
+            threads = [threading.Thread(target=client, args=(k,), daemon=True,
+                                        name=f"smoke-overload-{k}") for k in range(n_clients)]
+            t0 = time.perf_counter()
+            for t in threads:
+                t.start()
+            while time.perf_counter() - t0 < seconds:
+                depth[0] = max(depth[0], pi._q.qsize())
+                time.sleep(0.005)
+            stop.set()
+            for t in threads:
+                t.join(timeout=60)
+            check(not any(t.is_alive() for t in threads), "13c: a client hung")
+            return lat, shed[0], fails, depth[0], time.perf_counter() - t0
+
+        # capacity: SERVE_CLIENTS closed-loop clients, no deadline
+        lat0, _, fails0, _, wall0 = closed_loop(SERVE_CLIENTS, OVERLOAD_PROBE_SECONDS, None)
+        check(not fails0 and lat0, f"13c: the capacity probe failed: {fails0[:3]}")
+        capacity = len(lat0) / wall0
+        # twice what the pipeline can finish within one deadline, kept in
+        # flight by as many closed-loop clients
+        n_clients = int(min(256, max(2 * SERVE_CLIENTS,
+                                     math.ceil(2 * capacity * OVERLOAD_DEADLINE_MS / 1e3))))
+        m0 = pi.metrics()
+        counts.reset()
+        lat, shed, fails, depth, wall = closed_loop(n_clients, OVERLOAD_SECONDS,
+                                                    OVERLOAD_DEADLINE_MS)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        launches = counts.read()
+        m = pi.metrics()
+    finally:
+        pi.shutdown()
+    check(not fails, f"13c: requests failed under overload: {fails[:3]}")
+    d = {k: m[k] - m0[k] for k in ("admitted", "completed", "shed", "failed", "rejected")}
+    check(m["conservation_ok"] and d["admitted"] == d["completed"] + d["shed"] + d["failed"],
+          f"13c: books {d}")
+    check(depth <= OVERLOAD_QUEUE, f"13c: queue depth {depth} > capacity {OVERLOAD_QUEUE}")
+    offered = d["admitted"] + d["rejected"]
+    shed_rate = (d["shed"] + d["rejected"]) / max(1, offered)
+    p99 = float(np.percentile(lat, 99)) * 1e3 if lat else None
+    bound_ms = OVERLOAD_DEADLINE_MS + _WAIT_SHED_GRACE * 1e3
+    check(lat and p99 <= bound_ms + 1000.0,
+          f"13c: admitted p99 {p99} ms past the deadline + wait grace {bound_ms} ms")
+    if device == "cuda":
+        check(launches["lstm_sequence"] == LAYERS * (m["batches"] - m0["batches"]),
+              f"13c: K1 launches {launches['lstm_sequence']} for "
+              f"{m['batches'] - m0['batches']} forwards")
+    rec = {"capacity_requests_per_s": capacity, "clients": n_clients, "seconds": wall,
+           "books": d, "shed_rate": shed_rate, "shed_by": m["shed_by"],
+           "completed_per_s": d["completed"] / wall,
+           "admitted_p50_ms": float(np.percentile(lat, 50)) * 1e3, "admitted_p99_ms": p99,
+           "deadline_ms": OVERLOAD_DEADLINE_MS, "max_queue_depth": depth,
+           "queue_capacity": OVERLOAD_QUEUE, "launches": launches}
+    print(f"  13c overload: closed-loop capacity {capacity:.1f} requests/s with "
+          f"{SERVE_CLIENTS} clients; {n_clients} clients for {wall:.2f} s with deadline "
+          f"{OVERLOAD_DEADLINE_MS:.0f} ms, queue capacity {OVERLOAD_QUEUE}: shed rate "
+          f"{shed_rate:.3f} ({d['shed']} shed + {d['rejected']} refused of {offered}), "
+          f"admitted p50 {rec['admitted_p50_ms']:.1f} ms p99 {p99:.1f} ms vs the "
+          f"{OVERLOAD_DEADLINE_MS:.0f} ms deadline, largest queue depth {depth} of "
+          f"{OVERLOAD_QUEUE}, books {d} conserve; on {card}")
+    del net
+    return rec
+
+
+def serving_phase(torch, counts, metrics, seed, card, device="cuda"):
+    """13: the serving front end (InferenceServer, ParallelInference,
+    ReplicaPool) at full width."""
+    t_phase = time.perf_counter()
+    rec = {"charlstm_server": charlstm_server_phase(torch, counts, metrics, seed, card, device)}
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    rec["resnet_pool"] = resnet_pool_phase(torch, counts, seed, card, device)
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    rec["overload"] = overload_phase(torch, counts, seed, card, device)
+    rec["seconds"] = time.perf_counter() - t_phase
+    print(f"  phase 13 took {rec['seconds']:.1f} s")
+    return rec
+
+
+def serving_summary(p13, card) -> dict:
+    a, b, c = p13["charlstm_server"], p13["resnet_pool"], p13["overload"]
+    return {"card": card,
+            "13a_charlstm_predict": a["predict"], "13a_charlstm_generate": a["generate"],
+            "13b_resnet50_pool": b["predict"],
+            "13c_overload": {k: c[k] for k in ("capacity_requests_per_s", "clients",
+                                               "shed_rate", "admitted_p99_ms", "deadline_ms",
+                                               "max_queue_depth", "queue_capacity")}}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5528,6 +6114,12 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     p12 = scale_out_phase(torch, F, counts, metrics, args.seed, card)
 
+    print("[13] the serving front end: the char-LSTM behind InferenceServer (/predict "
+          "and /generate over HTTP), ResNet-50 through a ReplicaPool with one eviction, "
+          "overload shedding")
+    torch.cuda.empty_cache()
+    p13 = serving_phase(torch, counts, metrics, args.seed, card)
+
     # each main path's count, read just after it ran from zero
     by_path = {"output": sl["launches"], "serve": sv["launches"],
                "train": tr["launches"], "train_resnet": rn["launches"],
@@ -5537,7 +6129,10 @@ def main(argv=None) -> int:
                "sentinel_charlstm": p10["rollback"]["launches"],
                "sentinel_resnet": p10["cost"]["launches"],
                "solvers": p10["solvers"]["launches"], "dl4j_import": p10["import"]["launches"],
-               "embeddings": p11["launches"], "scale_out": p12["launches"]}
+               "embeddings": p11["launches"], "scale_out": p12["launches"],
+               "serving": p13["charlstm_server"]["launches"],
+               "serving_resnet": p13["resnet_pool"]["launches"],
+               "serving_overload": p13["overload"]["launches"]}
     main_launches = {name: sum(c.get(name, 0) for c in by_path.values())
                      for name in rows}
     meta = {
@@ -5583,6 +6178,7 @@ def main(argv=None) -> int:
               "phase10": p10,
               "phase11": p11,
               "phase12": p12,
+              "phase13": p13,
               "build": {k: v["seconds"] for k, v in info.items()},
               "ptxas": {k: v["log"] for k, v in info.items() if k not in cuda_build.SOURCES},
               "seconds": time.perf_counter() - t_start}
@@ -5591,6 +6187,7 @@ def main(argv=None) -> int:
         with open(args.out, "w") as f:
             json.dump(record, f, indent=2)
     print(json.dumps({"scale_out": scale_summary(p12)}))
+    print(json.dumps({"serving": serving_summary(p13, card)}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -22,7 +22,10 @@ and the record, streaming and CIFAR/Iris/LFW data iterators; and the
 embeddings stack — Word2Vec, ParagraphVectors, GloVe and the serializer
 (`nlp/`), DeepWalk and node2vec (`graph/`), and the native corpus
 pipeline (`native/`, built with g++ at first use) — whose device math
-is PyTorch ops, as the JAX package's is XLA ops.
+is PyTorch ops, as the JAX package's is XLA ops; scale-out on
+`torch.distributed` (`parallel/`); and the serving front end — the
+bucketed, load-shedding `ParallelInference`, the self-healing
+`ReplicaPool` and the REST `InferenceServer` (`/predict`, `/generate`).
 """
 
 __version__ = "0.1.0"

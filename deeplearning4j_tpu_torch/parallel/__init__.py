@@ -8,14 +8,18 @@ bucketed gradient all-reduce, with global batch-norm statistics in the
 layers), the deprecated `ParallelWrapper` facade, the multi-host entry
 point (`multihost`), tensor parallelism (`tensor`), GPipe pipeline
 parallelism (`pipeline`) and ring-attention sequence parallelism
-(`sequence`). ParallelInference, ReplicaPool and power_of_two_buckets
-are not ported yet.
+(`sequence`), and the serving pool: ParallelInference with shape buckets
+and load shedding, and the self-healing ReplicaPool (`inference`).
 """
 
 from deeplearning4j_tpu_torch.parallel.inference import (
     DeadlineExceeded,
+    InferenceMode,
+    ParallelInference,
+    ReplicaPool,
     RequestRejected,
     RequestValidationError,
+    power_of_two_buckets,
 )
 from deeplearning4j_tpu_torch.parallel.mesh import (
     DATA_AXIS,
@@ -51,9 +55,13 @@ __all__ = [
     "MeshPlan",
     "auto_mesh_enabled",
     "ParallelWrapper",
+    "ParallelInference",
+    "ReplicaPool",
+    "InferenceMode",
     "RequestValidationError",
     "RequestRejected",
     "DeadlineExceeded",
+    "power_of_two_buckets",
     "shard_params_tp",
     "tp_dense_specs",
 ]

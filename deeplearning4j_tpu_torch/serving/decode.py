@@ -44,9 +44,23 @@ the same buffers. On a Hopper GPU each LSTM layer's step inside the
 program is the fused CUDA step kernel (ops/fused_lstm.lstm_step). A
 capture records the kernel launches and helper-SPI hits it makes, and
 each replay adds them to `fused_lstm.launch_counts()` and
-`helper_hit_total`, so both count what ran. The JAX engine's tracing,
-fault-injection, health, lock-audit, resource-meter and run-ledger
-hooks are not ported yet; its metrics are.
+`helper_hit_total`, so both count what ran.
+
+Production integration, as in the JAX engine: slots feed the metrics
+registry (`decode_slots_in_use`, `decode_tokens_total{tenant}`,
+`decode_token_seconds` with trace exemplars); the engine heartbeats the
+watchdog (`<prefix>_engine` — a wedged step degrades component health
+like a wedged serving dispatcher; the first step's capture and kernel
+build run outside the busy slot); faults inject at the `decode_step`
+point; request lifecycle spans are `decode/admit` -> `decode/step` ->
+`decode/emit`, with a `decode/swap` span and a flight-recorder event for
+each weight flip and for the engine's start and stop; each step's wall
+time is split over the tenants whose slots it advanced
+(utils/resourcemeter, one flag check when unmetered), and the books
+register under the decode tier. The REST layer exposes `POST /generate`
+(serving/inference_server.py) behind the same deadline/429 contract as
+/predict. The JAX engine's lock-audit probe (utils/locktrace) and its
+`run_ledger=` wait for those modules in the port.
 """
 
 from __future__ import annotations
@@ -74,8 +88,15 @@ from deeplearning4j_tpu_torch.parallel.inference import (
     ReplicaUnavailable,
     RequestRejected,
     RequestValidationError,
+    _trace_shed_span,
 )
+from deeplearning4j_tpu_torch.utils import blackbox as _blackbox
+from deeplearning4j_tpu_torch.utils import faultpoints as _faults
+from deeplearning4j_tpu_torch.utils import health as _health
 from deeplearning4j_tpu_torch.utils import metrics as _metrics
+from deeplearning4j_tpu_torch.utils import resourcemeter as _resourcemeter
+from deeplearning4j_tpu_torch.utils import tenancy as _tenancy
+from deeplearning4j_tpu_torch.utils import tracing as _tracing
 
 logger = logging.getLogger("deeplearning4j_tpu_torch")
 
@@ -90,15 +111,18 @@ class _Request:
     recurrent state lives in the engine's device-resident carry."""
 
     __slots__ = ("prompt", "max_new_tokens", "tenant", "deadline", "fut",
-                 "on_token", "tokens", "t_submit", "t_decode0", "last_emit")
+                 "on_token", "ctx", "tokens", "t_submit", "t_decode0",
+                 "last_emit")
 
-    def __init__(self, prompt, max_new_tokens, tenant, deadline, on_token):
+    def __init__(self, prompt, max_new_tokens, tenant, deadline, on_token,
+                 ctx):
         self.prompt = prompt                  # np.int32 [P]
         self.max_new_tokens = max_new_tokens
         self.tenant = tenant
         self.deadline = deadline              # absolute monotonic or None
         self.fut = Future()
         self.on_token = on_token
+        self.ctx = ctx                        # tracing SpanContext or None
         self.tokens: List[int] = []           # emitted so far
         self.t_submit = time.perf_counter()
         self.t_decode0 = None                 # first step in a slot
@@ -132,8 +156,14 @@ class DecodeEngine:
         tenant_weights: Optional[Dict[str, float]] = None,
         tenant_deadline_ms: Optional[Dict[str, float]] = None,
         queue_capacity: int = 256,
+        health_stall_after: float = 30.0,
         component_prefix: str = "decode",
+        run_ledger=None,
     ):
+        if run_ledger is not None:
+            raise NotImplementedError(
+                "DecodeEngine(run_ledger=) needs utils/runledger.py, which "
+                "the port does not have yet")
         if int(n_slots) < 1:
             raise ValueError(f"n_slots must be >= 1, got {n_slots}")
         self.model = model
@@ -209,6 +239,13 @@ class DecodeEngine:
         self._slots: List[Optional[_Slot]] = [None] * self.n_slots
         self._free: List[int] = list(range(self.n_slots))
         self._books = AdmissionBooks()
+        _resourcemeter.register_books(_resourcemeter.TIER_DECODE,
+                                      self._books)
+        # device-memory attribution for the live weight version (keyed
+        # per version so a flipped-away one releases its bytes); no-op
+        # when unmetered
+        self._hbm_src: Optional[str] = None
+        self._note_weights_hbm(0, self._sets[self._live])
         self._requests = 0
         self._steps = 0
         self._tokens_out = 0
@@ -242,6 +279,8 @@ class DecodeEngine:
             "decode_slots_in_use",
             "decode slots currently holding an active sequence").labels()
         self._g_slots.set(0)
+        self._hb = _health.get_health().register(
+            f"{component_prefix}_engine", stall_after=health_stall_after)
         self._thread = threading.Thread(
             target=self._loop, daemon=True,
             name=f"dl4j-decode-engine-{component_prefix}")
@@ -264,7 +303,10 @@ class DecodeEngine:
         back to the tenant's default, then the engine's): work that
         cannot make it is SHED (DeadlineExceeded / RequestRejected),
         never served late."""
-        tenant = DEFAULT_TENANT if tenant is None else str(tenant)
+        # canonicalize through the bounded registry: past the cap,
+        # unknown names collapse into __other__ (books and spend stay
+        # conserved; only the per-name breakdown saturates)
+        tenant = _tenancy.intern(tenant)
         try:
             p = np.asarray(prompt, np.int64)
         except (TypeError, ValueError) as e:
@@ -290,36 +332,46 @@ class DecodeEngine:
                 f"deadline_ms must be finite, got {deadline_ms!r}")
         deadline = (None if deadline_ms is None
                     else time.monotonic() + float(deadline_ms) / 1e3)
-        with self._lock:
-            if self._draining:
-                raise ReplicaUnavailable("DecodeEngine has been shut down")
-            now = time.monotonic()
-            if deadline is not None and now >= deadline:
-                self._shed_locked(tenant, "admission", "expired",
-                                  admitted=False)
-                raise DeadlineExceeded(
-                    "deadline expired before admission", stage="admission")
-            if self.queue_capacity and self._queued_locked() \
-                    >= self.queue_capacity:
-                self._shed_locked(tenant, "admission", "queue_full",
-                                  admitted=False)
-                raise RequestRejected(
-                    f"decode queue at capacity "
-                    f"({self.queue_capacity} requests)",
-                    reason="queue_full",
-                    retry_after=self._wait_hint_locked())
-            req = _Request(p.astype(np.int32), mx, tenant, deadline, on_token)
-            self._requests += 1
-            self._books.admit(tenant)
-            self._m_requests.labels(tenant).inc()
-            q = self._queues.setdefault(tenant, deque())
-            if not q:
-                # idle -> busy transition: start at the scheduler's
-                # current position (stride scheduling's start-tag rule)
-                self._vtime[tenant] = max(
-                    self._vtime.get(tenant, self._gvt), self._gvt)
-            q.append(req)
-            self._wake.notify_all()
+        adm_span = _tracing.span("decode/admit", tenant=tenant,
+                                 prompt_len=int(p.size))
+        with adm_span:
+            ctx = _tracing.current_context()
+            with self._lock:
+                if self._draining:
+                    raise ReplicaUnavailable(
+                        "DecodeEngine has been shut down")
+                now = time.monotonic()
+                if deadline is not None and now >= deadline:
+                    self._shed_locked(tenant, "admission", "expired",
+                                      admitted=False)
+                    self._trace_shed("admission", "expired", ctx)
+                    raise DeadlineExceeded(
+                        "deadline expired before admission",
+                        stage="admission")
+                if self.queue_capacity and self._queued_locked() \
+                        >= self.queue_capacity:
+                    self._shed_locked(tenant, "admission", "queue_full",
+                                      admitted=False)
+                    self._trace_shed("admission", "queue_full", ctx)
+                    raise RequestRejected(
+                        f"decode queue at capacity "
+                        f"({self.queue_capacity} requests)",
+                        reason="queue_full",
+                        retry_after=self._wait_hint_locked())
+                req = _Request(p.astype(np.int32), mx, tenant, deadline,
+                               on_token, ctx)
+                self._requests += 1
+                self._books.admit(tenant)
+                self._m_requests.labels(tenant).inc()
+                q = self._queues.setdefault(tenant, deque())
+                if not q:
+                    # idle -> busy transition: start at the scheduler's
+                    # current position (stride scheduling's start-tag
+                    # rule)
+                    self._vtime[tenant] = max(
+                        self._vtime.get(tenant, self._gvt), self._gvt)
+                q.append(req)
+                self._wake.notify_all()
         return req.fut
 
     def generate_sync(self, prompt, **kw) -> List[int]:
@@ -327,9 +379,10 @@ class DecodeEngine:
         given up `_WAIT_SHED_GRACE` past it (the engine is the primary
         shedder — this is the wedged-engine backstop)."""
         deadline_ms = kw.get("deadline_ms")
+        tenant = _tenancy.intern(kw.get("tenant"))
         if deadline_ms is None:
             deadline_ms = self._tenant_deadline_ms.get(
-                kw.get("tenant", DEFAULT_TENANT), self.default_deadline_ms)
+                tenant, self.default_deadline_ms)
         fut = self.generate(prompt, **kw)
         if deadline_ms is None:
             return fut.result()
@@ -340,8 +393,8 @@ class DecodeEngine:
             exc = DeadlineExceeded(
                 "deadline expired waiting on a stalled decode engine",
                 stage="wait")
-            if self._fail(fut, exc, kw.get("tenant", DEFAULT_TENANT),
-                          outcome="shed", stage="wait", reason="expired"):
+            if self._fail(fut, exc, tenant, outcome="shed", stage="wait",
+                          reason="expired"):
                 raise exc from None
             return fut.result()
 
@@ -429,6 +482,21 @@ class DecodeEngine:
     def _swaps_pending_locked(self) -> int:
         return 1 if self._pending_swap is not None else 0
 
+    def _note_weights_hbm(self, version: int, params) -> None:
+        """Attribute the live weight version's device bytes in the
+        device-memory gauge (weights serve every tenant, so they book
+        under the shared default tenant), keyed per version: committing
+        v releases v-1's bytes. One module-global read when unmetered."""
+        if not _resourcemeter.is_enabled():
+            return
+        src = f"decode_weights_{id(self)}_v{version}"
+        nbytes = sum(int(a.numel() * a.element_size())
+                     for p in params for a in p.values())
+        _resourcemeter.note_hbm(DEFAULT_TENANT, src, nbytes)
+        old, self._hbm_src = self._hbm_src, src
+        if old is not None and old != src:
+            _resourcemeter.note_hbm(DEFAULT_TENANT, old, 0)
+
     @property
     def version(self) -> int:
         return self._version
@@ -480,6 +548,7 @@ class DecodeEngine:
         if already_stopped:
             return
         self._thread.join(timeout=timeout)
+        _health.get_health().unregister(self._hb)
         if self._thread.is_alive():
             err = RuntimeError("DecodeEngine shut down while wedged")
             with self._lock:
@@ -503,6 +572,9 @@ class DecodeEngine:
     def _shed_locked(self, tenant, stage, reason, admitted=True):
         self._books.shed(stage, reason, tenant=tenant, admitted=admitted)
         self._m_shed.labels(tenant, stage, reason).inc()
+
+    def _trace_shed(self, stage, reason, ctx):
+        _trace_shed_span(stage, reason, ctx)
 
     def _resolve(self, req: _Request) -> bool:
         """Settle + book under ONE lock hold: whoever's set wins does
@@ -565,6 +637,7 @@ class DecodeEngine:
                 except Exception:
                     continue
                 self._shed_locked(tenant, "queued", "expired")
+                self._trace_shed("queued", "expired", req.ctx)
                 continue
             self._gvt = self._vtime.get(tenant, self._gvt)
             self._vtime[tenant] = self._gvt \
@@ -693,6 +766,7 @@ class DecodeEngine:
         advance every active slot one token (K with fused steps),
         emit/finish/shed."""
         # 1. pending weight swap: flip BETWEEN steps
+        t_swap = time.perf_counter()
         with self._lock:
             pending = self._pending_swap
             self._pending_swap = None
@@ -700,8 +774,14 @@ class DecodeEngine:
                 self._version, self._live = pending
                 self._swaps += 1
         if pending is not None:
+            v = pending[0]
             self._m_swaps.inc()
-            logger.info("decode engine flipped to weight version %d", pending[0])
+            self._note_weights_hbm(v, self._sets[self._live])
+            _tracing.record_complete("decode/swap", t_swap,
+                                     time.perf_counter(), None, version=v)
+            _blackbox.get_recorder().record_event(
+                "decode_weight_swap", version=v)
+            logger.info("decode engine flipped to weight version %d", v)
         # 2. admission into free slots
         now = time.monotonic()
         with self._lock:
@@ -719,27 +799,54 @@ class DecodeEngine:
             with self._wake:
                 self._wake.wait(_IDLE_WAIT)
             return True
-        # 3. ONE step (or one fused window) over the whole pool
+        # 3. ONE step (or one fused window) over the whole pool. The
+        # programs (and, on a CUDA device, their kernel builds and graph
+        # captures) are made before the busy slot: only the step itself
+        # runs on the watchdog's clock
         try:
             self._ensure_programs()
-            t0 = time.perf_counter()
-            K = self._step_k
-            io = self._io[K]
-            with torch.no_grad():
-                for idx in admitted:
-                    self._reset_fn(self._carry, idx)
-                if K == 1:
-                    io["feed"].copy_(torch.from_numpy(self._feed))
-                else:
-                    toks, force = self._fused_feed_window(K, active)
-                    io["toks"].copy_(torch.from_numpy(toks))
-                    io["force"].copy_(torch.from_numpy(force))
-            nxt_host = self._run_program()
         except Exception as e:
             self._fail_active(e)
             return True
+        t0 = time.perf_counter()
+        K = self._step_k
+        with self._hb.busy():
+            # chaos hook: latency/hang here is a wedged decode step — the
+            # watchdog degrades <prefix>_engine and deadline-carrying
+            # slots shed on the next iteration; an `error` fails the
+            # active sequences (their carry is device state mid-flight,
+            # not resumable) and the engine keeps serving
+            try:
+                _faults.fault_point("decode_step", active=n_active)
+                with _tracing.span("decode/step", active=n_active,
+                                   version=self._version):
+                    io = self._io[K]
+                    with torch.no_grad():
+                        for idx in admitted:
+                            self._reset_fn(self._carry, idx)
+                        if K == 1:
+                            io["feed"].copy_(torch.from_numpy(self._feed))
+                        else:
+                            toks, force = self._fused_feed_window(K, active)
+                            io["toks"].copy_(torch.from_numpy(toks))
+                            io["force"].copy_(torch.from_numpy(force))
+                    nxt_host = self._run_program()
+            except BaseException as e:
+                self._fail_active(e)
+                self._hb.beat()
+                return True
         dt = time.perf_counter() - t0
         self._m_steps.observe(dt)
+        if _resourcemeter.is_enabled():
+            # split this step's wall time over the tenants whose slots it
+            # advanced: weighted-fair scheduling becomes auditable
+            # device-second SPEND. Shares are built only when metered —
+            # the unmetered loop pays one module-global read per step.
+            shares: Dict[str, int] = {}
+            for _, sl in active:
+                t = sl.req.tenant
+                shares[t] = shares.get(t, 0) + 1
+            _resourcemeter.note_decode_step(dt, shares)
         with self._lock:
             self._steps += 1
         # 4. host bookkeeping per active slot
@@ -752,6 +859,7 @@ class DecodeEngine:
             else:
                 self._advance_slot_fused(idx, slot, nxt_host[:, idx], now,
                                          t_emit)
+        self._hb.beat()
         return True
 
     def _fused_feed_window(self, K: int, active) -> tuple:
@@ -785,6 +893,14 @@ class DecodeEngine:
         return (len(req.tokens) >= req.max_new_tokens
                 or (self.eos_token is not None and token == self.eos_token))
 
+    def _trace_emit(self, req: _Request) -> None:
+        """The finished request's retroactive decode/emit span, from its
+        first step in a slot to now, under its admission context."""
+        if req.ctx is not None and _tracing.is_enabled():
+            _tracing.record_complete(
+                "decode/emit", req.t_decode0, time.perf_counter(),
+                req.ctx, tenant=req.tenant, tokens=len(req.tokens))
+
     def _advance_slot_fused(self, idx: int, slot: _Slot, toks, now: float,
                             t_emit: float):
         """Walk one slot through the K tokens of a fused window — the
@@ -811,14 +927,18 @@ class DecodeEngine:
                 done = True
                 break
         if emitted:
+            tr = req.ctx.trace_id if req.ctx is not None else None
             gap = (t_emit - req.last_emit) / len(emitted)
             for _ in emitted:
-                self._m_token_lat.observe(gap, tenant=req.tenant)
+                self._m_token_lat.observe(gap, trace_id=tr,
+                                          tenant=req.tenant)
             req.last_emit = t_emit
             self._m_tokens.labels(req.tenant).inc(len(emitted))
+            _resourcemeter.note_tokens(req.tenant, len(emitted))
             with self._lock:
                 self._tokens_out += len(emitted)
         if done:
+            self._trace_emit(req)
             self._free_slot(idx)
             self._resolve(req)
             return
@@ -848,13 +968,17 @@ class DecodeEngine:
         # the fed token was the last prompt token or a generated one:
         # `token` is the next emitted token
         self._feed[idx] = token
-        self._m_token_lat.observe(t_emit - req.last_emit, tenant=req.tenant)
+        tr = req.ctx.trace_id if req.ctx is not None else None
+        self._m_token_lat.observe(t_emit - req.last_emit, trace_id=tr,
+                                  tenant=req.tenant)
         req.last_emit = t_emit
         self._m_tokens.labels(req.tenant).inc()
+        _resourcemeter.note_tokens(req.tenant, 1)
         with self._lock:
             self._tokens_out += 1
         self._emit(req, token)
         if self._is_done(req, token):
+            self._trace_emit(req)
             self._free_slot(idx)
             self._resolve(req)
             return
@@ -865,13 +989,14 @@ class DecodeEngine:
         if req.deadline is None or now < req.deadline:
             return
         self._free_slot(idx)
-        self._fail(req.fut,
-                   DeadlineExceeded(
-                       "deadline expired mid-decode "
-                       f"({len(req.tokens)} token(s) emitted)",
-                       stage="decode"),
-                   req.tenant, outcome="shed", stage="decode",
-                   reason="expired")
+        if self._fail(req.fut,
+                      DeadlineExceeded(
+                          "deadline expired mid-decode "
+                          f"({len(req.tokens)} token(s) emitted)",
+                          stage="decode"),
+                      req.tenant, outcome="shed", stage="decode",
+                      reason="expired"):
+            self._trace_shed("decode", "expired", req.ctx)
 
     def _free_slot(self, idx: int):
         with self._lock:
@@ -906,6 +1031,8 @@ class DecodeEngine:
                        "failed, engine continues", exc, len(victims))
 
     def _loop(self):
+        _blackbox.get_recorder().record_event(
+            "decode_engine_start", slots=self.n_slots)
         try:
             while True:
                 if not self._step_once():
@@ -924,6 +1051,7 @@ class DecodeEngine:
                            req.tenant)
         finally:
             self._stopped.set()
+            _blackbox.get_recorder().record_event("decode_engine_stop")
 
 
 def _clone_params(params_list) -> list:

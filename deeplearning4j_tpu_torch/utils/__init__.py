@@ -1,4 +1,5 @@
 """Host-side utilities: the metrics registry, the model zip
-(model_serializer), and the fault-tolerance layer the fit loop and the
-checkpoint listener use (tracing, tenancy, faultpoints, health,
-blackbox, sigchain, concurrency)."""
+(model_serializer), the fault-tolerance layer the fit loop, the
+checkpoint listener and the serving tiers use (tracing, tenancy,
+faultpoints, health, blackbox, sigchain, concurrency), and the serving
+scaffolding (latency, resourcemeter, jsonhttp)."""

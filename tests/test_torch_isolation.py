@@ -135,3 +135,26 @@ def test_zip_loaders_refuse_to_run_on_cpu_silently(monkeypatch, tmp_path):
     assert ms.load_model(path, device="cpu").device.type == "cpu"
     back, meta = CheckpointListener.restore_latest(ckdir, device="cpu")
     assert back.device.type == "cpu" and meta["iteration"] == 0
+
+
+def test_server_loader_refuses_to_run_on_cpu_silently(monkeypatch, tmp_path):
+    """The inference server's model loader (its copy of the JAX CLI's
+    guess_and_load_model) defaults to "cuda" and raises without a GPU,
+    for the port's zip and a reference-format DL4J zip alike; device="cpu"
+    loads on the CPU. The server's main() takes the same default."""
+    from deeplearning4j_tpu_torch.modelimport.dl4j import export_dl4j_zip
+    from deeplearning4j_tpu_torch.models.charlstm import char_lstm_network
+    from deeplearning4j_tpu_torch.serving import inference_server as srv
+    from deeplearning4j_tpu_torch.utils import model_serializer as ms
+
+    net = char_lstm_network(vocab_size=5, hidden=4, layers=1, device="cpu")
+    ours, dl4j = str(tmp_path / "m.zip"), str(tmp_path / "dl4j.zip")
+    ms.save_model(net, ours)
+    export_dl4j_zip(net, dl4j)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for path in (ours, dl4j):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            srv.guess_and_load_model(path)
+        assert srv.guess_and_load_model(path, device="cpu").device.type == "cpu"
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        srv.main(["--modelPath", ours, "--port", "0"])
