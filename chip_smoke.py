@@ -277,6 +277,35 @@ result lines:
    is estimated from each hit bucket's device ms (torch.profiler) times
    its hits over the traffic's wall. Phase 13's numbers are a JSON line
    before the last three.
+14. The parameter-server path and the run ledger (parallel/paramserver.py,
+   parallel/sparse.py, models/recsys.py, utils/runledger.py,
+   analysis/slo.py, utils/flops.py). 14a: bench.py's bench_recsys
+   configuration, not cut: the tower (64 -> 192 -> 192 -> 2, He init
+   from --seed) on the card over a zero 800,000 x 64 f32 table on 2
+   in-process endpoints, batch 1024 of zipf(1.1) ids labelled ids & 1, 6
+   + 40 steps at lr 0.05, a pull latency of clamp(the tower's step ms, 10,
+   60) injected at the paramserver_rpc fault point, a run ledger with the
+   default rule pack, a tenant budget and two rules of bench_recsys's own;
+   the pipelined arm (65,536 cached rows, prefetch) under torch.profiler
+   (its busy share), then the synchronous arm (neither). Gates: the tower
+   and both endpoints' tables byte-equal between the arms, the books
+   (pull_rows == cache_hit + cache_miss), no dl4j-sparse/-ps thread left,
+   tenant spend conserves, no error-severity rule fired, and the
+   synchronous arm's first 8 steps on the card within RECSYS_RTOL /
+   RECSYS_ATOL of the CPU (tower and touched rows). 14b: the recsys preset
+   at its defaults with the table on the card, fit 20 batches of 1024 with
+   run_ledger= and a PerformanceListener: the ledger's fit_step_total +20,
+   its manifest naming the card, flops_source "analytic", the listener's
+   mfu in (0, 1], the first 3 steps within the same bound of the CPU.
+   14c: the char-LSTM through ParallelInference, DecodeEngine and
+   InferenceServer, each with run_ledger=<path>: each ledger's request
+   series grown by the requests sent, no error-severity rule fired on
+   replay through the serving rule pack, /alerts' keys and rules. 14d: MFU
+   of phase 8's graphed ResNet-50 and phase 5's char-LSTM from the
+   analytic FLOP count over the card's dense bf16 peak (above 1 fails).
+   14a and 14b launch none of K1-K8, 14c launches K1 and K2. Ledgers go
+   to `_recsys_smoke/` in the checkout, removed at the phase's end;
+   phase 14's numbers are a JSON line before the last three.
 The last three lines of standard output are the kernels JSON line, the
 card line, and {"ok": true, "device": {...}}. Imports nothing of JAX.
 """
@@ -297,9 +326,23 @@ import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
-# H100 SXM published peaks (NVIDIA data sheet): HBM bandwidth and the f32
-# rate outside the tensor cores, which is what both kernels' FMAs use
-HBM_BYTES_PER_S = 3.35e12
+# The script profiles CUDA graph replays (phases 2 and 4) and profiles
+# again after them. CUPTI's teardown between profiles does not work well
+# with CUDA graphs (torch.profiler's own note where it sets this for
+# compiled graphs): a later profile can miss a kernel. Keep CUPTI set up
+# for the process instead; set before the port's import below loads torch.
+os.environ.setdefault("DISABLE_CUPTI_LAZY_REINIT", "1")
+sys.path.insert(0, HERE)
+
+# H100 SXM published peaks (NVIDIA data sheet), from their one home in the
+# port (utils/flops.py): HBM bandwidth and the dense bf16 tensor-core rate
+from deeplearning4j_tpu_torch.utils.flops import (  # noqa: E402
+    H100_BF16_DENSE_FLOP_PER_S as BF16_FLOP_PER_S,
+    H100_HBM_BYTES_PER_S as HBM_BYTES_PER_S,
+)
+
+# and the f32 rate outside the tensor cores, which is what the LSTM
+# kernels' FMAs use
 F32_FLOP_PER_S = 67e12
 
 VOCAB, HIDDEN, LAYERS = 77, 200, 2
@@ -1001,8 +1044,6 @@ TIMED_CONVS = ("3x3/s1 64->64 at 56", "7x7/s2 3->64 at 224", "3x3/s2 128->128 at
 # 1x1 64->256 BN at 56x56, and a ragged shape
 BN_CASES = [("stem 112x112x64", RESNET_BATCH * 112 * 112, 64),
             ("56x56x256", RESNET_BATCH * 56 * 56, 256), ("ragged", 1003, 37)]
-# bf16 peak of the tensor cores (dense), for the product kernels' bound
-BF16_FLOP_PER_S = 989e12
 
 
 def valid_taps(n: int, k: int, s: int, pad_lo: int) -> int:
@@ -5943,6 +5984,443 @@ def serving_summary(p13, card) -> dict:
                                                "max_queue_depth", "queue_capacity")}}
 
 
+# -- phase 14: the parameter-server path and the run ledger --------------------
+
+# 14a: bench.py's bench_recsys configuration, not cut (vocab 800,000 x dim
+# 64 = a 195.3 MB f32 table on 2 in-process endpoints)
+RECSYS_VOCAB, RECSYS_DIM, RECSYS_HIDDEN, RECSYS_BATCH = 800_000, 64, 192, 1024
+RECSYS_WARMUP, RECSYS_STEPS, RECSYS_ENDPOINTS = 6, 40, 2
+RECSYS_CACHE_ROWS, RECSYS_ALPHA, RECSYS_LR = 65536, 1.1, 0.05
+RECSYS_LAT_MS = (10.0, 60.0)   # the injected pull latency: clamp(compute_ms, 10, 60)
+RECSYS_HOLD_STEPS = 8          # card against CPU: the synchronous arm's first steps
+RECSYS_RTOL, RECSYS_ATOL = 1e-4, 1e-6   # f32, TF32 off (phase 11's bound)
+RECSYS_TENANT = "recsys"
+RECSYS_DIR = os.path.join(HERE, "_recsys_smoke")
+# 14b: the recsys preset's defaults (vocab 100,000, dim 64, hidden 128),
+# the table on the card
+FIT14_BATCHES, FIT14_BATCH, FIT14_HOLD_STEPS, FIT14_ALPHA = 20, 1024, 3, 1.2
+# 14c: the char-LSTM entry points with a ledger
+LEDGER_PI_CALLS, LEDGER_DECODE_REQUESTS, LEDGER_HTTP_REQUESTS = 32, 8, 8
+LEDGER_T, LEDGER_MAX_BATCH, LEDGER_DEADLINE_MS = 50, 8, 5000.0
+# thread names the parameter-server path must not leave behind
+PS_THREAD_PREFIXES = ("dl4j-sparse", "dl4j-ps-", "dl4j-paramserver")
+
+
+def _close_excess(torch, got, want, rtol, atol) -> float:
+    """max(|got - want| - rtol * |want|) - atol: <= 0 when they agree."""
+    got, want = torch.as_tensor(got).double().cpu(), torch.as_tensor(want).double().cpu()
+    return float(((got - want).abs() - rtol * want.abs()).max()) - atol
+
+
+def _ledger_delta(runledger, path, prefix) -> float:
+    samples = list(runledger.iter_samples(runledger.read_ledger(path)))
+    total = [sum(v for k, v in vals.items() if k.startswith(prefix) and ":" not in k)
+             for _, vals in samples]
+    return total[-1] - total[0]
+
+
+def recsys_ps_phase(torch, seed, card):
+    """14a: the recsys tower over the sharded parameter server at
+    bench_recsys's configuration, pipelined (cache + prefetch) and
+    synchronous (neither) under one injected pull latency, with a run
+    ledger and its SLO rules attached; then the synchronous arm's first
+    steps on the card against the CPU."""
+    import contextlib
+    import shutil
+    import threading
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from deeplearning4j_tpu_torch.analysis import slo
+    from deeplearning4j_tpu_torch.data.recsys import zipf_cdf, zipf_ids
+    from deeplearning4j_tpu_torch.models.recsys import (
+        TOWER_KEYS,
+        tower_init,
+        tower_step,
+        train_over_paramserver,
+    )
+    from deeplearning4j_tpu_torch.utils import faultpoints, resourcemeter, runledger
+    from deeplearning4j_tpu_torch.utils.metrics import get_registry
+
+    cdf = zipf_cdf(RECSYS_VOCAB, RECSYS_ALPHA)
+    n_batches = RECSYS_WARMUP + RECSYS_STEPS + 1
+    batches = [zipf_ids(RECSYS_BATCH, RECSYS_VOCAB, RECSYS_ALPHA, seed=seed * 1000 + k,
+                        cdf=cdf) for k in range(n_batches)]
+    labels = [(ids & 1).astype(np.int64) for ids in batches]
+    p0 = tower_init(RECSYS_DIM, RECSYS_HIDDEN, generator=torch.Generator().manual_seed(seed),
+                    device="cuda")
+
+    # calibrate: the injected latency tracks the tower's measured step
+    emb0 = torch.zeros((RECSYS_BATCH, RECSYS_DIM), device="cuda")
+    y0 = torch.zeros(RECSYS_BATCH, dtype=torch.int64, device="cuda")
+    tower_step(p0, emb0, y0, RECSYS_LR)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        tower_step(p0, emb0, y0, RECSYS_LR)
+    torch.cuda.synchronize()
+    compute_ms = (time.perf_counter() - t0) / 5 * 1e3
+    lat_ms = float(min(RECSYS_LAT_MS[1], max(RECSYS_LAT_MS[0], compute_ms)))
+
+    shutil.rmtree(RECSYS_DIR, ignore_errors=True)
+    os.makedirs(RECSYS_DIR)
+    was_metered = resourcemeter.is_enabled()
+    resourcemeter.enable()
+    device_us = []
+    try:
+        sample_every = 0.5
+        rules = slo.default_rule_pack(sample_every=sample_every,
+                                      tenants={RECSYS_TENANT: 1.0})
+        rules.append(slo.SLORule(
+            name="paramserver_push_dropped", kind="rate_of_change",
+            series="paramserver_client_push_dropped_total", op=">", value=0.0,
+            severity=slo.ERROR, component="paramserver", for_seconds=0.0))
+        rules.append(slo.SLORule(
+            name="sparse_prefetch_unhealthy", kind="threshold",
+            series='component_health{component="sparse_prefetch"}', op=">=", value=2.0,
+            severity=slo.ERROR, component="sparse_prefetch", for_seconds=0.0))
+        ledger = runledger.RunLedger(os.path.join(RECSYS_DIR, "recsys.jsonl"),
+                                     sample_every=sample_every, rules=rules)
+        runledger.attach(ledger)
+
+        @contextlib.contextmanager
+        def profiled_window():
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                yield
+            device_us.append(sum(getattr(e, "self_device_time_total", 0.0)
+                                 for e in prof.key_averages()))
+
+        def arm(prefetch, cache_rows, window=contextlib.nullcontext):
+            out = train_over_paramserver(
+                np.zeros((RECSYS_VOCAB, RECSYS_DIM), np.float32), batches, labels, p0,
+                lr=RECSYS_LR, warmup=RECSYS_WARMUP, endpoints=RECSYS_ENDPOINTS,
+                cache_rows=cache_rows, prefetch=prefetch, tenant=RECSYS_TENANT,
+                window=window)
+            pulls = out["pull_seconds"]
+            out.update(
+                examples_per_s=out["examples"] / out["seconds"],
+                step_ms=out["seconds"] / RECSYS_STEPS * 1e3,
+                pull_p50_ms=float(np.percentile(pulls, 50)) * 1e3,
+                pull_p99_ms=float(np.percentile(pulls, 99)) * 1e3,
+                hit_rate=out["stats"]["hit_rate"])
+            return out
+
+        plan = faultpoints.FaultPlan(seed=seed).add(
+            "paramserver_rpc", "latency", p=1.0, latency_ms=lat_ms)
+        reg = get_registry()
+        with faultpoints.active(plan):
+            piped = arm(True, RECSYS_CACHE_ROWS, profiled_window)
+            sync = arm(False, 0)
+        cons = resourcemeter.conservation(reg.scalar_values())
+        ledger.close()
+        spend = resourcemeter.spend_table(reg.scalar_values())
+    finally:
+        runledger.detach()
+        if not was_metered:
+            resourcemeter.disable()
+    fired_errors = ledger.rules.ever_fired(slo.ERROR)
+    leaked = [t.name for t in threading.enumerate() if t.name.startswith(PS_THREAD_PREFIXES)]
+    busy = device_us[0] / 1e6 / piped["seconds"]
+
+    for name, a in (("pipelined", piped), ("synchronous", sync)):
+        st = a["stats"]
+        check(st["pull_rows"] == st["cache_hit"] + st["cache_miss"],
+              f"14a: the {name} arm's books do not conserve: {st}")
+    check(sync["stats"]["cache_hit"] == 0, "14a: the synchronous arm hit a cache")
+    tower_equal = all(torch.equal(piped["params"][k], sync["params"][k]) for k in TOWER_KEYS)
+    tables_equal = all(np.array_equal(a.view(np.uint32), b.view(np.uint32))
+                       for a, b in zip(piped["tables"], sync["tables"]))
+    check(tower_equal, "14a: the tower differs between the pipelined and synchronous arms")
+    check(tables_equal, "14a: the endpoints' tables differ between the arms after flush")
+    check(not leaked, f"14a: threads left behind: {leaked}")
+    check(cons["ok"], f"14a: tenant spend does not conserve: {cons}")
+    check(not fired_errors, f"14a: error-severity SLO rules fired: {fired_errors}")
+    ratio = piped["examples_per_s"] / sync["examples_per_s"]
+    print(f"  14a: recsys over {RECSYS_ENDPOINTS} endpoints, vocab {RECSYS_VOCAB} x dim "
+          f"{RECSYS_DIM} ({RECSYS_VOCAB * RECSYS_DIM * 4 / 2 ** 20:.1f} MB f32), hidden "
+          f"{RECSYS_HIDDEN}, batch {RECSYS_BATCH}, {RECSYS_WARMUP} + {RECSYS_STEPS} steps, "
+          f"zipf {RECSYS_ALPHA}: tower compute_ms {compute_ms:.4f} (host clock, synced), "
+          f"injected pull latency {lat_ms:.1f} ms on {card}")
+    for name, a in (("pipelined", piped), ("synchronous", sync)):
+        print(f"    {name}: {a['examples_per_s']:.1f} examples/s, step {a['step_ms']:.3f} ms, "
+              f"pull p50 {a['pull_p50_ms']:.3f} ms p99 {a['pull_p99_ms']:.3f} ms, hit rate "
+              f"{a['hit_rate']:.4f}; books {a['stats']}")
+    print(f"    pipelined/synchronous {ratio:.3f}; pipelined busy share {busy:.5f} "
+          f"({device_us[0] / 1e3:.3f} ms of device under torch.profiler over "
+          f"{piped['seconds']:.3f} s); tower and tables byte-equal {tower_equal and tables_equal};"
+          f" no thread left; spend conserves; SLO fired {ledger.rules.ever_fired()}, "
+          f"errors {fired_errors}")
+
+    # card against CPU: the synchronous arm's first steps, no injected latency
+    hold = {}
+    for dev in ("cuda", "cpu"):
+        hold[dev] = train_over_paramserver(
+            np.zeros((RECSYS_VOCAB, RECSYS_DIM), np.float32), batches, labels,
+            {k: v.to(dev) for k, v in p0.items()}, lr=RECSYS_LR, steps=RECSYS_HOLD_STEPS,
+            endpoints=RECSYS_ENDPOINTS)
+    touched = np.unique(np.concatenate(batches[:RECSYS_HOLD_STEPS]))
+    owner = touched % RECSYS_ENDPOINTS
+    tower_x = max(_close_excess(torch, hold["cuda"]["params"][k], hold["cpu"]["params"][k],
+                                RECSYS_RTOL, RECSYS_ATOL) for k in TOWER_KEYS)
+    rows_x = max(_close_excess(torch, hold["cuda"]["tables"][s][touched[owner == s]],
+                               hold["cpu"]["tables"][s][touched[owner == s]],
+                               RECSYS_RTOL, RECSYS_ATOL) for s in range(RECSYS_ENDPOINTS))
+    check(tower_x <= 0 and rows_x <= 0,
+          f"14a: card vs CPU after {RECSYS_HOLD_STEPS} synchronous steps: tower excess "
+          f"{tower_x:.3g}, rows excess {rows_x:.3g} over rtol {RECSYS_RTOL} atol {RECSYS_ATOL}")
+    print(f"    card vs CPU, the synchronous arm's first {RECSYS_HOLD_STEPS} steps: tower and "
+          f"{touched.size} touched rows within rtol {RECSYS_RTOL} / atol {RECSYS_ATOL} (worst "
+          f"excess tower {tower_x:.3g}, rows {rows_x:.3g}; TF32 off)")
+    shutil.rmtree(RECSYS_DIR, ignore_errors=True)
+
+    def summary(a):
+        return {k: a[k] for k in ("examples_per_s", "step_ms", "pull_p50_ms", "pull_p99_ms",
+                                  "hit_rate", "seconds", "examples", "stats")}
+
+    return {"compute_ms": compute_ms, "injected_latency_ms": lat_ms,
+            "pipelined": summary(piped), "synchronous": summary(sync),
+            "ratio": ratio, "busy_share": busy, "device_ms": device_us[0] / 1e3,
+            "byte_equal": tower_equal and tables_equal, "slo_fired": ledger.rules.ever_fired(),
+            "tenant_spend": spend.get(RECSYS_TENANT), "conservation_ok": cons["ok"],
+            "hold_excess": {"tower": tower_x, "rows": rows_x}}
+
+
+def recsys_fit_phase(torch, seed, card):
+    """14b: the recsys preset (table on the card) through the normal fit
+    with a run ledger and a PerformanceListener; its first steps against
+    the CPU."""
+    import shutil
+
+    from deeplearning4j_tpu_torch.data import DataSet, ExistingDataSetIterator
+    from deeplearning4j_tpu_torch.data.recsys import zipf_batches
+    from deeplearning4j_tpu_torch.models.recsys import recsys_conf, recsys_network
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.train.listeners import PerformanceListener
+    from deeplearning4j_tpu_torch.utils import runledger
+
+    net = recsys_network(host_resident=False, seed=seed, device="cuda")
+    vocab = net.layer_confs[0].n_in
+    stream = zipf_batches(FIT14_BATCH, vocab, FIT14_ALPHA, seed=seed)
+    data = []
+    for _ in range(FIT14_BATCHES):
+        ids, lab = next(stream)
+        data.append(DataSet(ids.reshape(-1, 1).astype(np.float32),
+                            np.eye(2, dtype=np.float32)[lab]))
+
+    # card against CPU: the first steps from the same initial parameters
+    twins = {}
+    for dev in ("cuda", "cpu"):
+        tw = MultiLayerNetwork(recsys_conf(host_resident=False, seed=seed), device=dev).init()
+        tw.params_list = [{k: v.detach().to(dev).clone() for k, v in p.items()}
+                          for p in net.params_list]
+        tw.fit(ExistingDataSetIterator(data[:FIT14_HOLD_STEPS]), async_prefetch=False)
+        twins[dev] = tw
+    hold_x = max(_close_excess(torch, twins["cuda"].params_list[i][k],
+                               twins["cpu"].params_list[i][k], RECSYS_RTOL, RECSYS_ATOL)
+                 for i, p in enumerate(net.params_list) for k in p)
+    check(hold_x <= 0, f"14b: card vs CPU after {FIT14_HOLD_STEPS} steps: worst excess "
+                       f"{hold_x:.3g} over rtol {RECSYS_RTOL} atol {RECSYS_ATOL}")
+    del twins
+
+    shutil.rmtree(RECSYS_DIR, ignore_errors=True)
+    os.makedirs(RECSYS_DIR)
+    path = os.path.join(RECSYS_DIR, "fit.jsonl")
+    lines = []
+    net.set_listeners(PerformanceListener(frequency=5, print_fn=lines.append))
+    t0 = time.perf_counter()
+    net.fit(ExistingDataSetIterator(data), run_ledger=path)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    man = runledger.read_ledger(path)["manifest"]
+    steps = _ledger_delta(runledger, path, "fit_step_total")
+    mfus = [float(ln.rsplit("mfu ", 1)[1]) for ln in lines if "mfu " in ln]
+    shutil.rmtree(RECSYS_DIR, ignore_errors=True)
+    check(runledger.current() is None, "14b: the fit left its ledger attached")
+    check(steps == FIT14_BATCHES, f"14b: the ledger's fit_step_total grew by {steps}, "
+                                  f"expected {FIT14_BATCHES}")
+    check(man["devices"].get("platform") == "gpu"
+          and man["devices"].get("device_kind") == torch.cuda.get_device_name(0),
+          f"14b: the manifest names {man['devices']}")
+    check(man.get("flops_source") == "analytic", f"14b: flops_source {man.get('flops_source')}")
+    check(mfus and all(0 < m <= 1 for m in mfus), f"14b: the listener's mfu: {lines}")
+    flops, _ = net.model_flops_per_example()
+    print(f"  14b: recsys_network(host_resident=False) vocab {vocab}, fit {FIT14_BATCHES} x "
+          f"{FIT14_BATCH} with run_ledger= and PerformanceListener: {wall:.3f} s "
+          f"({FIT14_BATCHES * FIT14_BATCH / wall:.0f} examples/s with the first step's "
+          f"set-up); ledger fit_step_total +{steps:.0f}, device {man['devices']['device_kind']},"
+          f" flops_source {man['flops_source']} ({flops:.0f} FLOP an example); listener: "
+          f"{' | '.join(lines)}")
+    print(f"    card vs CPU after {FIT14_HOLD_STEPS} steps: within rtol {RECSYS_RTOL} / atol "
+          f"{RECSYS_ATOL} (worst excess {hold_x:.3g}) on {card}")
+    return {"seconds": wall, "examples_per_s": FIT14_BATCHES * FIT14_BATCH / wall,
+            "ledger_fit_steps": steps, "device_kind": man["devices"]["device_kind"],
+            "flops_source": man["flops_source"], "flops_per_example": flops,
+            "listener": lines, "mfu": mfus, "hold_excess": hold_x}
+
+
+def ledger_serving_phase(torch, counts, seed, card):
+    """14c: ParallelInference, DecodeEngine and InferenceServer, each with
+    run_ledger=<path>, on the full-width char-LSTM."""
+    import shutil
+
+    from deeplearning4j_tpu_torch.analysis import slo
+    from deeplearning4j_tpu_torch.models.charlstm import char_lstm_network
+    from deeplearning4j_tpu_torch.parallel.inference import ParallelInference
+    from deeplearning4j_tpu_torch.serving import InferenceServer
+    from deeplearning4j_tpu_torch.serving.decode import DecodeEngine
+    from deeplearning4j_tpu_torch.utils import runledger
+
+    rng = np.random.default_rng(seed + 14)
+    net = char_lstm_network(vocab_size=VOCAB, hidden=HIDDEN, layers=LAYERS, seed=seed,
+                            device="cuda")
+    eye = np.eye(VOCAB, dtype=np.float32)
+    serving = {"default_deadline_ms": LEDGER_DEADLINE_MS, "queue_capacity": 64}
+    pack = slo.default_rule_pack(serving=serving)
+    shutil.rmtree(RECSYS_DIR, ignore_errors=True)
+    os.makedirs(RECSYS_DIR)
+    paths = {k: os.path.join(RECSYS_DIR, f"{k}.jsonl") for k in ("pi", "decode", "server")}
+    out = {}
+    counts.reset()
+    try:
+        pi = ParallelInference(net, max_batch_size=LEDGER_MAX_BATCH,
+                               queue_capacity=serving["queue_capacity"],
+                               default_deadline_ms=LEDGER_DEADLINE_MS, run_ledger=paths["pi"])
+        try:
+            for n in request_sizes(rng, LEDGER_PI_CALLS, LEDGER_MAX_BATCH):
+                y = np.asarray(pi.output(eye[rng.integers(0, VOCAB, (n, LEDGER_T))]))
+                check(y.shape == (n, LEDGER_T, VOCAB) and np.isfinite(y).all(),
+                      f"14c: output() gave {y.shape}")
+        finally:
+            pi.shutdown()
+        eng = DecodeEngine(net, n_slots=SERVE_SLOTS, run_ledger=paths["decode"]).warmup()
+        try:
+            futs = [eng.generate(rng.integers(0, VOCAB, 4).tolist(), max_new_tokens=16)
+                    for _ in range(LEDGER_DECODE_REQUESTS)]
+            check(all(len(f.result(timeout=SERVE_HTTP_TIMEOUT)) == 16 for f in futs),
+                  "14c: a decode request did not finish")
+        finally:
+            eng.shutdown()
+        server = InferenceServer(net, port=0, max_batch_size=LEDGER_MAX_BATCH,
+                                 warmup_shape=(LEDGER_T, VOCAB),
+                                 queue_capacity=serving["queue_capacity"],
+                                 default_deadline_ms=LEDGER_DEADLINE_MS,
+                                 run_ledger=paths["server"])
+        base = f"http://127.0.0.1:{server.start()}"
+        try:
+            for _ in range(LEDGER_HTTP_REQUESTS):
+                body = {"features": eye[rng.integers(0, VOCAB, (1, LEDGER_T))].tolist()}
+                status, _ = post_json(f"{base}/predict", body)
+                check(status == 200, f"14c: /predict answered {status}")
+            alerts = json.loads(get_body(f"{base}/alerts"))
+        finally:
+            server.stop()
+        torch.cuda.synchronize()
+        launches = counts.read()
+        check(sorted(alerts) == ["firing", "ledger", "rules", "run_id", "transitions"],
+              f"14c: /alerts keys {sorted(alerts)}")
+        check(sorted(r["rule"] for r in alerts["rules"]) == sorted(r.name for r in pack),
+              f"14c: /alerts rules {[r['rule'] for r in alerts['rules']]}")
+        check(alerts["ledger"] == paths["server"], f"14c: /alerts ledger {alerts['ledger']}")
+        for name, series, sent in (("pi", "serving_requests_total", LEDGER_PI_CALLS),
+                                   ("decode", "decode_requests_total", LEDGER_DECODE_REQUESTS),
+                                   ("server", "serving_requests_total", LEDGER_HTTP_REQUESTS)):
+            grew = _ledger_delta(runledger, paths[name], series)
+            # each recorded ledger replayed through the serving rule pack
+            verdict = slo.evaluate_ledger(
+                runledger.iter_samples(runledger.read_ledger(paths[name])), pack)
+            check(grew == sent, f"14c: {name}'s ledger shows {series} +{grew}, sent {sent}")
+            check(verdict["ok"], f"14c: {name}'s ledger fired error rules "
+                                 f"{verdict['ever_fired_errors']}")
+            out[name] = {"series": series, "grew": grew, "sent": sent,
+                         "samples": verdict["samples"], "ever_fired": verdict["ever_fired"]}
+        live_fired = [r["rule"] for r in alerts["rules"]
+                      if r["fired_total"] and r["severity"] == slo.ERROR]
+        check(not live_fired, f"14c: the server's live rules fired {live_fired}")
+        check(runledger.current() is None, "14c: a ledger was left attached")
+        check(launches["lstm_sequence"] > 0 and launches["lstm_step"] > 0,
+              f"14c: the char-LSTM entry points launched {launches}")
+    finally:
+        shutil.rmtree(RECSYS_DIR, ignore_errors=True)
+    print("  14c: the char-LSTM with run_ledger=: "
+          + "; ".join(f"{k} {v['series']} +{v['grew']:.0f} of {v['sent']} in "
+                      f"{v['samples']} samples, fired {v['ever_fired']}" for k, v in out.items())
+          + f"; /alerts keys {sorted(alerts)} with {len(alerts['rules'])} rules, firing "
+          f"{alerts['firing']}; launches K1 {launches['lstm_sequence']} K2 "
+          f"{launches['lstm_step']} on {card}")
+    return {"ledgers": out, "alerts_rules": [r["rule"] for r in alerts["rules"]],
+            "launches": launches}
+
+
+def mfu_phase(torch, tr, fu, card):
+    """14d: MFU for the record, from utils/flops's analytic count over the
+    card's dense bf16 peak: phase 8's graphed ResNet-50 bf16 batch-128 step
+    and phase 5's char-LSTM step. Not a gate, except that a value above 1
+    is a fault in the count."""
+    from deeplearning4j_tpu_torch.models.charlstm import char_lstm_conf
+    from deeplearning4j_tpu_torch.models.resnet import resnet50_conf
+    from deeplearning4j_tpu_torch.utils import flops
+
+    peak = flops.peak_flops_per_chip()
+    check(peak is not None, f"14d: no peak figure for {torch.cuda.get_device_name(0)}")
+    rn_flops, _ = flops.analytic_step_flops_per_example(resnet50_conf())
+    # the char-LSTM conf has no fixed timestep count: price one token
+    tok_flops = 3.0 * flops.forward_flops(char_lstm_conf(vocab_size=VOCAB, hidden=HIDDEN,
+                                                         layers=LAYERS))
+    rn_ips = fu["resnet50"]["graphed_images_per_s"]
+    rn_mfu = [rn_flops * v / peak for v in rn_ips]
+    lstm_tps = {"fit_tokens_per_s": tr["tokens_per_s"],
+                "step_p50_tokens_per_s": TRAIN_B * TBPTT / tr["step_p50_s"]}
+    lstm_mfu = {k: tok_flops * v / peak for k, v in lstm_tps.items()}
+    for v in rn_mfu + list(lstm_mfu.values()):
+        check(0 < v <= 1, f"14d: an MFU of {v}: the FLOP count is wrong")
+    print(f"  14d: MFU against the dense bf16 peak {peak:.4g} FLOP/s (utils/flops; an f32 net "
+          f"is stated against it too), on {card}:")
+    print(f"    ResNet-50 bf16 batch {RESNET_BATCH}, graphed (phase 8): {rn_flops:.6g} FLOP an "
+          f"image x {' / '.join(f'{v:.1f}' for v in rn_ips)} images/s = MFU "
+          f"{' / '.join(f'{v:.4g}' for v in rn_mfu)}")
+    print(f"    char-LSTM f32 (phase 5): {tok_flops:.6g} FLOP a token; "
+          + "; ".join(f"{k} {lstm_tps[k]:.1f} = MFU {v:.4g}" for k, v in lstm_mfu.items()))
+    return {"peak_flops": peak, "resnet50": {"flops_per_image": rn_flops,
+                                             "images_per_s": rn_ips, "mfu": rn_mfu},
+            "charlstm": {"flops_per_token": tok_flops, "tokens_per_s": lstm_tps,
+                         "mfu": lstm_mfu}}
+
+
+def recsys_ledger_phase(torch, counts, seed, card, tr, fu):
+    """Phase 14: 14a-14d in turn. The recsys path (14a, 14b) launches none
+    of K1-K8; 14c's char-LSTM serving launches K1 and K2."""
+    t0 = time.perf_counter()
+    counts.reset()
+    p14 = {"recsys_ps": recsys_ps_phase(torch, seed, card)}
+    torch.cuda.empty_cache()
+    p14["recsys_fit"] = recsys_fit_phase(torch, seed, card)
+    torch.cuda.synchronize()
+    p14["launches"] = counts.read()
+    check(not any(p14["launches"].values()),
+          f"14a/14b: the recsys path launched {p14['launches']}")
+    torch.cuda.empty_cache()
+    p14["ledger_serving"] = ledger_serving_phase(torch, counts, seed, card)
+    p14["mfu"] = mfu_phase(torch, tr, fu, card)
+    p14["seconds"] = time.perf_counter() - t0
+    print(f"  phase 14: {p14['seconds']:.1f} s")
+    return p14
+
+
+def recsys_summary(p14, card) -> dict:
+    a = p14["recsys_ps"]
+    arms = {arm: {k: a[arm][k] for k in ("examples_per_s", "step_ms", "pull_p50_ms",
+                                         "pull_p99_ms", "hit_rate")}
+            for arm in ("pipelined", "synchronous")}
+    return {"card": card,
+            "14a_recsys_ps": {**{k: a[k] for k in ("compute_ms", "injected_latency_ms",
+                                                   "ratio", "busy_share", "byte_equal")},
+                              **arms},
+            "14b_recsys_fit": {k: p14["recsys_fit"][k] for k in ("examples_per_s", "mfu")},
+            "14d_mfu": {"resnet50": p14["mfu"]["resnet50"]["mfu"],
+                        "charlstm": p14["mfu"]["charlstm"]["mfu"]},
+            "seconds": p14["seconds"]}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5954,18 +6432,11 @@ def main(argv=None) -> int:
     if args.child is not None:
         return charlstm_child(args.ckpt_dir, args.seed)
 
-    # The script profiles CUDA graph replays (phases 2 and 4) and profiles
-    # again after them. CUPTI's teardown between profiles does not work
-    # well with CUDA graphs (torch.profiler's own note where it sets this
-    # for compiled graphs): a later profile can miss a kernel. Keep CUPTI
-    # set up for the process instead.
-    os.environ.setdefault("DISABLE_CUPTI_LAZY_REINIT", "1")
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
-    sys.path.insert(0, HERE)
     from deeplearning4j_tpu_torch.common.dtypes import default_policy
     from deeplearning4j_tpu_torch.data import DataSet, ExistingDataSetIterator
     import torch.nn.functional as F
@@ -6120,6 +6591,12 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     p13 = serving_phase(torch, counts, metrics, args.seed, card)
 
+    print("[14] the parameter-server path and the run ledger: the recsys tower over the "
+          "sharded EmbeddingParameterServer (pipelined and synchronous), the recsys preset's "
+          "fit with run_ledger=, the serving entry points with ledgers, MFU")
+    torch.cuda.empty_cache()
+    p14 = recsys_ledger_phase(torch, counts, args.seed, card, tr, fu)
+
     # each main path's count, read just after it ran from zero
     by_path = {"output": sl["launches"], "serve": sv["launches"],
                "train": tr["launches"], "train_resnet": rn["launches"],
@@ -6132,7 +6609,9 @@ def main(argv=None) -> int:
                "embeddings": p11["launches"], "scale_out": p12["launches"],
                "serving": p13["charlstm_server"]["launches"],
                "serving_resnet": p13["resnet_pool"]["launches"],
-               "serving_overload": p13["overload"]["launches"]}
+               "serving_overload": p13["overload"]["launches"],
+               "recsys": p14["launches"],
+               "ledger_serving": p14["ledger_serving"]["launches"]}
     main_launches = {name: sum(c.get(name, 0) for c in by_path.values())
                      for name in rows}
     meta = {
@@ -6179,6 +6658,7 @@ def main(argv=None) -> int:
               "phase11": p11,
               "phase12": p12,
               "phase13": p13,
+              "phase14": p14,
               "build": {k: v["seconds"] for k, v in info.items()},
               "ptxas": {k: v["log"] for k, v in info.items() if k not in cuda_build.SOURCES},
               "seconds": time.perf_counter() - t_start}
@@ -6188,6 +6668,7 @@ def main(argv=None) -> int:
             json.dump(record, f, indent=2)
     print(json.dumps({"scale_out": scale_summary(p12)}))
     print(json.dumps({"serving": serving_summary(p13, card)}))
+    print(json.dumps({"recsys": recsys_summary(p14, card)}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

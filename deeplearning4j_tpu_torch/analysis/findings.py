@@ -12,7 +12,11 @@ divergence sentinel (train/sentinel judging each optimizer step):
          past the bounded rollback budget). Collected on the sentinel
          (`DivergenceSentinel.findings`).
 
-The JAX package's other passes (shapeflow SF*, program audit JX*, SLO,
+SLO rules (analysis/slo evaluated live by utils/runledger):
+  SLO001  a rule entered `firing` (severity = the rule's own). Collected
+         on the ledger (`RunLedger.findings`).
+
+The JAX package's other passes (shapeflow SF*, program audit JX*,
 concurrency CC*/CN*) report through the same record; they are not
 ported yet.
 """

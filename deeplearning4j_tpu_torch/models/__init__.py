@@ -2,6 +2,7 @@
 
 from deeplearning4j_tpu_torch.models.charlstm import char_lstm_conf, char_lstm_network
 from deeplearning4j_tpu_torch.models.lenet import lenet_conf, lenet_network
+from deeplearning4j_tpu_torch.models.recsys import recsys_conf, recsys_network
 from deeplearning4j_tpu_torch.models.resnet import (
     resnet50_conf,
     resnet50_network,

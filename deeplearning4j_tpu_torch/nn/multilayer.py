@@ -361,8 +361,9 @@ class MultiLayerNetwork(NetworkBase):
         fresh. `epochs` stays the TOTAL target. If the configuration sets
         pretrain, layerwise pretraining (`pretrain`) runs once, before the
         first backprop epoch (reference: fit() pretrain dispatch :210).
-        `run_ledger` raises NotImplementedError: the run ledger is not
-        ported yet."""
+        `run_ledger` (a path or a utils.runledger.RunLedger) records the
+        fit's metrics: a path's ledger is closed when the fit ends, a
+        given ledger is attached for the fit and left open."""
         self._require_init()
         if self.upd_state is None:
             self.upd_state = self.updater_def.init_tree(self.params_list)

@@ -23,8 +23,10 @@ magnitudes inside the step. `set_mesh` makes the step data-parallel over
 a process mesh (parallel/sharded.py): each rank's batch is its rows of
 the global batch (sharded in the host prefetch stage, before grouping),
 its loss is its share of the global-batch loss, and its gradients and
-score are summed over the data axis right after autograd. The run ledger
-and OOM forensics are not ported yet.
+score are summed over the data axis right after autograd. `fit(run_ledger=)`
+attaches a run ledger (utils/runledger) for the fit's duration, and each
+dispatch notes its step to it (one module-global read with none
+attached). OOM forensics are not ported yet.
 """
 
 from __future__ import annotations
@@ -56,6 +58,7 @@ from deeplearning4j_tpu_torch.utils import blackbox as _blackbox
 from deeplearning4j_tpu_torch.utils import faultpoints as _faults
 from deeplearning4j_tpu_torch.utils import health as _health
 from deeplearning4j_tpu_torch.utils import metrics as _metrics
+from deeplearning4j_tpu_torch.utils import runledger as _runledger
 from deeplearning4j_tpu_torch.utils import sigchain as _sigchain
 from deeplearning4j_tpu_torch.utils import tracing as _tracing
 
@@ -273,6 +276,26 @@ class NetworkBase:
         self._mesh_plan = None
         self._tp_specs = None
         self._tp_mesh = None
+
+    # -- model FLOPs (the MFU numerator) -------------------------------------
+
+    def model_flops_per_example(self):
+        """(per-example optimizer-step FLOPs, source) for MFU accounting
+        (PerformanceListener, the run ledger's manifest): lazily the
+        analytic per-layer estimate (utils/flops), or what
+        `set_model_flops_per_example` set. (None, "analytic") when the
+        conf carries no InputType to estimate from."""
+        v = getattr(self, "_flops_per_example", None)
+        if v is None:
+            from deeplearning4j_tpu_torch.utils import flops as _flops
+
+            v = self._flops_per_example = \
+                _flops.analytic_step_flops_per_example(self.conf)
+        return v
+
+    def set_model_flops_per_example(self, flops, source: str = "costmodel"):
+        self._flops_per_example = (float(flops), str(source))
+        return self
 
     # -- to be provided by subclasses ----------------------------------------
 
@@ -1053,6 +1076,10 @@ class NetworkBase:
         ins["recorder"].record_step(self.iteration - 1, score=self._score,
                                     data_wait=data_wait, dispatch=dispatch,
                                     sync=sync)
+        # run-ledger hook: ONE module-global read with no ledger attached
+        # (the off-by-default overhead contract); on the host, after the
+        # dispatch, so never inside a captured graph
+        _runledger.note_fit_step(self)
         # the judgment comes after the step's own records, so that an
         # anomalous step stays visible in the flight recorder; it may
         # raise RollbackSignal (answered by _run_fit) or
@@ -1067,9 +1094,18 @@ class NetworkBase:
                  prefetch_buffer: int = 4,
                  hang_timeout: Optional[float] = None,
                  resume_from: Optional[str] = None, run_ledger=None):
-        if run_ledger is not None:
-            raise NotImplementedError(
-                "run_ledger: utils/runledger.py is not ported yet")
+        # run-ledger opt-in: a path's ledger is the fit's own (closed
+        # when the fit ends), a given one is attached for the fit
+        ledgers = _runledger.attach_scoped(run_ledger)
+        try:
+            return self._run_fit_attached(iterator, epochs, async_prefetch,
+                                          prefetch_buffer, hang_timeout,
+                                          resume_from)
+        finally:
+            _runledger.end_scope(*ledgers)
+
+    def _run_fit_attached(self, iterator, epochs, async_prefetch,
+                          prefetch_buffer, hang_timeout, resume_from):
         # SIGTERM actions (the preemption save) read this net, and the
         # loop below changes its parameters, updater state, iteration,
         # epoch and resume coordinates in separate statements: a SIGTERM

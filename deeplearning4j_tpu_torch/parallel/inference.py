@@ -83,6 +83,7 @@ from deeplearning4j_tpu_torch.utils import faultpoints as _faults
 from deeplearning4j_tpu_torch.utils import health as _health
 from deeplearning4j_tpu_torch.utils import metrics as _metrics
 from deeplearning4j_tpu_torch.utils import resourcemeter as _resourcemeter
+from deeplearning4j_tpu_torch.utils import runledger as _runledger
 from deeplearning4j_tpu_torch.utils import tenancy as _tenancy
 from deeplearning4j_tpu_torch.utils import tracing as _tracing
 
@@ -254,10 +255,9 @@ class ParallelInference:
         default_deadline_ms: Optional[float] = None,
         run_ledger=None,
     ):
-        if run_ledger is not None:
-            raise NotImplementedError(
-                "ParallelInference(run_ledger=) needs utils/runledger.py, "
-                "which the port does not have yet")
+        # run-ledger opt-in: a path's ledger is closed by shutdown(), a
+        # given one is detached by it and left open for its owner
+        self._ledgers = _runledger.attach_scoped(run_ledger)
         self.model = model
         # a one-rank mesh (or none) serves on the model's device; a data
         # axis over several processes would be one group split across
@@ -452,9 +452,11 @@ class ParallelInference:
         under (admission books + device-second spend); None falls back
         to the thread's ambient tenant (utils/tenancy), then the
         default tenant."""
-        # the end-to-end latency of COMPLETED requests into
-        # serving_output_seconds — sheds raise out of _output_impl and
-        # never observe, so the histogram grades served work
+        # run-ledger hook first (one global read when no ledger is
+        # attached), then the end-to-end latency of COMPLETED requests
+        # into serving_output_seconds — sheds raise out of _output_impl
+        # and never observe, so the SLO objective judges served work
+        _runledger.note_request()
         t0 = time.perf_counter()
         out = self._output_impl(x, deadline_ms, tenant)
         self._m_output_latency.observe(time.perf_counter() - t0)
@@ -841,6 +843,10 @@ class ParallelInference:
         for hb in (self._hb_collect, self._hb_dispatch):
             if hb is not None:
                 _health.get_health().unregister(hb)
+        # the serving ledger scope ends AFTER the drain/joins: the
+        # owned ledger's final sample must see the end-of-run books
+        # (in-flight futures resolved), not a mid-drain truncation
+        _runledger.end_scope(*self._ledgers)
         if not workers_exited:
             # a slow in-flight forward (e.g. a kernel build) outlived the
             # join timeout: the pipeline is still draining and will resolve

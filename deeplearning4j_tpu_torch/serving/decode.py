@@ -59,8 +59,10 @@ time is split over the tenants whose slots it advanced
 (utils/resourcemeter, one flag check when unmetered), and the books
 register under the decode tier. The REST layer exposes `POST /generate`
 (serving/inference_server.py) behind the same deadline/429 contract as
-/predict. The JAX engine's lock-audit probe (utils/locktrace) and its
-`run_ledger=` wait for those modules in the port.
+/predict. `run_ledger=` (a path or a utils.runledger.RunLedger) records
+the engine's metrics for its lifetime; each submit notes one request.
+The JAX engine's lock-audit probe (utils/locktrace) waits for that
+module in the port.
 """
 
 from __future__ import annotations
@@ -95,6 +97,7 @@ from deeplearning4j_tpu_torch.utils import faultpoints as _faults
 from deeplearning4j_tpu_torch.utils import health as _health
 from deeplearning4j_tpu_torch.utils import metrics as _metrics
 from deeplearning4j_tpu_torch.utils import resourcemeter as _resourcemeter
+from deeplearning4j_tpu_torch.utils import runledger as _runledger
 from deeplearning4j_tpu_torch.utils import tenancy as _tenancy
 from deeplearning4j_tpu_torch.utils import tracing as _tracing
 
@@ -160,10 +163,6 @@ class DecodeEngine:
         component_prefix: str = "decode",
         run_ledger=None,
     ):
-        if run_ledger is not None:
-            raise NotImplementedError(
-                "DecodeEngine(run_ledger=) needs utils/runledger.py, which "
-                "the port does not have yet")
         if int(n_slots) < 1:
             raise ValueError(f"n_slots must be >= 1, got {n_slots}")
         self.model = model
@@ -200,6 +199,9 @@ class DecodeEngine:
         self.component_prefix = component_prefix
         self._weights = dict(tenant_weights or {})
         self._tenant_deadline_ms = dict(tenant_deadline_ms or {})
+
+        # run-ledger opt-in (same ONE-knob contract as fit/serving)
+        self._ledgers = _runledger.attach_scoped(run_ledger)
 
         # -- device-resident state: the step program's static buffers -------
         # two parameter sets, the engine's own copies (a swap never writes
@@ -303,6 +305,7 @@ class DecodeEngine:
         back to the tenant's default, then the engine's): work that
         cannot make it is SHED (DeadlineExceeded / RequestRejected),
         never served late."""
+        _runledger.note_request()
         # canonicalize through the bounded registry: past the cap,
         # unknown names collapse into __other__ (books and spend stay
         # conserved; only the per-name breakdown saturates)
@@ -549,6 +552,7 @@ class DecodeEngine:
             return
         self._thread.join(timeout=timeout)
         _health.get_health().unregister(self._hb)
+        _runledger.end_scope(*self._ledgers)
         if self._thread.is_alive():
             err = RuntimeError("DecodeEngine shut down while wedged")
             with self._lock:

@@ -41,9 +41,10 @@ device execution). Routes:
                       same process
     GET  /trace    -> recent host spans as JSONL (utils/tracing.py);
                       ?format=chrome returns a chrome://tracing document
-    GET  /alerts   -> SLO rule states from an attached run ledger; the
-                      port has no run ledger yet, so this answers as the
-                      JAX server does without one (no rules, none firing)
+    GET  /alerts   -> live SLO rule verdicts from the attached run ledger
+                      (utils/runledger + analysis/slo): per-rule state,
+                      recent lifecycle transitions, the firing list
+                      (start with --ledger or run_ledger=)
     GET  /tenants  -> per-tenant spend (utils/resourcemeter: device-
                       seconds by tier, tokens, device memory), merged
                       admission books and conservation verdicts.
@@ -83,10 +84,12 @@ from deeplearning4j_tpu_torch.parallel.inference import (
     RequestRejected,
     RequestValidationError,
 )
+from deeplearning4j_tpu_torch.analysis.slo import default_rule_pack
 from deeplearning4j_tpu_torch.serving.decode import DecodeEngine
 from deeplearning4j_tpu_torch.utils import health as _health
 from deeplearning4j_tpu_torch.utils import metrics as _metrics
 from deeplearning4j_tpu_torch.utils import resourcemeter as _resourcemeter
+from deeplearning4j_tpu_torch.utils import runledger as _runledger
 from deeplearning4j_tpu_torch.utils import tenancy as _tenancy
 from deeplearning4j_tpu_torch.utils import tracing as _tracing
 from deeplearning4j_tpu_torch.utils.jsonhttp import JsonHttpServer, json_response
@@ -150,10 +153,6 @@ class InferenceServer:
         decode_tenant_weights: Optional[dict] = None,
         decode_queue_capacity: int = 256,
     ):
-        if run_ledger is not None:
-            raise NotImplementedError(
-                "InferenceServer(run_ledger=) needs utils/runledger.py and "
-                "analysis/slo.py, which the port does not have yet")
         # n_replicas >= 2 turns on the self-healing pool: each replica's
         # collector/dispatcher heartbeats are watched separately, an
         # unhealthy replica is evicted (only its in-flight requests fail;
@@ -199,6 +198,17 @@ class InferenceServer:
                 queue_capacity=int(decode_queue_capacity),
                 health_stall_after=health_stall_after,
             ).warmup()
+        # run-ledger opt-in at the server level (works for both the
+        # single-PI and ReplicaPool modes): a path builds a RunLedger
+        # with the default rule pack derived from THIS server's config
+        # (the p99 deadline burn objective, queue boundedness) and
+        # closes it on stop(); an instance is attached as given.
+        rules = None
+        if isinstance(run_ledger, str):
+            rules = default_rule_pack(serving={
+                "default_deadline_ms": default_deadline_ms,
+                "queue_capacity": queue_capacity})
+        self._ledgers = _runledger.attach_scoped(run_ledger, rules=rules)
         self.latency = LatencyTracker()
         # request latency also lands in the shared registry so one
         # Prometheus scrape carries serving AND training series
@@ -267,14 +277,21 @@ class InferenceServer:
                 return json_response(_metrics.get_registry().snapshot())
             return json_response(self.metrics())
         if route == "/alerts":
-            # the live SLO verdicts come from a run ledger's rule engine;
-            # the port has none yet, so this is the JAX server's answer
-            # when no ledger is attached (same keys)
-            return json_response({
-                "ledger": None, "rules": [], "firing": [],
-                "transitions": [],
-                "note": "no run ledger attached (the port has no "
-                        "utils/runledger yet)"})
+            # the live SLO verdicts (analysis/slo evaluated on the run
+            # ledger's recorder thread): per-rule pending/firing state,
+            # recent lifecycle transitions, and which rules fire right
+            # now. THIS server's ledger first: another component
+            # attaching/detaching the process-global slot (a fit's scoped
+            # ledger ending mid-serve) must not hijack or blank this
+            led = self._ledgers[1] or _runledger.current()
+            if led is None:
+                return json_response({
+                    "ledger": None, "rules": [], "firing": [],
+                    "transitions": [],
+                    "note": "no run ledger attached (start the server "
+                            "with run_ledger=, or attach one via "
+                            "utils.runledger)"})
+            return json_response(led.alert_status())
         if route == "/trace":
             # recent host spans — JSONL by default (tail-able), or the
             # chrome://tracing document with ?format=chrome
@@ -290,8 +307,14 @@ class InferenceServer:
         if route == "/tenants":
             # the budget view: per-tenant spend (device-seconds by tier,
             # wire bytes, tokens/examples, device memory) + merged outcome
-            # books + the conservation verdicts
-            return json_response(_resourcemeter.snapshot())
+            # books + the conservation verdicts, plus which per-tenant
+            # SLO rules fire right now (from this server's ledger)
+            doc = _resourcemeter.snapshot()
+            led = self._ledgers[1] or _runledger.current()
+            if led is not None:
+                doc["slo_firing"] = [r for r in led.alert_status()["firing"]
+                                     if "tenant" in str(r)]
+            return json_response(doc)
         return None
 
     @staticmethod
@@ -516,6 +539,7 @@ class InferenceServer:
         if self.decode is not None:
             self.decode.shutdown()
         self.inference.shutdown()
+        _runledger.end_scope(*self._ledgers)
 
     def join(self):
         self._server.join()
@@ -553,8 +577,9 @@ def main(argv=None):
                     help="per-connection socket read timeout (slowloris "
                          "protection); 0 disables")
     ap.add_argument("--ledger", default=None, metavar="PATH",
-                    help="record a persistent run ledger (not available "
-                         "in the port yet: raises)")
+                    help="record a persistent run ledger (metrics "
+                         "samples + SLO rule verdicts) to this path; "
+                         "GET /alerts serves the live rule states")
     ap.add_argument("--decodeSlots", type=int, default=0,
                     help=">0 mounts the continuous-batching decode "
                          "engine (POST /generate) with this many slots "
@@ -573,10 +598,6 @@ def main(argv=None):
                          "server refuses to start without a GPU unless "
                          "given cpu)")
     args = ap.parse_args(argv)
-    if args.ledger is not None:
-        raise NotImplementedError(
-            "--ledger needs utils/runledger.py, which the port does not "
-            "have yet")
     if args.meter:
         _resourcemeter.enable()
     model = guess_and_load_model(args.modelPath, device=args.device)

@@ -8,7 +8,10 @@ EvaluativeListener, TracingListener, HealthTransitionListener and
 ComposableIterationListener. The listener callback receives a small info
 dict; the score is read to the host only when a listener asks for it, so
 listeners do not force a device sync on every step. PerformanceListener's
-MFU column waits for the port's FLOP accounting (utils/flops.py).
+MFU column divides the net's model FLOPs (utils/flops, the analytic
+per-layer count) by the card's dense bf16 peak, whatever the net's
+precision: an f32 net's MFU is stated against the bf16 peak, as in the
+JAX package.
 """
 
 from __future__ import annotations
@@ -55,7 +58,7 @@ class ScoreIterationListener(IterationListener):
 
 class PerformanceListener(IterationListener):
     """Throughput listener (reference: PerformanceListener.java — iterations
-    /sec, samples/sec, ETL time)."""
+    /sec, samples/sec, ETL time), plus the window's MFU on the card."""
 
     def __init__(self, frequency: int = 10, print_fn: Optional[Callable] = None):
         self.frequency = max(1, frequency)
@@ -64,6 +67,8 @@ class PerformanceListener(IterationListener):
         self._samples = 0
         self._iters = 0
         self._etl_ms = 0.0
+        self._fit_examples = None  # registry child, resolved lazily
+        self._win_examples0 = None  # counter value at window start
 
     def iteration_done(self, model, iteration, info):
         now = time.perf_counter()
@@ -76,19 +81,61 @@ class PerformanceListener(IterationListener):
         self._etl_ms += info.get("etl_ms", 0.0)
         if self._last_time is None:
             self._last_time = now
+            self._win_examples0 = self._fit_examples_total()
             return
         if self._iters % self.frequency == 0:
             dt = now - self._last_time
             if dt > 0:
-                self.print_fn(
+                msg = (
                     f"iter {iteration}: {self._iters / dt:.1f} it/s, "
                     f"{self._samples / dt:.1f} samples/s, "
-                    f"etl {self._etl_ms / self._iters:.1f} ms/iter")
+                    f"etl {self._etl_ms / self._iters:.1f} ms/iter"
+                )
+                mfu = self._window_mfu(model, dt)
+                if mfu is not None:
+                    msg += f", mfu {mfu:.4g}"
+                self.print_fn(msg)
             self._last_time = now
             self._samples = 0
             self._iters = 0
             self._etl_ms = 0.0
+            self._win_examples0 = self._fit_examples_total()
 
+    def _fit_examples_total(self):
+        """The fit loop's own once-per-batch example counter — NOT the
+        per-callback tally: TBPTT fires iteration_done once per segment
+        with the full batch size, so `self._samples` over-counts by the
+        segment count and must never feed the MFU arithmetic. (The
+        counter is process-global: a second net fitting concurrently in
+        the same process would inflate this window's MFU.)"""
+        from deeplearning4j_tpu_torch.utils.metrics import get_registry
+
+        child = self._fit_examples
+        if child is None:
+            child = self._fit_examples = get_registry().counter(
+                "fit_examples_total").labels()
+        return child.value
+
+    def _window_mfu(self, model, dt: float):
+        """Window-averaged MFU from the net's model FLOPs over the card's
+        dense bf16 peak. None on the CPU (a peak MFU against a host is
+        noise), for a net with no FLOP count, or on a card the peak table
+        does not know."""
+        per_example = getattr(model, "model_flops_per_example", None)
+        device = getattr(model, "device", None)
+        if per_example is None or self._win_examples0 is None \
+                or device is None or device.type == "cpu":
+            return None
+        flops, _ = per_example()
+        if not flops:
+            return None
+        from deeplearning4j_tpu_torch.utils.flops import peak_flops_per_chip
+
+        peak = peak_flops_per_chip(device)
+        if not peak:
+            return None
+        return ((self._fit_examples_total() - self._win_examples0) * flops
+                / dt / peak)
 
 
 class CollectScoresIterationListener(IterationListener):

@@ -285,6 +285,56 @@ def test_preset_json_round_trips(preset):
     assert MultiLayerConfiguration.from_yaml(make(tmod).to_yaml()).to_json() == js
 
 
+@pytest.mark.parametrize("host_resident", [True, False])
+def test_recsys_preset_json_round_trips(host_resident):
+    """The recsys preset's JSON, with the table host-resident and on the
+    device: the port's equals the JAX package's and each reads the other's
+    back to the same text, `host_resident` included."""
+    from deeplearning4j_tpu.models import recsys as jrecsys
+    from deeplearning4j_tpu.nn.conf.network import MultiLayerConfiguration as JMLC
+    from deeplearning4j_tpu_torch.models import recsys as trecsys
+
+    js = jrecsys.recsys_conf(vocab=5000, hidden=32, host_resident=host_resident).to_json()
+    ts = trecsys.recsys_conf(vocab=5000, hidden=32, host_resident=host_resident).to_json()
+    assert ts == js
+    back = MultiLayerConfiguration.from_json(js)
+    assert back.to_json() == js
+    assert back.layers[0].host_resident is host_resident
+    assert JMLC.from_json(ts).to_json() == ts
+
+
+def test_recsys_zips_cross_load_both_ways(tmp_path):
+    """A trained recsys net's zip (table, tower, SGD counters) loads in the
+    other package to the same parameters and outputs, both ways."""
+    from deeplearning4j_tpu.models import recsys as jrecsys
+    from deeplearning4j_tpu_torch.models import recsys as trecsys
+
+    rng = np.random.default_rng(5)
+    x = rng.integers(0, 300, (16, 1)).astype(np.float32)
+    y = np.eye(2, dtype=np.float32)[(x[:, 0].astype(np.int64) & 1)]
+    jn = jrecsys.recsys_network(vocab=300, dim=8, hidden=16, host_resident=False)
+    jn.fit(JDataSet(x, y), epochs=2)
+    jpath, tpath = str(tmp_path / "jax.zip"), str(tmp_path / "port.zip")
+    jms.save_model(jn, jpath)
+    tn = tms.load_model(jpath, device="cpu")
+    assert tn.layer_confs[0].host_resident is False
+    for jp, tp in zip(jn.params_list, tn.params_list):
+        for k in jp:
+            assert np.asarray(jp[k]).tobytes() == tp[k].numpy().tobytes(), k
+    np.testing.assert_allclose(tn.output(x).numpy(), np.asarray(jn.output(x)),
+                               rtol=OUT_RTOL)
+    tn2 = trecsys.recsys_network(vocab=300, dim=8, hidden=16, host_resident=True,
+                                 device="cpu")
+    tn2.fit(DataSet(x, y), epochs=2)
+    tms.save_model(tn2, tpath)
+    jn2 = jms.load_model(tpath)
+    assert jn2.layer_confs[0].host_resident is True
+    for jp, tp in zip(jn2.params_list, tn2.params_list):
+        for k in jp:
+            assert np.asarray(jp[k]).tobytes() == tp[k].numpy().tobytes(), k
+    assert jn2.iteration == tn2.iteration == 2
+
+
 def test_leaf_order_is_jax_tree_util_order():
     """Sorted dict keys at every level, None an empty subtree, lists in
     order — checked on a tree with unsorted insertion order."""
