@@ -79,8 +79,10 @@ result lines:
    (weights from --seed) fits 2 synthetic batches of [128, 224, 224, 3]
    (from --seed, one-hot labels over 1000 classes) for 5 epochs, 10
    Nesterovs steps at lr 0.01 (see RESNET_LR): images/s, finite scores, batch 0's score
-   lower on its last visit than on its first, and per step 36 launches of
-   K4, 17 of K5 and 53 each of K6, K7 and K8; then step p50/p99 with the
+   lower on its last visit than on its first, and per step the launches
+   of K4, K5 and K6 the conv routing's coverage table gives for this batch
+   (resnet_per_step: 36, 17 and 53, every conv covered) and 53 each of K7
+   and K8; then step p50/p99 with the
    device synced at each step, and one profiled step's busy share and
    device time by kernel (K4 and K5 summed by name, and K6-K8); one step's
    aten ops on BN-sized tensors, and one BN's backward at the stem's
@@ -132,8 +134,8 @@ result lines:
    one's device time and busy share under the profiler, the capture's
    seconds and graph pool. 8b: ResNet-50 (bf16, batch 128, Nesterovs lr
    0.01) with set_fused_steps(2), cudnn.deterministic: 10 steps bit-equal
-   in scores, parameters, Nesterovs v and BN statistics, 36 K4, 17 K5 and
-   53 each of K6-K8 a step per replay; then 3 repeats of 20 steps each way
+   in scores, parameters, Nesterovs v and BN statistics, phase 6's K4-K8
+   launches a step per replay; then 3 repeats of 20 steps each way
    for step p50/p99 (synced at each dispatch) and images/s, one profiled
    dispatch each (device ms a step, busy share), the capture's seconds,
    the graph pool and the peak memory. 8c: the graphed char-LSTM fit of 6
@@ -233,8 +235,10 @@ result lines:
    VGG_SCALE_* of one process; step p50 and
    train_step_collective_seconds (estimate and measured). 12b: ResNet-50
    (bf16, 2 ranks x 64 against one process at 128, 2 Nesterovs steps):
-   K4-K8 launched per step a rank as in phase 6, two BN all-reduces a BN a
-   step (K4/K5 -> K6 and K7 -> K8), a profiled step's all-reduces by site
+   K4-K8 launched per step a rank as the coverage table routes 64 rows,
+   two BN all-reduces a step for a BN after a covered conv (K4/K5 -> K6
+   and K7 -> K8) and three for one after a declined conv (the builtin
+   forward's mean and centred sums, K7 -> K8), a profiled step's all-reduces by site
    (host and device ms), and score, BN running statistics and parameters
    within SCALE_WITNESS of the one-process run's distance from itself with
    the batches' rows reversed; the full-width char-LSTM on 2 ranks (two
@@ -306,6 +310,26 @@ result lines:
    14a and 14b launch none of K1-K8, 14c launches K1 and K2. Ledgers go
    to `_recsys_smoke/` in the checkout, removed at the phase's end;
    phase 14's numbers are a JSON line before the last three.
+15. Device observability and static analysis (analysis/kernelcoverage.py,
+   analysis/costmodel.py, utils/devprof.py, utils/profiler.py). 15a':
+   ResNet-50 bf16 b128 graphed, the shipped structural routing against
+   the planning table's (compute-bound convs declined to cuDNN), in
+   rounds: launches a replay from each table, synced step p50 and device
+   ms a step. 15a: the coverage table of ResNet-50 at b128 bf16, planned
+   (34 covered / 19 declined on the H100 SXM figures) and routed (53 / 0),
+   none unsupported, beside phase 8's graphed step. 15b: the step cost
+   model of ResNet-50 b128 bf16 and the full-width char-LSTM: model FLOPs
+   beside the analytic count, JX007 against FlopCounterMode within 10%,
+   no JX008 at the card's memory, the roofline, the static memory beside
+   one eager step's max_memory_allocated. 15c: a 12-step ResNet-50 fit
+   sampled every 4th step with the cost model attached: step_device_seconds
+   within OBS_STEP_RTOL of CUDA events on the same steps, step_mfu, every
+   device_memory_bytes kind > 0; an injected oom in fit and in a
+   ParallelInference forward, each dumping forensics that name live CUDA
+   tensors and counting oom_total{where}. 15d: ProfilerListener over 3
+   ResNet-50 steps and 2 char-LSTM batches, write_profile_json: K1, K3 and
+   K4-K8 named by family, each with its cost-model bound. Phase 15's
+   numbers are a JSON line before the last three.
 The last three lines of standard output are the kernels JSON line, the
 card line, and {"ok": true, "device": {...}}. Imports nothing of JAX.
 """
@@ -1907,10 +1931,28 @@ RESNET_BATCHES, RESNET_EPOCHS = 2, 5  # 10 optimizer steps, each batch seen 5 ti
 # test_published_lr_rises_alike_in_both_packages_at_full_width). Phase 6
 # trains at 0.01, where it falls. The work per step does not depend on lr.
 RESNET_LR = 0.01
-# per optimizer step: 36 1x1 convs (K4), 17 k x k convs (K5), 53 BNs
-# (K6 forward, K7 + K8 backward)
-RESNET_PER_STEP = {"conv1x1_stats": 36, "conv_kxk_stats": 17, "bn_apply": 53,
-                   "bn_backward_reduce": 53, "bn_backward_apply": 53}
+def resnet_per_step(batch: int, dtype: str = "bf16", image: int = 224, convs=None) -> dict:
+    """K4-K8 launches of one ResNet-50 training step at this batch (a
+    rank's rows), dtype and image side, from the conv routing itself: the
+    coverage table of what this process routes by (analysis/kernelcoverage,
+    planning=False: conv_decision on every conv instance) gives K4 for each
+    covered 1x1 conv, K5 for each covered k x k one and K6 for the BN after
+    each covered conv; a declined conv would run cuDNN and its BN the
+    builtin forward. K7 + K8 run for every BN. `convs` restricts the step
+    to those conv vertices (a transfer net's unfrozen ones)."""
+    import torch
+
+    from deeplearning4j_tpu_torch.analysis import kernelcoverage as kc
+    from deeplearning4j_tpu_torch.models.resnet import resnet50_conf
+
+    rows = kc.coverage_table(resnet50_conf(image_size=image), batch,
+                             {"bf16": torch.bfloat16, "f32": torch.float32}[dtype],
+                             planning=False)
+    if convs is not None:
+        rows = [r for r in rows if r["layer"] in convs]
+    per = kc.launches_per_step(rows)
+    per.update(bn_backward_reduce=len(rows), bn_backward_apply=len(rows))
+    return per
 LOCKSTEP_BATCH = 32
 # Helpers on vs off in f32 at batch 32, from the same parameters at init.
 #
@@ -2065,7 +2107,7 @@ def resnet_phase(torch, F, fcb, helpers, resnet50_network, DataSet,
     check(net.iteration == steps and len(scores) == steps,
           f"fit ran {net.iteration} steps, expected {steps}")
     check(all(math.isfinite(v) for v in scores), f"non-finite score: {scores}")
-    for k, per in RESNET_PER_STEP.items():
+    for k, per in resnet_per_step(RESNET_BATCH).items():
         check(launches[k] == per * steps,
               f"{k} launched {launches[k]} times in {steps} steps, expected {per} per step")
     first, last = scores[0], scores[-RESNET_BATCHES]
@@ -2238,8 +2280,10 @@ def resnet_phase(torch, F, fcb, helpers, resnet50_network, DataSet,
     helpers_off(lambda: off.set_listeners(l_off).fit(ExistingDataSetIterator([ds])))
     torch.cuda.synchronize()
     after = fcb.launch_counts()
-    check(all(after[k] - before[k] == 2 * RESNET_PER_STEP[k] for k in RESNET_PER_STEP),
-          f"the helpers-on f32 passes did not run the kernels: {before} -> {after}")
+    want32 = resnet_per_step(LOCKSTEP_BATCH, "f32")
+    check(all(after[k] - before[k] == 2 * want32[k] for k in want32),
+          f"the helpers-on f32 passes did not run the kernels: {before} -> {after}, "
+          f"expected twice {want32}")
     s_on, s_off = l_on.values()[0], l_off.values()[0]
     score_err = abs(s_on - s_off) / abs(s_off)
     state_err = max(((a[k] - b[k]).abs().max() / b[k].abs().max().clamp_min(1e-30)).item()
@@ -2636,7 +2680,7 @@ def resnet_resume_phase(torch, F, fcb, resnet50_network, DataSet, ListDataSetIte
               f"resumed {sorted(rv)}")
         check(not bad and all(eq), "the resumed ResNet-50 differs from the "
               "uninterrupted run")
-        for k, per in RESNET_PER_STEP.items():
+        for k, per in resnet_per_step(RESNET_BATCH).items():
             check(launches[k] == per * len(rv),
                   f"{k} launched {launches[k]} times in {len(rv)} resumed steps")
         out["resume"] = {"checkpoint_iteration": meta["iteration"], "train_state": ts,
@@ -3036,7 +3080,7 @@ def fused_resnet_phase(torch, F, fcb, resnet50_network, DataSet, ExistingDataSet
         same = (nets_equal(torch, eager, graphed)
                 and [float(s) for s in log.scores] == clock.scores)
         [prog] = list(graphed._programs.values())
-        want = {n: per * k for n, per in RESNET_PER_STEP.items()}
+        want = {n: per * k for n, per in resnet_per_step(RESNET_BATCH).items()}
         check(same, "8b: graphed ResNet-50 differs from the eager loop (scores, params, "
                     "Nesterovs v or BN statistics)")
         check(prog.conv_launches == want,
@@ -3545,11 +3589,14 @@ def resnet_transfer_phase(torch, F, counts, helpers, metrics, DataSet, Iteration
                 .n_out_replace("out", TRANSFER_CLASSES, weight_init="xavier").build())
 
     net = build("bf16")
-    convs = [c for c in net._layer_confs if isinstance(c, L.ConvolutionLayer)]
+    convs = {n for n in net.layer_vertex_names
+             if isinstance(net.conf.vertices[n].layer, L.ConvolutionLayer)}
     bns = [c for c in net._layer_confs if isinstance(c, L.BatchNormalization)]
-    n1 = sum(1 for c in convs if tuple(c.kernel_size) == (1, 1))
-    want = {"conv1x1_stats": n1, "conv_kxk_stats": len(convs) - n1, "bn_apply": len(bns),
-            "bn_backward_reduce": len(bns), "bn_backward_apply": len(bns)}
+    # the unfrozen convs' routing at this batch (the coverage table); each
+    # feeds its own unfrozen BN
+    want = resnet_per_step(RESNET_TRANSFER_BATCH, "bf16", PHASE9_IMAGE, convs)
+    check(want["bn_backward_apply"] == len(bns) == len(convs),
+          f"9d: {len(convs)} unfrozen convs, {len(bns)} unfrozen BNs: {want}")
     n_frozen_convs = sum(1 for c in net._layer_confs if isinstance(c, L.FrozenLayer)
                          and isinstance(c.inner, L.ConvolutionLayer))
     marked = sorted(net.relu_fused_bn)
@@ -3916,7 +3963,7 @@ def sentinel_cost_phase(torch, F, counts, resnet50_network, DataSet, DataSetIter
               "10b: the second sentinel-on run is not bit-equal to the second off run")
         del nets
         torch.cuda.empty_cache()
-        for k, per in RESNET_PER_STEP.items():
+        for k, per in resnet_per_step(RESNET_BATCH).items():
             check(runs["on"]["launches"].get(k, 0) == per * SENTINEL_RESNET_STEPS,
                   f"10b: {k} launched {runs['on']['launches'].get(k, 0)} times with the "
                   f"sentinel, expected {per * SENTINEL_RESNET_STEPS}")
@@ -5354,14 +5401,21 @@ def scale_out_phase(torch, F, counts, metrics, seed, card):
               f"witness {wit32}")
         check(all(r["resnet50"]["checksum"] == b["checksum"] for r in ranks),
               "12b: the ranks' ResNet-50 parameters or BN statistics differ")
-        for k, per in RESNET_PER_STEP.items():
+        # a rank's 64 rows route as a 64-row step (the coverage table)
+        per_rank = resnet_per_step(RESNET_SCALE_BATCH // 2, "bf16", SCALE_IMAGE)
+        for k, per in per_rank.items():
             check(b["launches"].get(k, 0) == per * RESNET_SCALE_STEPS,
                   f"12b: {k} launched {b['launches'].get(k, 0)} times a rank in "
-                  f"{RESNET_SCALE_STEPS} steps, expected {per} a step (phase 6)")
+                  f"{RESNET_SCALE_STEPS} steps, expected {per} a step")
+        # a BN after a covered conv all-reduces twice a step (K6's sums,
+        # K7's), one after a declined conv three times (the builtin
+        # forward's mean, then its sums about it; K7's)
+        n_bn, n_k6 = per_rank["bn_backward_apply"], per_rank["bn_apply"]
+        bn_per_step = 2 * n_k6 + 3 * (n_bn - n_k6)
         bn_calls = b["stats"].get("bn_stats", {}).get("calls", 0)
-        check(bn_calls == 2 * RESNET_PER_STEP["bn_apply"] * RESNET_SCALE_STEPS,
-              f"12b: {bn_calls} BN all-reduces, expected 2 a BN a step")
-        check(pb.get("calls") == 2 * RESNET_PER_STEP["bn_apply"],
+        check(bn_calls == bn_per_step * RESNET_SCALE_STEPS,
+              f"12b: {bn_calls} BN all-reduces, expected {bn_per_step} a step")
+        check(pb.get("calls") == bn_per_step,
               f"12b: the profile shows {pb} for the BN all-reduces")
         check(b["fused_declined_collective"] == 1,
               f"12b: a fused group on the gloo mesh counted "
@@ -6233,7 +6287,7 @@ def recsys_fit_phase(torch, seed, card):
     wall = time.perf_counter() - t0
     man = runledger.read_ledger(path)["manifest"]
     steps = _ledger_delta(runledger, path, "fit_step_total")
-    mfus = [float(ln.rsplit("mfu ", 1)[1]) for ln in lines if "mfu " in ln]
+    mfus = [float(ln.rsplit("mfu ", 1)[1].split()[0]) for ln in lines if "mfu " in ln]
     shutil.rmtree(RECSYS_DIR, ignore_errors=True)
     check(runledger.current() is None, "14b: the fit left its ledger attached")
     check(steps == FIT14_BATCHES, f"14b: the ledger's fit_step_total grew by {steps}, "
@@ -6421,6 +6475,392 @@ def recsys_summary(p14, card) -> dict:
             "seconds": p14["seconds"]}
 
 
+# -- phase 15: device observability and static analysis --------------------------
+
+# PERF.md section 5's graphed ResNet-50 bf16 b128 step (run 1, PR 9: 36.0 ms
+# synced, 34.67 ms of device), printed beside this run's phase 8 measure
+PR9_GRAPHED_STEP_MS, PR9_GRAPHED_DEVICE_MS = 36.0, 34.67
+OBS_IMAGE = 224
+OBS_DEVPROF_STEPS, OBS_SAMPLE_EVERY = 12, 4
+# 15c: the sampled step time against the synced one, relative
+OBS_STEP_RTOL = 0.25
+OBS_PROFILE_STEPS = 3          # 15d: ResNet-50 steps in the ProfilerListener window
+OBS_LSTM_T = 2 * TBPTT         # 15d: char-LSTM batches of two TBPTT segments ...
+OBS_LSTM_BATCHES = 2           # ... of which two are in the window
+OBS_KERNEL_FAMILIES = ("K4 conv1x1_stats", "K5 conv_kxk_stats", "K6 bn_apply",
+                       "K7 bn_backward_reduce", "K8 bn_backward_apply")
+OBS_LSTM_FAMILIES = ("K1 lstm_sequence", "K3 lstm_sequence_bwd")
+OBS_DIR = os.path.join(HERE, "_obs_smoke")
+# 15a': the graphed ResNet-50 step routed by the planning table (the JAX
+# package's economic stage: compute-bound convs declined to cuDNN) against
+# the shipped structural routing, in this call: rounds of each arm, groups
+# of 2 steps a dispatch (the first two groups of a net warm up and capture)
+OBS_AB_ROUNDS, OBS_AB_GROUPS = 2, 6
+
+
+def routing_ab(torch, F, fcb, helpers, cuda_build, seed, card):
+    """15a': ResNet-50 bf16 b128 under set_fused_steps(2), one net routed by
+    the shipped probe (the structural stage: every conv on K4/K5) and one
+    by the planning verdict (conv_decision(planning=True): the
+    compute-bound convs declined to cuDNN, their BNs on the builtin
+    forward), alternated in rounds: the synced step and the device time a
+    step under the profiler, and each replay's launches."""
+    from deeplearning4j_tpu_torch.analysis import kernelcoverage as kc
+    from deeplearning4j_tpu_torch.data import DataSet, DataSetIterator, ExistingDataSetIterator
+    from deeplearning4j_tpu_torch.models.resnet import resnet50_conf, resnet50_network
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 152)
+    data = []
+    for _ in range(2):
+        x = torch.randn((RESNET_BATCH, OBS_IMAGE, OBS_IMAGE, 3), generator=gen, device="cuda")
+        lab = torch.randint(0, 1000, (RESNET_BATCH,), generator=gen, device="cuda")
+        data.append(DataSet(x, F.one_hot(lab, 1000).float()))
+    h = helpers._HELPERS["conv2d"]
+    shipped = h.supported
+
+    def planned(*, device=None, **ctx):
+        return (fcb.conv_decision(planning=True, **ctx)["status"] == "covered"
+                and cuda_build.on_hopper(device))
+
+    nets = {arm: resnet50_network(image_size=OBS_IMAGE, precision="bf16", seed=seed,
+                                  learning_rate=RESNET_LR).set_fused_steps(2)
+            for arm in ("economic", "structural")}
+    res = {arm: {"step_s": [], "device_ms": []} for arm in nets}
+    try:
+        for _ in range(OBS_AB_ROUNDS):
+            for arm, net in nets.items():
+                h.supported = planned if arm == "economic" else shipped
+                clock = SyncClock(torch, DataSetIterator, data, OBS_AB_GROUPS, per=2)
+                net.fit(clock.it, async_prefetch=False)
+                res[arm]["step_s"] += [t / 2 for t in dispatch_times(clock, 2)[2:]]
+                busy, _, _ = profiled(torch, lambda: net.fit(ExistingDataSetIterator(data),
+                                                             async_prefetch=False))
+                res[arm]["device_ms"].append(busy * 1e3 / 2)
+    finally:
+        h.supported = shipped
+    for arm, net in nets.items():
+        [prog] = list(net._programs.values())
+        res[arm]["launches_per_replay"] = prog.conv_launches
+        res[arm]["step_p50_ms"] = float(np.median(res[arm]["step_s"])) * 1e3
+    plan = kc.launches_per_step(kc.coverage_table(resnet50_conf(image_size=OBS_IMAGE),
+                                                  RESNET_BATCH, torch.bfloat16))
+    plan.update(bn_backward_reduce=53, bn_backward_apply=53)
+    want = {"economic": {k: 2 * v for k, v in plan.items()},
+            "structural": {k: 2 * v
+                           for k, v in resnet_per_step(RESNET_BATCH, image=OBS_IMAGE).items()}}
+    for arm in nets:
+        check(res[arm]["launches_per_replay"] == want[arm],
+              f"15a': {arm} launches per replay {res[arm]['launches_per_replay']}, "
+              f"expected {want[arm]}")
+    e, st = res["economic"], res["structural"]
+    print(f"  15a': graphed ResNet-50 bf16 b{RESNET_BATCH}, set_fused_steps(2), in this call "
+          f"({OBS_AB_ROUNDS} rounds each): the planning table's routing (launches a replay "
+          f"{e['launches_per_replay']}) step p50 {e['step_p50_ms']:.2f} ms synced, device "
+          f"{' '.join(f'{v:.2f}' for v in e['device_ms'])} ms a step; shipped, structural "
+          f"({st['launches_per_replay']}) {st['step_p50_ms']:.2f} ms, device "
+          f"{' '.join(f'{v:.2f}' for v in st['device_ms'])} ms, on {card}")
+    del nets, data
+    torch.cuda.empty_cache()
+    return res
+
+
+def observability_phase(torch, F, fcb, helpers, cuda_build, counts, fu, seed, card):
+    """15: kernel coverage, the step cost model, the sampled device
+    profiler with OOM forensics, and the profiler's family summary, on the
+    card (analysis/kernelcoverage.py, analysis/costmodel.py,
+    utils/devprof.py, utils/profiler.py)."""
+    import shutil
+
+    from deeplearning4j_tpu_torch.analysis import costmodel
+    from deeplearning4j_tpu_torch.analysis import kernelcoverage as kc
+    from deeplearning4j_tpu_torch.data import DataSet, ExistingDataSetIterator
+    from deeplearning4j_tpu_torch.models.charlstm import char_lstm_network
+    from deeplearning4j_tpu_torch.models.resnet import resnet50_conf, resnet50_network
+    from deeplearning4j_tpu_torch.parallel import ParallelInference
+    from deeplearning4j_tpu_torch.train.listeners import IterationListener
+    from deeplearning4j_tpu_torch.utils import blackbox, devprof
+    from deeplearning4j_tpu_torch.utils import faultpoints as fp
+    from deeplearning4j_tpu_torch.utils import flops
+    from deeplearning4j_tpu_torch.utils import profiler as prof_mod
+    from deeplearning4j_tpu_torch.utils.metrics import get_registry
+
+    t_phase = time.perf_counter()
+    out = {}
+    counts.reset()
+
+    out["routing_ab"] = routing_ab(torch, F, fcb, helpers, cuda_build, seed, card)
+    counts.reset()  # the A/B's two arms are not the shipped path
+
+    # 15a: the coverage table, planned (the JAX package's economic stage on
+    # the H100 SXM figures) and as this process routes (structural)
+    conf = resnet50_conf(image_size=OBS_IMAGE)
+    rows = kc.coverage_table(conf, RESNET_BATCH, torch.bfloat16)
+    s = kc.coverage_summary(rows)
+    routed = kc.coverage_summary(kc.coverage_table(conf, RESNET_BATCH, torch.bfloat16,
+                                                   planning=False))
+    per = resnet_per_step(RESNET_BATCH, image=OBS_IMAGE)
+    for summary in (s, routed):
+        check(summary["total"] == 53 and summary["unsupported"] == 0
+              and summary["covered"] + summary["declined"] == 53,
+              f"15a: coverage {summary}: every conv covered or declined with a verdict")
+    declined = sorted({f"{'x'.join(map(str, r['kernel']))}/s{r['stride'][0]} at "
+                       f"{r['x_shape'][1]}^2 ({r['x_shape'][3]}->{r['n_out']})"
+                       for r in rows if r["status"] == "declined"})
+    g = fu["resnet50"]
+    out["coverage"] = {**s, "routed": routed, "per_step": per, "declined": declined,
+                       "graphed_step_ms": g["graphed_step_s"]["p50"] * 1e3,
+                       "graphed_device_ms": g["graphed_profiled"]["device_ms_per_step"]}
+    print(f"  15a: ResNet-50 at batch {RESNET_BATCH} in bf16: {s['total']} conv instances; "
+          f"planned (the economic stage on the H100 SXM figures) {s['covered']} covered, "
+          f"{s['declined']} declined (compute-bound), {s['unsupported']} unsupported (the "
+          f"JAX instance functions: 34 / 19); routed on {card} (structural) "
+          f"{routed['covered']} covered, {routed['declined']} declined; a step launches {per}")
+    print(f"  15a: planned declines: {'; '.join(declined)}")
+    print(f"  15a: the graphed ResNet-50 step of phase 8 in this run: "
+          f"{out['coverage']['graphed_step_ms']:.2f} ms synced, "
+          f"{out['coverage']['graphed_device_ms']:.2f} ms of device, on {card}; PERF.md "
+          f"section 5 (another run, PR 9): "
+          f"{PR9_GRAPHED_STEP_MS} ms / {PR9_GRAPHED_DEVICE_MS} ms")
+
+    # 15b: the step cost model of ResNet-50 b128 bf16 and the char-LSTM
+    def batches(n, b):
+        gen = torch.Generator(device="cuda").manual_seed(seed + 150)
+        res = []
+        for _ in range(n):
+            x = torch.randn((b, OBS_IMAGE, OBS_IMAGE, 3), generator=gen, device="cuda")
+            lab = torch.randint(0, 1000, (b,), generator=gen, device="cuda")
+            res.append(DataSet(x, F.one_hot(lab, 1000).float()))
+        return res
+
+    def cost(name, net, batch, timesteps, one_step):
+        t0 = time.perf_counter()
+        m, counted, findings = costmodel.check_network(net, batch_size=batch,
+                                                       timesteps=timesteps)
+        trace_s = time.perf_counter() - t0
+        analytic, _ = flops.train_step_flops_for(net, batch, timesteps=timesteps,
+                                                 prefer_cost_model=False)
+        roof = m.roofline()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        one_step()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        rec = {"model_flops": m.model_flops, "analytic_flops": analytic,
+               "counter_flops": counted, "counter_comparable_flops": m.counter_comparable_flops,
+               "flops_total": m.flops_total, "bytes_total": m.bytes_total,
+               "step_lower_bound_ms": roof["step_time_lower_bound_seconds"] * 1e3,
+               "bound": roof["bound"], "mfu_ceiling": roof["mfu_ceiling"],
+               "activation_peak_bytes": m.activation_peak_bytes,
+               "resident_bytes": m.resident_bytes, "param_bytes": m.param_bytes,
+               "updater_bytes": m.updater_bytes,
+               "max_memory_allocated": peak, "allocated_before_step": base,
+               "findings": [f.name for f in findings], "trace_s": trace_s}
+        check(not findings, f"15b: {name}: findings {[f.format() for f in findings]} "
+                            "(JX007 against FlopCounterMode, JX008 at the card's memory)")
+        check(counted and abs(m.counter_comparable_flops - counted) <= 0.10 * counted,
+              f"15b: {name}: model {m.counter_comparable_flops} vs FlopCounterMode {counted}")
+        print(f"  15b: {name}: model FLOPs {m.model_flops:.6g} (valid taps), analytic "
+              f"{analytic:.6g} (ratio {m.model_flops / analytic:.4f}); JX007: "
+              f"{m.counter_comparable_flops:.6g} vs FlopCounterMode {counted:.6g}; roofline on "
+              f"the card's figures: lower bound {rec['step_lower_bound_ms']:.3f} ms "
+              f"({roof['bound']}-bound), MFU ceiling {roof['mfu_ceiling']:.4f}; static: activation "
+              f"peak {m.activation_peak_bytes / 2**30:.3f} GiB, resident (params, updater, the "
+              f"batch and the peak) {m.resident_bytes / 2**30:.3f} GiB; one eager step: "
+              f"max_memory_allocated {peak / 2**30:.3f} GiB, {(peak - base) / 2**30:.3f} GiB "
+              f"above the {base / 2**30:.3f} GiB allocated before it (this phase's other nets "
+              f"and batches); traced in {trace_s:.2f} s on fake tensors")
+        return m, rec
+
+    net = resnet50_network(image_size=OBS_IMAGE, precision="bf16", seed=seed,
+                           learning_rate=RESNET_LR)
+    data = batches(4, RESNET_BATCH)
+    rn_cm, out["resnet50_cost"] = cost(
+        f"ResNet-50 bf16 b{RESNET_BATCH}", net, RESNET_BATCH, 16,
+        lambda: net.fit(ExistingDataSetIterator(data[:1]), async_prefetch=False))
+    lstm = char_lstm_network(vocab_size=VOCAB, hidden=HIDDEN, layers=LAYERS, seed=seed)
+    ldata = [DataSet(np.ascontiguousarray(w.features[:, :OBS_LSTM_T]),
+                     np.ascontiguousarray(w.labels[:, :OBS_LSTM_T]))
+             for w in corpus_batches(DataSet, seed + 151, OBS_LSTM_BATCHES + 1)]
+    lstm_cm, out["charlstm_cost"] = cost(
+        f"char-LSTM full width, batch {TRAIN_B}, one TBPTT segment of {TBPTT}", lstm,
+        TRAIN_B, TBPTT,
+        lambda: lstm.fit(ExistingDataSetIterator(ldata[:1]), async_prefetch=False))
+
+    # 15c: the sampled device profiler over a ResNet-50 fit, the cost model
+    # attached. The same steps are timed on the device clock: a CUDA event
+    # recorded after each step's launches (no sync), read after the fit
+    reg = get_registry()
+    net.attach_cost_model(rn_cm, batch=RESNET_BATCH)
+    epochs = OBS_DEVPROF_STEPS // len(data)
+
+    class Events(IterationListener):
+        def __init__(self):
+            self.events = []
+
+        def iteration_done(self, model, iteration, info):
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            self.events.append(ev)
+
+    evs = Events()
+    net.set_listeners(evs)
+    prev = devprof.get_profiler().sample_every
+    devprof.configure(OBS_SAMPLE_EVERY)
+    try:
+        s0 = reg.scalar_values().get("devprof_samples_total", 0.0)
+        net.fit(ExistingDataSetIterator(data), epochs=epochs, async_prefetch=False)
+        sv = reg.scalar_values()
+    finally:
+        devprof.configure(prev)
+        net.set_listeners()
+    torch.cuda.synchronize()
+    step_dev = sv.get("step_device_seconds", 0.0)
+    # the last sample window: the steps after the second-last sample
+    w = OBS_SAMPLE_EVERY
+    synced = evs.events[-1 - w].elapsed_time(evs.events[-1]) / 1e3 / w
+    mems = {k: sv.get(f'device_memory_bytes{{kind="{k}"}}', 0.0)
+            for k in ("params", "updater", "activations_est", "live")}
+    mfu = sv.get('step_mfu{source="costmodel"}')
+    rel = abs(step_dev - synced) / synced
+    out["devprof"] = {"step_device_seconds": step_dev, "synced_step_seconds": synced,
+                      "rel": rel, "samples": sv.get("devprof_samples_total", 0.0) - s0,
+                      "step_mfu_costmodel": mfu,
+                      "flops_per_second": sv.get('step_flops_per_second{source="costmodel"}'),
+                      "device_memory_bytes": mems}
+    print(f"  15c: ResNet-50 bf16 b{RESNET_BATCH}, {OBS_DEVPROF_STEPS} steps, sample_every "
+          f"{OBS_SAMPLE_EVERY}: step_device_seconds {step_dev * 1e3:.2f} ms (the last window, "
+          f"one synchronize a window) vs {synced * 1e3:.2f} ms a step between the CUDA events "
+          f"recorded after the same steps, rel {rel:.3f}; step_mfu{{costmodel}} {mfu}; "
+          f"device_memory_bytes {mems}; on {card}")
+    check(out["devprof"]["samples"] >= OBS_DEVPROF_STEPS // OBS_SAMPLE_EVERY - 1,
+          f"15c: {out['devprof']['samples']} samples")
+    check(rel <= OBS_STEP_RTOL, f"15c: sampled {step_dev} s vs synced {synced} s a step")
+    check(mfu is not None and 0 < mfu <= 1, f"15c: step_mfu{{costmodel}} {mfu}")
+    check(all(v > 0 for v in mems.values()), f"15c: device_memory_bytes {mems}")
+
+    # injected OOM: mid-fit, and in a ParallelInference forward
+    oom = {}
+    for where in ("fit", "serving_forward"):
+        n0 = reg.scalar_values().get(f'oom_total{{where="{where}"}}', 0.0)
+        plan = fp.FaultPlan(seed=seed)
+        if where == "fit":
+            plan.add("train_step", "oom", every_nth=2, max_fires=1)
+            with fp.active(plan):
+                try:
+                    net.fit(ExistingDataSetIterator(data), async_prefetch=False)
+                    raised = None
+                except fp.InjectedOOM as e:
+                    raised = e
+        else:
+            pi = ParallelInference(lstm, max_batch_size=4, batch_timeout_ms=1.0,
+                                   component_prefix="obs15")
+            try:
+                pi.warmup((OBS_LSTM_T, VOCAB))
+                plan.add("replica_forward", "oom", every_nth=1, max_fires=1)
+                with fp.active(plan):
+                    try:
+                        pi.output(np.zeros((2, OBS_LSTM_T, VOCAB), np.float32))
+                        raised = None
+                    except Exception as e:  # the group's failure, as a client sees it
+                        raised = e
+            finally:
+                pi.shutdown()
+        path = blackbox.get_recorder().last_dump_path
+        with open(path) as f:
+            doc = json.load(f)
+        ev = [e for e in doc["events"] if e.get("kind") == "oom"][-1]
+        cuda_top = [b for b in ev["top_buffers"] if b["device"].startswith("cuda")]
+        n1 = reg.scalar_values().get(f'oom_total{{where="{where}"}}', 0.0)
+        oom[where] = {"raised": type(raised).__name__, "dump": os.path.basename(path),
+                      "where": ev["where"], "top_buffers": ev["top_buffers"][:3],
+                      "static": {k: v for k, v in ev["static"].items()
+                                 if k != "largest_activation"},
+                      "oom_total_delta": n1 - n0}
+        check(raised is not None and devprof.is_oom(raised),
+              f"15c: the {where} oom fault raised {raised!r}")
+        check(ev["where"] == where and len(cuda_top) == len(ev["top_buffers"]) > 0,
+              f"15c: the {where} dump names {ev['top_buffers'][:3]}")
+        check(n1 - n0 == 1, f"15c: oom_total{{where={where}}} +{n1 - n0}")
+        print(f"  15c: injected oom in {where}: forensics dump {os.path.basename(path)} names "
+              f"{len(ev['top_buffers'])} live CUDA tensors, the largest "
+              f"{ev['top_buffers'][0]['nbytes'] / 2**20:.1f} MiB "
+              f"{ev['top_buffers'][0]['dtype']}{list(ev['top_buffers'][0]['shape'])}, live "
+              f"{ev['static'].get('live_bytes', 0) / 2**30:.3f} GiB, static activation "
+              f"estimate {(ev['static'].get('activation_peak_bytes') or 0) / 2**30:.3f} GiB; "
+              f"oom_total{{where=\"{where}\"}} +{n1 - n0:.0f}")
+    out["oom"] = oom
+
+    # 15d: ProfilerListener over ResNet-50 steps and char-LSTM TBPTT batches
+    shutil.rmtree(OBS_DIR, ignore_errors=True)
+    prof_out = {}
+    try:
+        # the window opens after the fit's first ResNet-50 step, and after
+        # the first char-LSTM batch (two TBPTT segments, two iterations)
+        for name, model, fit_data, m, offset, steps, fams in (
+                ("resnet50", net, data[:OBS_PROFILE_STEPS + 1], rn_cm, 0, OBS_PROFILE_STEPS,
+                 OBS_KERNEL_FAMILIES),
+                ("charlstm", lstm, ldata, lstm_cm, 1, 2 * OBS_LSTM_BATCHES,
+                 OBS_LSTM_FAMILIES)):
+            d = os.path.join(OBS_DIR, name)
+            lst = prof_mod.ProfilerListener(d, start_iteration=model.iteration + offset,
+                                            n_iterations=steps, print_fn=lambda _: None)
+            model.set_listeners(lst)
+            model.fit(ExistingDataSetIterator(fit_data), async_prefetch=False)
+            model.set_listeners()
+            payload = prof_mod.write_profile_json(d, os.path.join(d, "profile.json"),
+                                                  meta={"card": card, "steps": steps},
+                                                  cost_model=m.to_dict(), steps=steps)
+            cols = payload["families"]
+            missing = [f for f in fams if f not in cols or "bound_ms" not in cols[f]]
+            check(payload["device"] and not missing,
+                  f"15d: {name}'s family summary lacks {missing}: {sorted(cols)}")
+            prof_out[name] = {"steps": steps, "device_ms": payload["total_device_sec"] * 1e3,
+                              "families": {f: {k: c[k] for k in ("ms", "bound_ms",
+                                                                 "cost_model_family")
+                                               if k in c}
+                                           for f, c in cols.items()}}
+            print(f"  15d: {name}, {steps} steps under ProfilerListener: "
+                  f"{payload['total_device_sec'] * 1e3:.2f} ms of device; by family (ms, "
+                  f"cost-model bound ms): "
+                  + "; ".join(f"{f} {c['ms']:.3f}"
+                              + (f" / {c['bound_ms']:.3f}" if "bound_ms" in c else "")
+                              for f, c in sorted(cols.items(), key=lambda kv: -kv[1]["ms"])))
+    finally:
+        shutil.rmtree(OBS_DIR, ignore_errors=True)
+    out["profile"] = prof_out
+    torch.cuda.synchronize()
+    out["launches"] = counts.read()
+    for k in ("conv1x1_stats", "conv_kxk_stats", "bn_apply", "bn_backward_reduce",
+              "bn_backward_apply", "lstm_sequence", "lstm_sequence_backward"):
+        check(out["launches"].get(k, 0) > 0, f"15: {k} launched {out['launches']}")
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"  15: launches {out['launches']}; {out['seconds']:.1f} s")
+    del net, lstm, data
+    torch.cuda.empty_cache()
+    return out
+
+
+def observability_summary(p15, card) -> dict:
+    c = p15["coverage"]
+    return {"card": card,
+            "15a_coverage": {k: c[k] for k in ("total", "covered", "declined", "unsupported",
+                                               "routed", "per_step", "graphed_step_ms",
+                                               "graphed_device_ms")},
+            "15a_routing_ab": {arm: {k: r[k] for k in ("step_p50_ms", "device_ms")}
+                               for arm, r in p15["routing_ab"].items()},
+            "15b_cost": {n: {k: p15[n][k] for k in ("model_flops", "analytic_flops",
+                                                    "counter_flops", "step_lower_bound_ms",
+                                                    "mfu_ceiling", "activation_peak_bytes",
+                                                    "resident_bytes", "max_memory_allocated")}
+                         for n in ("resnet50_cost", "charlstm_cost")},
+            "15c_devprof": {k: p15["devprof"][k] for k in ("step_device_seconds",
+                                                           "synced_step_seconds", "rel",
+                                                           "step_mfu_costmodel")},
+            "15d_device_ms": {n: p["device_ms"] for n, p in p15["profile"].items()},
+            "seconds": p15["seconds"]}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -6597,6 +7037,13 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     p14 = recsys_ledger_phase(torch, counts, args.seed, card, tr, fu)
 
+    print("[15] device observability and static analysis: the conv kernel coverage, the "
+          "step cost model, the sampled device profiler with OOM forensics, the profiler's "
+          "family summary")
+    torch.cuda.empty_cache()
+    p15 = observability_phase(torch, F, fcb, helpers, cuda_build, counts, fu, args.seed,
+                              card)
+
     # each main path's count, read just after it ran from zero
     by_path = {"output": sl["launches"], "serve": sv["launches"],
                "train": tr["launches"], "train_resnet": rn["launches"],
@@ -6611,7 +7058,8 @@ def main(argv=None) -> int:
                "serving_resnet": p13["resnet_pool"]["launches"],
                "serving_overload": p13["overload"]["launches"],
                "recsys": p14["launches"],
-               "ledger_serving": p14["ledger_serving"]["launches"]}
+               "ledger_serving": p14["ledger_serving"]["launches"],
+               "observability": p15["launches"]}
     main_launches = {name: sum(c.get(name, 0) for c in by_path.values())
                      for name in rows}
     meta = {
@@ -6659,6 +7107,7 @@ def main(argv=None) -> int:
               "phase12": p12,
               "phase13": p13,
               "phase14": p14,
+              "phase15": p15,
               "build": {k: v["seconds"] for k, v in info.items()},
               "ptxas": {k: v["log"] for k, v in info.items() if k not in cuda_build.SOURCES},
               "seconds": time.perf_counter() - t_start}
@@ -6669,6 +7118,7 @@ def main(argv=None) -> int:
     print(json.dumps({"scale_out": scale_summary(p12)}))
     print(json.dumps({"serving": serving_summary(p13, card)}))
     print(json.dumps({"recsys": recsys_summary(p14, card)}))
+    print(json.dumps({"observability": observability_summary(p15, card)}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -25,7 +25,15 @@ pipeline (`native/`, built with g++ at first use) — whose device math
 is PyTorch ops, as the JAX package's is XLA ops; scale-out on
 `torch.distributed` (`parallel/`); and the serving front end — the
 bucketed, load-shedding `ParallelInference`, the self-healing
-`ReplicaPool` and the REST `InferenceServer` (`/predict`, `/generate`).
+`ReplicaPool` and the REST `InferenceServer` (`/predict`, `/generate`);
+the parameter-server path and the run ledger; and device observability
+and static analysis — the model doctor (`analysis/shapeflow.py`,
+`net.doctor()`, the importers' preflight), the step cost model and its
+audit on fake tensors (`analysis/costmodel.py`, `analysis/graph_audit.py`),
+the conv kernels' coverage table with the routing's economic stage as
+its plan (`analysis/kernelcoverage.py`), the sampled device profiler with OOM
+forensics (`utils/devprof.py`) and the torch.profiler family summary
+(`utils/profiler.py`).
 """
 
 __version__ = "0.1.0"

@@ -16,9 +16,34 @@ SLO rules (analysis/slo evaluated live by utils/runledger):
   SLO001  a rule entered `firing` (severity = the rule's own). Collected
          on the ledger (`RunLedger.findings`).
 
-The JAX package's other passes (shapeflow SF*, program audit JX*,
-concurrency CC*/CN*) report through the same record; they are not
-ported yet.
+shapeflow (analysis/shapeflow: the config graph, no params, no trace):
+  SF001  nIn/nOut wiring mismatch (or unset) on a parameterized layer
+  SF002  input-family mismatch / missing preprocessor between layers
+  SF003  merge-vertex fan-in conflict (mixed kinds, unequal h/w/timesteps)
+  SF004  dead or unreachable vertex / unused graph input / cycle
+  SF005  vertex shape conflict (elementwise arity, subset out of range)
+  SF006  precision promotion point (bf16 compute -> f32 loss head)
+  SF007  no trainable loss head (fit() would fail)
+
+step audit (analysis/graph_audit: one trace of the step on fake tensors):
+  JX000  the audit could not run (no InputType, or the trace failed)
+  JX001  float64 value inside the step
+  JX002  widening float cast (bf16/f16 -> f32, f32 -> f64) in the step
+  JX003  large tensor closed over by the step (not a parameter, state or
+         input)
+  JX004  host round trip inside the step (a device value read on the
+         host: the card synchronises per step)
+  JX005  parameter with no gradient path to the loss (dead weight)
+
+cost model (analysis/costmodel — static device cost of the train step):
+  JX007  cost model diverges from FlopCounterMode beyond tolerance
+         (MFU/roofline numbers built on it are untrustworthy)
+  JX008  static residency estimate (params + updater + data +
+         activation liveness peak) exceeds the card's memory — will OOM
+
+The JAX package's JX006 (undonated step buffers) has no counterpart in
+eager PyTorch (analysis/graph_audit), and its concurrency lint (CC*/CN*)
+is not ported yet.
 """
 
 from __future__ import annotations

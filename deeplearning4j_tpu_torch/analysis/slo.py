@@ -41,9 +41,9 @@ selector matches nothing is simply not violated: absence of data is
 not an alert.
 
 `default_rule_pack()` derives the standing rules from what is attached:
-the serving config's deadline/queue knobs and the tenants' budgets. The
-cost-model rules (MFU against the roofline, residency) wait for
-analysis/costmodel.py, which the port does not have.
+the serving config's deadline/queue knobs, the tenants' budgets, and a
+step cost model (analysis/costmodel.py): MFU against the roofline's
+ceiling, and live device memory against the card's (the JX008 budget).
 
 Finding code (documented in analysis/findings.py):
   SLO001  a rule entered `firing` (severity = the rule's own)
@@ -453,9 +453,11 @@ def default_rule_pack(cost_model=None, serving: Optional[dict] = None,
     * serving (dict with `default_deadline_ms` / `queue_capacity` /
       `component`): the p99 deadline burn-rate objective over completed
       request latency, and queue boundedness.
-    * cost_model: the JAX package derives its MFU-roofline and
-      residency rules from analysis/costmodel.py, which the port does
-      not have; passing one raises NotImplementedError.
+    * cost_model (analysis/costmodel.CostModel): measured `step_mfu`
+      below half the roofline's MFU ceiling is a WARNING (the step runs
+      far from what its FLOPs and bytes allow), and live device memory
+      past 90% of the card's (utils/flops.peak_hbm_bytes_per_chip, the
+      JX008 budget; skipped off the GPU) is an ERROR.
     * tenants (dict tenant -> device-seconds/s allowance): one
       per-tenant chip-budget burn rule each (tenant_burn_rules) —
       a tenant outspending its share of the chips turns from a number
@@ -471,10 +473,6 @@ def default_rule_pack(cost_model=None, serving: Optional[dict] = None,
 
     `for_seconds` debounces to ~2 ledger samples so a single noisy
     window cannot flip a verdict."""
-    if cost_model is not None:
-        raise NotImplementedError(
-            "default_rule_pack(cost_model=): the MFU-roofline and residency "
-            "rules need analysis/costmodel.py, which the port does not have")
     debounce = max(0.0, 2.0 * float(sample_every))
     rules = [SLORule(
         name="oom",
@@ -528,6 +526,37 @@ def default_rule_pack(cost_model=None, serving: Optional[dict] = None,
                 severity=ERROR,
                 component=component,
                 for_seconds=0.0,
+            ))
+    if cost_model is not None:
+        roof = cost_model.roofline()
+        ceiling = roof.get("mfu_ceiling")
+        if ceiling:
+            rules.append(SLORule(
+                name="mfu_below_roofline",
+                kind="drift",
+                series="step_mfu",
+                op="<",
+                reference=float(ceiling), frac=0.5,
+                reference_source="costmodel:mfu_ceiling",
+                severity=WARNING,
+                component="fit",
+                for_seconds=debounce,
+            ))
+        from deeplearning4j_tpu_torch.utils import flops as _flops
+
+        hbm = _flops.peak_hbm_bytes_per_chip()
+        if hbm:
+            rules.append(SLORule(
+                name="hbm_residency",
+                kind="drift",
+                series='device_memory_bytes{kind="live"}',
+                op=">",
+                reference=float(hbm), frac=0.9,
+                reference_source="flops:peak_hbm_bytes_per_chip "
+                                 "(the JX008 budget)",
+                severity=ERROR,
+                component="device",
+                for_seconds=debounce,
             ))
     if tenants:
         rules.extend(tenant_burn_rules(tenants, sample_every=sample_every))

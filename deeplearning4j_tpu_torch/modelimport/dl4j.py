@@ -2,8 +2,9 @@
 port of the JAX package's modelimport/dl4j.py: the same flat walk in
 numpy, with the parameters, layer state and updater state put into the
 network's tensors on the caller's device (`device`, "cuda" by default as
-every port entry point; pass "cpu" for the CPU). The JAX importer's
-shapeflow preflight report is not ported (analysis/shapeflow.py is not).
+every port entry point; pass "cpu" for the CPU). Each import attaches
+the free shapeflow preflight report (analysis.preflight_report: logged,
+and kept on `net.import_preflight`), as the JAX importer does.
 
 Reference format (util/ModelSerializer.java:40,79-118): a zip holding
   configuration.json  — MultiLayerConfiguration Jackson JSON (layer confs
@@ -586,6 +587,12 @@ def import_dl4j_multilayer(path: str, precision: str = "f32",
     net.iteration = iteration
     if upd_flat is not None:
         restore_updater_state(net, np.asarray(upd_flat).reshape(-1))
+    # free pre-flight: shapeflow over the translated configuration — a
+    # mistranslated zip is diagnosed at import (logged findings, also on
+    # net.import_preflight), not five layers deep at the first step
+    from deeplearning4j_tpu_torch.analysis import preflight_report
+
+    net.import_preflight = preflight_report(net.conf, origin=path)
     return net
 
 
@@ -886,6 +893,9 @@ def import_dl4j_computation_graph(path: str, precision: str = "f32",
                  for n in topo if n in layer_confs]
         restore_updater_state(net, np.asarray(upd_flat).reshape(-1),
                               indexed_layer_confs=pairs)
+    from deeplearning4j_tpu_torch.analysis import preflight_report
+
+    net.import_preflight = preflight_report(net.conf, origin=path)
     return net
 
 

@@ -21,8 +21,9 @@ layer names and parameters as the JAX importer.
   order (nn/layers/recurrent.py).
 - The configuration-only entry points need nothing beyond the standard
   library and numpy; only the HDF5 archive reader imports h5py, when it
-  is called. The JAX importer's shape-flow preflight report is not
-  ported (the port has no static analysis package).
+  is called. Each archive import attaches the free shape-flow preflight
+  report (analysis.preflight_report: logged, and kept on
+  `net.import_preflight`), as the JAX importer does.
 """
 
 from __future__ import annotations
@@ -685,7 +686,14 @@ def import_keras_sequential_model_and_weights(
     finally:
         f.close()
     net = MultiLayerNetwork(conf, device=device).init()
-    return _apply_weights(net, layer_names, weights, _dim_ordering_of(mc))
+    net = _apply_weights(net, layer_names, weights, _dim_ordering_of(mc))
+    # free pre-flight: shapeflow over the translated configuration — a
+    # mistranslated archive is diagnosed at import (logged findings, also
+    # on net.import_preflight), not at the first step
+    from deeplearning4j_tpu_torch.analysis import preflight_report
+
+    net.import_preflight = preflight_report(net.conf, origin=path)
+    return net
 
 
 def import_keras_model_and_weights(
@@ -717,6 +725,9 @@ def import_keras_model_and_weights(
         if f.id.valid:
             f.close()
     net = ComputationGraph(conf, device=device).init()
+    from deeplearning4j_tpu_torch.analysis import preflight_report
+
+    net.import_preflight = preflight_report(net.conf, origin=path)
     dim_ordering = _dim_ordering_of(mc)
     # graph params are in topological order: map vertex name -> index
     for kname in layer_names:

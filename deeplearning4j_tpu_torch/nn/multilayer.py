@@ -408,17 +408,16 @@ class MultiLayerNetwork(NetworkBase):
         copied into the parameter tensors in place. The step's random
         numbers come from the SGD step's generator (`_step_rng`). No
         diagnostic is left (`_step_diag` None): a sentinel judges the
-        score alone, as in the JAX package."""
+        score alone, as in the JAX package. Under a data mesh each rank
+        binds its rows of the global batch, and the loss and gradient the
+        search reads are summed over the data axis (train/solvers
+        `_FlatProblem`), so every rank takes the same search decisions."""
         from deeplearning4j_tpu_torch.nn.params import flat_to_params, params_to_flat
         from deeplearning4j_tpu_torch.train.solvers import (
             _FlatProblem,
             make_line_search_optimizer,
         )
 
-        if self._mesh_plan is not None and self._mesh_plan.n_data_shards > 1:
-            raise NotImplementedError(
-                "the line-search solvers are not data-parallel in the port: "
-                "train a meshed net by SGD")
         if getattr(self, "_solver", None) is None or self._solver.name != algo:
             self._solver = make_line_search_optimizer(algo)
             self._flat_problem = _FlatProblem(self)

@@ -26,7 +26,14 @@ its loss is its share of the global-batch loss, and its gradients and
 score are summed over the data axis right after autograd. `fit(run_ledger=)`
 attaches a run ledger (utils/runledger) for the fit's duration, and each
 dispatch notes its step to it (one module-global read with none
-attached). OOM forensics are not ported yet.
+attached). Each dispatch also reaches the sampled device profiler
+(utils/devprof: two integer ops, one device synchronize every
+`sample_every`-th dispatch), and a device out-of-memory error escaping
+the fit gets its forensics (the largest live tensors beside the static
+estimate, in a flight-recorder dump) before it propagates.
+`attach_cost_model` adopts a step cost model (analysis/costmodel) as the
+net's FLOP and memory accounting, and `doctor()` runs the static
+analysis (analysis/shapeflow and the step audit).
 """
 
 from __future__ import annotations
@@ -55,9 +62,11 @@ from deeplearning4j_tpu_torch.parallel import mesh as _pmesh
 from deeplearning4j_tpu_torch.train import sentinel as _sentinel
 from deeplearning4j_tpu_torch.train.updaters import normalize_gradients, schedule_lr
 from deeplearning4j_tpu_torch.utils import blackbox as _blackbox
+from deeplearning4j_tpu_torch.utils import devprof as _devprof
 from deeplearning4j_tpu_torch.utils import faultpoints as _faults
 from deeplearning4j_tpu_torch.utils import health as _health
 from deeplearning4j_tpu_torch.utils import metrics as _metrics
+from deeplearning4j_tpu_torch.utils import resourcemeter as _resourcemeter
 from deeplearning4j_tpu_torch.utils import runledger as _runledger
 from deeplearning4j_tpu_torch.utils import sigchain as _sigchain
 from deeplearning4j_tpu_torch.utils import tracing as _tracing
@@ -296,6 +305,51 @@ class NetworkBase:
     def set_model_flops_per_example(self, flops, source: str = "costmodel"):
         self._flops_per_example = (float(flops), str(source))
         return self
+
+    def attach_cost_model(self, cm, batch: Optional[int] = None):
+        """Adopt an analysis/costmodel.CostModel as this net's FLOP and
+        static-memory accounting: the live MFU gauges switch to its model
+        FLOPs (source "costmodel") and the `device_memory_bytes{kind=
+        activations_est}` watermark and OOM forensics use its
+        liveness-based activation peak."""
+        b = batch or cm.batch or 1
+        self.set_model_flops_per_example(cm.model_flops / max(1, b))
+        self._cost_model_meta = {
+            "activation_peak_bytes": cm.activation_peak_bytes,
+            "resident_bytes": cm.resident_bytes,
+            "largest_activation": cm.largest_activation,
+            "model_flops": cm.model_flops,
+            "batch": b,
+            "source": "costmodel",
+        }
+        return self
+
+    def set_tenant(self, tenant):
+        """Register this net under a tenant identity — the SAME identity
+        the serving tier books under (utils/tenancy). When process-wide
+        metering is enabled (utils/resourcemeter), the net's devprof
+        device-time windows, device-memory residency and all-reduce wire
+        bytes are attributed to that tenant; unmetered, this is just an
+        interned attribute."""
+        _resourcemeter.register_net(self, tenant)
+        return self
+
+    # -- static analysis -----------------------------------------------------
+
+    def doctor(self, *, batch_size: int = 2, timesteps: int = 8,
+               audit: bool = True):
+        """Pre-flight static analysis of this network: shape flow over the
+        configuration (analysis/shapeflow — nIn/nOut wiring, missing
+        preprocessors, merge conflicts, dead vertices) and, when the
+        config is sound and `audit` is True, one trace of the optimizer
+        step on fake tensors audited for device hazards
+        (analysis/graph_audit — f64, widening casts, closed-over tensors,
+        host round trips, dead weights). No kernel, no device step, no
+        mutation. Returns a list of analysis.Finding."""
+        from deeplearning4j_tpu_torch.analysis import doctor_network
+
+        return doctor_network(self, batch_size=batch_size,
+                              timesteps=timesteps, audit=audit)
 
     # -- to be provided by subclasses ----------------------------------------
 
@@ -1002,6 +1056,7 @@ class NetworkBase:
                     "all-reduce, by accounting source",
                     ("source",)).labels("measured"),
                 "recorder": _blackbox.get_recorder(),
+                "devprof": _devprof.get_profiler(),
             }
         return ins
 
@@ -1076,6 +1131,9 @@ class NetworkBase:
         ins["recorder"].record_step(self.iteration - 1, score=self._score,
                                     data_wait=data_wait, dispatch=dispatch,
                                     sync=sync)
+        # device-side accounting: two integer ops on unsampled steps, one
+        # device synchronize every sample_every-th (utils/devprof)
+        ins["devprof"].on_step(self, n_examples, self._score)
         # run-ledger hook: ONE module-global read with no ledger attached
         # (the off-by-default overhead contract); on the host, after the
         # dispatch, so never inside a captured graph
@@ -1179,8 +1237,22 @@ class NetworkBase:
                     f"fit step exceeded hang_timeout={hang_timeout}s without "
                     f"progress (see flight-recorder dump)",
                     dump_path=self._hang_dump_path) from None
+            except Exception as e:
+                # device allocator failure: record the largest live tensors
+                # and the static activation estimate BEFORE unwinding (the
+                # tensors are gone once the frames release them), then let
+                # the original exception carry on
+                if _devprof.is_oom(e):
+                    path = _devprof.oom_forensics("fit", e, net=self)
+                    logger.error("device out of memory in fit; OOM forensics "
+                                 "dump at %s", path)
+                raise
             finally:
                 self._fit_heartbeat = None
+                # the devprof sampling window dies with the fit: a stale
+                # last-sample time would make the NEXT fit's first window
+                # span the idle gap between fits
+                self._devprof_state = None
                 # resume coordinates die with the fit: a preemption save
                 # AFTER a completed fit must record a clean epoch boundary
                 self._train_state = None

@@ -761,24 +761,38 @@ def conv_family(*, kernel=None, stride=None, **_):
 
 
 def conv_decision(*, kernel, stride, dilation, same, has_bias, activation,
-                  dtype, training, **_):
-    """Structural routing for the "conv2d" slot: the kernel must exist for
-    the call — training, bias-free, SAME, identity activation, no dilation,
-    kernel/stride in the five families, f32 or bf16. Any channel count and
-    image size is taken (the stem's Cin = 3 included): the JAX package's
-    VMEM budget and 128-lane channel alignment are TPU facts with no
-    counterpart here.
+                  dtype, training, x_shape, n_out, planning=False, **_):
+    """Routing decision for the "conv2d" slot, in the JAX package's two
+    stages (its `conv_decision`):
 
-    The JAX package's second, economic stage (declining compute-bound
-    instances on the per-instance roofline of analysis/costmodel) is not
-    ported: it needs an H100 device table. Until it is, every ResNet-50
-    conv in training takes K4 or K5.
+    1. structural: the kernel must exist for the call — training,
+       bias-free, SAME, identity activation, no dilation, kernel/stride
+       in the five families, f32 or bf16. Failures are "unsupported".
+       Any channel count and image size is taken (the stem's Cin = 3
+       included): the JAX package's VMEM budget and 128-lane channel
+       alignment are TPU facts with no counterpart here.
+    2. economic, with `planning=True` (the coverage table,
+       analysis/kernelcoverage): the per-instance roofline verdict of
+       `conv_instance_cost` at the call's dtype itemsize on the H100 SXM
+       figures. The stats epilogue saves one read of the conv output,
+       worth nothing on a compute-bound instance, so the JAX package
+       declines it ("compute_bound") and a memory-bound one is covered.
 
-    Returns {"status": "covered"|"unsupported", "reason", "family"}."""
+    What this process routes by (`planning=False`) is the structural
+    stage: a compute-bound instance is covered too. In the port a decline
+    is not free, as it is under XLA: the declined conv's BN takes the
+    builtin forward (a mean pass, a centred-sums pass and the apply, two
+    more reads of y than K6, and a third all-reduce under a mesh). On the
+    H100 that cost ResNet-50 at b128 bf16 4.3-4.6 ms a graphed step more
+    than covering all 53 convs (PERF.md, PR 16).
+
+    Returns {"status": "covered"|"declined"|"unsupported", "reason",
+    "family", "roofline"}."""
     fam = conv_family(kernel=kernel, stride=stride)
 
     def uns(reason):
-        return {"status": "unsupported", "reason": reason, "family": fam}
+        return {"status": "unsupported", "reason": reason, "family": fam,
+                "roofline": None}
 
     if not training:
         return uns("inference")
@@ -790,11 +804,30 @@ def conv_decision(*, kernel, stride, dilation, same, has_bias, activation,
         return uns("fused_activation")
     if tuple(dilation) != (1, 1):
         return uns("dilation")
-    if (tuple(kernel), tuple(stride)) not in _KERNEL_STRIDES:
+    k, s = tuple(kernel), tuple(stride)
+    if (k, s) not in _KERNEL_STRIDES:
         return uns("kernel_shape")
     if dtype not in _DTYPE_CODES:
         return uns("dtype")
-    return {"status": "covered", "reason": "structural", "family": fam}
+    if not planning:
+        return {"status": "covered", "reason": "structural", "family": fam,
+                "roofline": None}
+    from deeplearning4j_tpu_torch.analysis.costmodel import (
+        conv_instance_cost,
+        instance_roofline,
+    )
+    from deeplearning4j_tpu_torch.utils import flops as _flops
+
+    cost = conv_instance_cost(kernel=k, stride=s, x_shape=x_shape,
+                              n_out=int(n_out), itemsize=dtype.itemsize)
+    rf = instance_roofline(cost["flops"], cost["bytes"],
+                           _flops.H100_BF16_DENSE_FLOP_PER_S,
+                           _flops.H100_HBM_BYTES_PER_S)
+    if rf["verdict"] == "compute-bound":
+        return {"status": "declined", "reason": "compute_bound",
+                "family": fam, "roofline": rf}
+    return {"status": "covered", "reason": "memory_bound", "family": fam,
+            "roofline": rf}
 
 
 def conv_supported(*, device=None, **ctx):
@@ -811,6 +844,11 @@ def conv_supported(*, device=None, **ctx):
         return False
     return cuda_build.on_hopper(device)
 
+
+# The BN probes consult no roofline: a BN pass is a streaming map of about
+# 4 FLOP an element over at least two passes of its bytes, an intensity
+# near 1 FLOP/B against the H100's ridge near 295, so it is memory-bound
+# at every shape (the JAX package's consult can only say so).
 
 def bn_supported(*, x, training, **_):
     """Probe for the "batch_norm" slot: training, a 4-D f32/bf16 input on a

@@ -79,6 +79,7 @@ import torch
 
 from deeplearning4j_tpu_torch.parallel.mesh import data_shards, pad_wrap
 from deeplearning4j_tpu_torch.utils import blackbox as _blackbox
+from deeplearning4j_tpu_torch.utils import devprof as _devprof
 from deeplearning4j_tpu_torch.utils import faultpoints as _faults
 from deeplearning4j_tpu_torch.utils import health as _health
 from deeplearning4j_tpu_torch.utils import metrics as _metrics
@@ -972,10 +973,13 @@ class ParallelInference:
                     out = [_to_host(o)[:n] for o in out]
                 else:
                     out = _to_host(out)[:n]
-        except BaseException:
-            # a device out-of-memory fails the group like any other error
-            # (the JAX package's allocator forensics wait for a device
-            # profiler in the port)
+        except BaseException as e:
+            if _devprof.is_oom(e):
+                # a serving-forward allocator failure gets the same
+                # forensics as a fit-loop one: the largest live tensors and
+                # the static estimate into a flight-recorder dump, then the
+                # group fails as usual (ReplicaPool does not retry in-flight)
+                _devprof.oom_forensics("serving_forward", e, net=self.model)
             with self._lock:
                 if (not self._shape_confirmed
                         and self._expected_shape == padded.shape[1:]):

@@ -358,8 +358,8 @@ class MeshPlan:
         """Sum `grads` (a list of per-layer dicts, the step's raw gradients)
         and the step's loss share `score` over the data axis. Per bucket:
         one flat buffer, cast to bf16 if the wire is bf16, one all-reduce,
-        cast back, split into the leaves; a lone f32 leaf is reduced in
-        place, without the copy. The score rides in the last bucket's
+        cast back, split into the leaves; a lone contiguous f32 leaf is
+        reduced in place, without the copy. The score rides in the last bucket's
         buffer when that buffer is f32. Returns (grads, global score).
         The train step calls it only when the data axis has more than one
         rank; called directly on a one-rank process group it still issues
@@ -375,9 +375,12 @@ class MeshPlan:
                 last = bi == len(buckets) - 1
                 rides = (last and not bf16 and parts[0].dtype == torch.float32
                          and score.device == parts[0].device)
-                if len(parts) == 1 and not bf16 and not rides:
+                if len(parts) == 1 and not bf16 and not rides and parts[0].is_contiguous():
                     _mesh.all_reduce_(parts[0], mesh, DATA_AXIS, site="grads")
                     continue
+                # else one flat buffer: a lone leaf that is not contiguous
+                # (a cuDNN conv's weight gradient through the HWIO view) is
+                # copied too, since collectives take contiguous tensors
                 flat = [p.reshape(-1) for p in parts]
                 if rides:
                     flat.append(score.float().reshape(1))

@@ -93,7 +93,8 @@ class PerformanceListener(IterationListener):
                 )
                 mfu = self._window_mfu(model, dt)
                 if mfu is not None:
-                    msg += f", mfu {mfu:.4g}"
+                    # the FLOP source labelled as devprof's step_mfu{source}
+                    msg += f", mfu {mfu[0]:.4g} ({mfu[1]})"
                 self.print_fn(msg)
             self._last_time = now
             self._samples = 0
@@ -117,16 +118,18 @@ class PerformanceListener(IterationListener):
         return child.value
 
     def _window_mfu(self, model, dt: float):
-        """Window-averaged MFU from the net's model FLOPs over the card's
-        dense bf16 peak. None on the CPU (a peak MFU against a host is
-        noise), for a net with no FLOP count, or on a card the peak table
-        does not know."""
+        """(window-averaged MFU, FLOP source) from the net's model FLOPs
+        over the card's dense bf16 peak; the source is "costmodel" once a
+        step cost model is attached (`attach_cost_model`), else
+        "analytic", as devprof labels `step_mfu{source}`. None on the CPU
+        (a peak MFU against a host is noise), for a net with no FLOP
+        count, or on a card the peak table does not know."""
         per_example = getattr(model, "model_flops_per_example", None)
         device = getattr(model, "device", None)
         if per_example is None or self._win_examples0 is None \
                 or device is None or device.type == "cpu":
             return None
-        flops, _ = per_example()
+        flops, source = per_example()
         if not flops:
             return None
         from deeplearning4j_tpu_torch.utils.flops import peak_flops_per_chip
@@ -135,7 +138,7 @@ class PerformanceListener(IterationListener):
         if not peak:
             return None
         return ((self._fit_examples_total() - self._win_examples0) * flops
-                / dt / peak)
+                / dt / peak, source)
 
 
 class CollectScoresIterationListener(IterationListener):

@@ -69,7 +69,12 @@ class BackTrackLineSearch:
 
 class _FlatProblem:
     """The network loss and its gradient as functions of the flat
-    parameter vector (training-mode forward, the bound batch)."""
+    parameter vector (training-mode forward, the bound batch). Under a
+    data mesh (`net.set_mesh`, more than one data shard) each rank binds
+    its own rows and computes its share of the global-batch loss, as the
+    SGD step does, and the loss and its gradient are summed over the data
+    axis before the search sees them: every rank takes the same search
+    decisions and keeps the same parameters."""
 
     def __init__(self, net):
         from deeplearning4j_tpu_torch.nn.params import flat_to_params
@@ -82,6 +87,7 @@ class _FlatProblem:
                              rng=rng, training=True)
             return s
 
+        self._net = net
         self._loss = loss_of_flat
         self._bound = None
 
@@ -97,17 +103,27 @@ class _FlatProblem:
             return None
         return torch.Generator(device=rng.device).set_state(rng.get_state())
 
+    def _mesh(self):
+        plan = getattr(self._net, "_mesh_plan", None)
+        return None if plan is None or plan.n_data_shards <= 1 else plan.mesh
+
     def value_and_grad(self, flat):
+        from deeplearning4j_tpu_torch.parallel.mesh import data_parallel_scope, data_sum
+
         states, x, y, fm, lm, _ = self._bound
         flat = flat.detach().requires_grad_(True)
-        s = self._loss(flat, states, x, y, fm, lm, self._rng())
-        (g,) = torch.autograd.grad(s, flat)
-        return s.detach(), g
+        with data_parallel_scope(self._mesh()):
+            s = self._loss(flat, states, x, y, fm, lm, self._rng())
+            (g,) = torch.autograd.grad(s, flat)
+            # this rank's shares of the global loss and gradient, summed
+            return data_sum(s.detach(), "loss"), data_sum(g, "grads")
 
     def value(self, flat):
+        from deeplearning4j_tpu_torch.parallel.mesh import data_parallel_scope, data_sum
+
         states, x, y, fm, lm, _ = self._bound
-        with torch.no_grad():
-            return self._loss(flat, states, x, y, fm, lm, self._rng())
+        with torch.no_grad(), data_parallel_scope(self._mesh()):
+            return data_sum(self._loss(flat, states, x, y, fm, lm, self._rng()), "loss")
 
 
 class BaseLineSearchOptimizer:

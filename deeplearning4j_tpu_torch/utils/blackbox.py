@@ -25,7 +25,11 @@ Forensics surfaces:
 * `dump(path, reason)` — the same snapshot on demand (the watchdog's
   hang action calls this before raising StepHangError).
 * `render_dump(doc)` — the human view `cli blackbox <dump>` prints: the
-  final-steps timeline, events, component health, and thread stacks.
+  final-steps timeline, events, the OOM forensics of the last `oom`
+  event (utils/devprof: the largest live CUDA tensors beside the static
+  estimate), component health, and thread stacks. The metrics deltas
+  carry the `device_memory_bytes{kind}` levels of each capture, the
+  memory trajectory leading into an OOM.
 
 Score handling: the fit loop must never sync the device to feed the
 recorder, so step records hold the score *tensor* (on the device) and,
@@ -170,8 +174,14 @@ class FlightRecorder:
     def record_metrics_delta(self):
         """Scalar registry delta since the previous capture — cheap
         (value reads, no histogram sorting), so counters' recent movement
-        rides along in a crash dump."""
+        rides along in a crash dump. The `device_memory_bytes{...}`
+        watermark gauges (utils/devprof) additionally ride along as
+        ABSOLUTE values per capture: a delta view of a watermark hides
+        the level, and the level trajectory is exactly what a post-OOM
+        dump needs to show."""
         now = _metrics.get_registry().scalar_values()
+        memory = {k: v for k, v in now.items()
+                  if k.startswith("device_memory_bytes")}
         with self._lock:
             prev = self._last_scalars
             self._last_scalars = now
@@ -182,10 +192,12 @@ class FlightRecorder:
                 dv = v - prev.get(k, 0.0)
                 if dv:
                     delta[k] = round(dv, 9)
-            if delta:
-                self._metrics_deltas.append(
-                    {"ts": round(time.time(), 3),
-                     "step": self._step_count, "delta": delta})
+            if delta or memory:
+                entry = {"ts": round(time.time(), 3),
+                         "step": self._step_count, "delta": delta}
+                if memory:
+                    entry["memory"] = memory
+                self._metrics_deltas.append(entry)
 
     def on_degradation(self, component: str, stalled_for: float,
                        threads: List[str]):
@@ -401,11 +413,41 @@ def render_dump(doc: dict, max_steps: int = 32,
             # into span exports / logs, not just another payload field
             tid = ev.get("trace_id")
             trace_note = f"  [trace {tid}]" if tid else ""
+            if ev.get("kind") == "oom":
+                lines.append(f"  {ev.get('ts')}  oom  "
+                             f"where={ev.get('where')}{trace_note} "
+                             "(see OOM forensics below)")
+                continue
             extra = {k: v for k, v in ev.items()
                      if k not in ("ts", "kind", "trace_id")}
             lines.append(f"  {ev.get('ts')}  {ev.get('kind')}"
                          + (f"  {extra}" if extra else "")
                          + trace_note)
+    oom = next((ev for ev in reversed(events)
+                if ev.get("kind") == "oom"), None)
+    if oom is not None:
+        lines.append("")
+        lines.append(f"OOM forensics — where: {oom.get('where')}")
+        lines.append(f"  error: {oom.get('error')}")
+        static = oom.get("static") or {}
+        for key in ("params_bytes", "updater_bytes",
+                    "activation_peak_bytes", "live_bytes"):
+            v = static.get(key)
+            if isinstance(v, (int, float)):
+                lines.append(f"  {key}: {v / 2**20:.2f} MiB")
+        la = static.get("largest_activation")
+        if la:
+            lines.append(f"  largest static activation: shape "
+                         f"{la.get('shape')} {la.get('dtype')} "
+                         f"({la.get('bytes', 0) / 2**20:.2f} MiB)")
+        top = oom.get("top_buffers") or []
+        if top:
+            lines.append(f"  largest live buffers ({len(top)}):")
+            for b in top:
+                lines.append(
+                    f"    {b.get('nbytes', 0) / 2**20:9.2f} MiB  "
+                    f"{b.get('dtype')}{list(b.get('shape') or ())}"
+                    f" {b.get('device', '')}")
     # numerical-resilience trail (train/sentinel + checkpoint
     # integrity): one summary block so a dump answers "did this run
     # fight divergence / corruption, and how did that end" at a glance

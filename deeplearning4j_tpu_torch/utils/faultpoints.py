@@ -103,9 +103,9 @@ class FaultInjected(RuntimeError):
 class InjectedOOM(FaultInjected):
     """An `oom`-kind fault: a FaultInjected whose message carries the
     RESOURCE_EXHAUSTED marker, the port's own stand-in for a device
-    allocator failure: it unwinds the fit loop as a real one would. The
-    OOM forensics the JAX package runs on it (utils/devprof) are not
-    ported yet."""
+    allocator failure: it unwinds the fit loop (or fails a serving
+    forward) as a real one would, and takes the same OOM-forensics path
+    (utils/devprof.is_oom / oom_forensics)."""
 
     def __init__(self, point: str, invocation: int):
         super().__init__(

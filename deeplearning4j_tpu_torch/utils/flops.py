@@ -1,10 +1,15 @@
 """FLOP accounting for MFU reporting, the port of the JAX package's
 utils/flops.py.
 
-The per-layer estimator (2·MACs forward, × 3 for an optimizer step) is
-conf arithmetic and is copied here onto the port's conf classes; the
-JAX package's jaxpr cost model (analysis/costmodel.py) is not ported, so
-every number here carries `flops_source == "analytic"`.
+`train_step_flops_for(net, batch)` is the one entry point: it traces the
+net's optimizer step with the step cost model (analysis/costmodel.py, on
+fake tensors with helpers off) and returns the MXU-family FLOPs the step
+really runs (source `"costmodel"`). The hand-written per-layer estimator
+— 2·MACs forward × 3 for the step, conf arithmetic copied onto the
+port's conf classes — is the fallback for nets the cost model cannot
+trace (no InputType on the conf) and the cheap lazy default the fit
+loop's devprof sampling starts from (source `"analytic"`); every
+surfaced number carries its `flops_source`.
 Elementwise/normalization work stays out of the MFU numerator, as in the
 JAX package (bandwidth-, not FLOPs-bound; keeps MFU comparable across
 frameworks).
@@ -19,6 +24,7 @@ the lookups return None unless an environment override names a figure.
 
 from __future__ import annotations
 
+import logging
 import os
 from typing import Optional, Tuple
 
@@ -28,6 +34,8 @@ from deeplearning4j_tpu_torch.nn.conf.graph import (
     LayerVertex,
 )
 from deeplearning4j_tpu_torch.nn.conf.inputs import RecurrentInput
+
+logger = logging.getLogger("deeplearning4j_tpu_torch")
 
 # NVIDIA H100 data sheet: dense bf16 tensor-core peak and HBM bandwidth
 # of the SXM card (the one nvidia-smi names "NVIDIA H100 80GB HBM3").
@@ -144,11 +152,25 @@ def analytic_step_flops_per_example(conf) -> Tuple[Optional[float], str]:
     return 3.0 * fwd, "analytic"
 
 
-def train_step_flops_for(net, batch: int, *, timesteps: int = 16
+def train_step_flops_for(net, batch: int, *, timesteps: int = 16,
+                         prefer_cost_model: bool = True
                          ) -> Tuple[Optional[float], str]:
-    """Model FLOPs of one of `net`'s optimizer steps at `batch`, as
-    `(flops, "analytic")`: the per-layer walk, with an unbounded
-    recurrent input priced at `timesteps` steps."""
+    """Model FLOPs of one of `net`'s optimizer steps at `batch` —
+    `(flops, source)` where source is `"costmodel"` (a trace of the real
+    step, MXU families only, helpers off: model FLOPs are
+    implementation-independent) or `"analytic"` (the per-layer walk,
+    with an unbounded recurrent input priced at `timesteps` steps)."""
+    if prefer_cost_model:
+        try:
+            from deeplearning4j_tpu_torch.analysis.costmodel import train_step_cost
+
+            cm = train_step_cost(net, batch_size=batch, timesteps=timesteps)
+            if cm.model_flops > 0:
+                return cm.model_flops, "costmodel"
+        except Exception:
+            logger.warning(
+                "cost-model FLOP trace failed; falling back to the "
+                "analytic per-layer estimate", exc_info=True)
     fwd = forward_flops(net.conf)
     if fwd is None or fwd <= 0:
         return None, "analytic"

@@ -9,8 +9,8 @@ utils/tenancy.py answers "who is this request"; this module answers
   covers the device work), and each step/forward's duration is split
   across the tenants it served (slots / rows), so weighted-fair
   scheduling becomes auditable SPEND, not just slot order. Training
-  windows come through `note_device_window`, whose caller (a sampled
-  device profiler) is not ported yet.
+  windows come through `note_device_window`, called by the sampled
+  device profiler (utils/devprof) with each measured window.
 * **device-resident bytes** — per-version decode weights (and, through
   `note_device_window`, a net's params + updater), keyed by source so a
   dropped weight version releases its bytes.
@@ -346,7 +346,7 @@ def note_device_window(net, dt: float, examples: int = 0) -> None:
     """A sampled training window: `dt` seconds of device time for `net`
     since the last sample, charged to the net's registered tenant
     (register_net) in the training tier. Also refreshes the net's
-    device-memory attribution from the byte sums a profiler caches on
+    device-memory attribution from the byte sums utils/devprof caches on
     the net (`_devprof_state`), when there are any."""
     m = _METER
     if m is None:

@@ -275,3 +275,78 @@ def test_dropout_world2_equals_world1(runs):
     for rec in dropout["world2"]:
         np.testing.assert_allclose(rec["scores"], one["scores"], rtol=RTOL, atol=ATOL)
         _assert_leaves(rec["params"], one["params"], "dropout param")
+
+
+# -- the line-search solvers under a data mesh ------------------------------------
+
+LS_ALGOS = ("line_gradient_descent", "conjugate_gradient", "lbfgs")
+LS_RTOL, LS_ATOL = 2e-5, 2e-6  # the sharded-step tolerance (JAX test_sharded_step.py)
+
+
+def _line_search_conf(algo):
+    return (NeuralNetConfiguration.builder().seed(4).optimization_algo(algo)
+            .learning_rate(0.5).weight_init("xavier").list()
+            .layer(DenseLayer(n_in=8, n_out=12, activation="tanh"))
+            .layer(OutputLayer(n_in=12, n_out=4, activation="softmax"))
+            .build())
+
+
+def _line_search_data():
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((64, 8)).astype(np.float32)
+    y = np.zeros((64, 4), np.float32)
+    y[np.arange(64), rng.integers(0, 4, 64)] = 1.0
+    return x, y
+
+
+@pytest.fixture(scope="module")
+def line_search_runs(tmp_path_factory):
+    return once(tmp_path_factory, "dp_line_search",
+                lambda: _line_search_runs(tmp_path_factory))
+
+
+def _line_search_runs(tmp_path_factory):
+    """Each algorithm: 3 epochs of one 64-row batch, on 2 gloo ranks (each
+    binds 32 rows), in this process without a mesh, and in the JAX package
+    on 2 of its virtual CPU devices."""
+    tmp = tmp_path_factory.mktemp("dpls")
+    data = _line_search_data()
+    kw = {"batch_size": 64, "epochs": 3, "prefetch": False}
+    cases, one, jx = {}, {}, {}
+    for algo in LS_ALGOS:
+        net = MultiLayerNetwork(_line_search_conf(algo)).init()
+        path = os.path.join(tmp, f"{algo}.zip")
+        jms.save_model(net, path)
+        cases[algo] = (path, data, kw)
+        one[algo] = W._fit_record(W._load(path), data, mesh=False, **kw)
+        net.set_mesh(data_parallel_mesh(jax.devices()[:2]))
+        tap = _Tap()
+        net.set_listeners(tap)
+        net.fit(*data, batch_size=64, epochs=3, async_prefetch=False)
+        jx[algo] = {"scores": tap.scores, "params": _jax_leaves(net.params_list)}
+    return one, jx, run_ranks(W.dp_cases, 2, cases)
+
+
+@pytest.mark.parametrize("algo", LS_ALGOS)
+def test_meshed_line_search_fit_matches_one_process(line_search_runs, algo):
+    """The repaired fault: a line-search fit under a two-rank data mesh
+    trains (it raised NotImplementedError before), every rank keeps the
+    same parameters, and they are the one-process fit's and the JAX
+    package's meshed fit's."""
+    one, jx, ranks = line_search_runs
+    for rec in ranks:
+        got = rec[algo]
+        assert got["iteration"] == one[algo]["iteration"] == 3
+        np.testing.assert_allclose(got["scores"], one[algo]["scores"],
+                                   rtol=LS_RTOL, atol=LS_ATOL)
+        for (k, a), (_, b) in zip(got["params"], one[algo]["params"]):
+            np.testing.assert_allclose(a, b, rtol=LS_RTOL, atol=LS_ATOL, err_msg=k)
+        np.testing.assert_allclose(got["scores"], jx[algo]["scores"],
+                                   rtol=LS_RTOL, atol=LS_ATOL)
+        assert [k for k, _ in got["params"]] == [k for k, _ in jx[algo]["params"]]
+        for (k, a), (_, b) in zip(got["params"], jx[algo]["params"]):
+            np.testing.assert_allclose(a, b, rtol=LS_RTOL, atol=LS_ATOL,
+                                       err_msg=f"{algo} vs JAX meshed {k}")
+    for (k, a), (_, b) in zip(ranks[1][algo]["params"], ranks[0][algo]["params"]):
+        np.testing.assert_array_equal(a, b, err_msg=k)
+    assert one[algo]["scores"][-1] < one[algo]["scores"][0]

@@ -20,6 +20,7 @@ from deeplearning4j_tpu.models import resnet as jresnet
 from deeplearning4j_tpu.nn.compgraph import ComputationGraph as JCG
 from deeplearning4j_tpu.ops import pallas_conv_bn as pcb
 from deeplearning4j_tpu.train.listeners import IterationListener as JListener
+from deeplearning4j_tpu_torch.analysis.kernelcoverage import conv_instances
 from deeplearning4j_tpu_torch.models import resnet as tresnet
 from deeplearning4j_tpu_torch.nn.compgraph import ComputationGraph as TCG
 from deeplearning4j_tpu_torch.nn.conf import layers as TL
@@ -134,15 +135,10 @@ def test_resnet50_routes_every_conv_to_k4_or_k5_and_fuses_33_relus():
     conf = tresnet.resnet50_conf(precision="bf16")
     net = TCG(conf, device="cpu")
     fams = {}
-    for lc in net._layer_confs:
-        if isinstance(lc, TL.ConvolutionLayer):
-            d = fcb.conv_decision(
-                kernel=tuple(lc.kernel_size), stride=tuple(lc.stride),
-                dilation=tuple(lc.dilation), same=lc.convolution_mode == "same",
-                has_bias=lc.has_bias, activation=lc.activation,
-                dtype=torch.bfloat16, training=True)
-            assert d["status"] == "covered", d
-            fams[d["family"]] = fams.get(d["family"], 0) + 1
+    for _, ctx in conv_instances(conf, batch=128):
+        d = fcb.conv_decision(dtype=torch.bfloat16, **ctx)
+        assert d["status"] == "covered", d
+        fams[d["family"]] = fams.get(d["family"], 0) + 1
     # stages 1-3 enter with stride 2 on the 3x3 and the projection
     assert fams == {"conv1x1": 33, "conv1x1s2": 3, "conv3x3": 13, "conv3x3s2": 3,
                     "conv7x7s2": 1}  # K4: 36, K5: 17

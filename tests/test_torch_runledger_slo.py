@@ -190,9 +190,29 @@ def test_rule_serde_roundtrip_and_validation():
 
 
 def test_default_rule_pack_refuses_a_cost_model():
-    """The cost-model rules wait for analysis/costmodel.py: the argument
-    is refused, never ignored."""
-    with pytest.raises(NotImplementedError, match="costmodel"):
+    """The cost-model rules, since analysis/costmodel.py is ported: a step
+    cost model gives the MFU-below-roofline drift rule at its ceiling (the
+    JAX package's test_default_rule_pack_from_cost_model), and the
+    residency rule only where the card's memory is known. The argument
+    is still never ignored: something that is not a cost model raises."""
+    from deeplearning4j_tpu_torch.analysis.costmodel import train_step_cost
+    from deeplearning4j_tpu_torch.nn.conf import InputType
+    from deeplearning4j_tpu_torch.utils.flops import peak_hbm_bytes_per_chip
+
+    conf = (NeuralNetConfiguration.builder().seed(7).updater(Updater.SGD)
+            .learning_rate(0.05).weight_init("xavier").list()
+            .layer(DenseLayer(n_in=N_IN, n_out=8, activation="tanh"))
+            .layer(OutputLayer(n_in=8, n_out=3, activation="softmax", loss="mcxent"))
+            .set_input_type(InputType.feed_forward(N_IN)).build())
+    cm = train_step_cost(MultiLayerNetwork(conf, device="cpu").init(), batch_size=2)
+    by_name = {r.name: r for r in slo.default_rule_pack(cost_model=cm)}
+    mfu = by_name["mfu_below_roofline"]
+    assert mfu.kind == "drift" and mfu.op == "<" and mfu.frac == 0.5
+    assert mfu.reference == pytest.approx(cm.roofline()["mfu_ceiling"])
+    assert mfu.reference_source == "costmodel:mfu_ceiling"
+    if peak_hbm_bytes_per_chip() is None:  # off the GPU: no budget
+        assert "hbm_residency" not in by_name
+    with pytest.raises(AttributeError):
         slo.default_rule_pack(cost_model=object())
 
 

@@ -289,6 +289,17 @@ def test_graph_rides_the_sharded_step(surface):
     _leaves_equal(rec["params"], surface[1]["graph"]["params"])
 
 
+def test_a_lone_noncontiguous_gradient_is_reduced():
+    """A gradient leaf in a bucket of its own that is not contiguous (a
+    conv weight's gradient from cuDNN through the HWIO view) goes through
+    a flat buffer: a collective takes only contiguous tensors."""
+    for rec in run_ranks(W.noncontiguous_reduce, 2):
+        assert rec["contiguous"] and all(rec["contiguous"])
+        assert rec["score"] == 3.0
+        for name, g in rec["grads"]:
+            np.testing.assert_array_equal(g, np.full_like(g, 3.0), err_msg=name)
+
+
 def test_world1_mesh_issues_no_collective():
     """A world-1 meshed fit (no process group) books 0 bytes and issues no
     collective, as the JAX package does at one shard."""

@@ -169,6 +169,45 @@ def bucket_bit_check(rank, world, zip_path, data):
             for bb in (0, 512)}
 
 
+def noncontiguous_reduce(rank, world):
+    """MeshPlan.reduce_grads with every leaf in a bucket of its own and one
+    leaf a transposed view (what a cuDNN conv's weight gradient is through
+    the HWIO layout): every rank gets the sum. Rank r's gradients are all
+    r + 1."""
+    from deeplearning4j_tpu_torch.nn.conf import (
+        DenseLayer,
+        NeuralNetConfiguration,
+        OutputLayer,
+    )
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+
+    conf = (NeuralNetConfiguration.builder().seed(3).list()
+            .layer(DenseLayer(n_in=6, n_out=5, activation="tanh"))
+            .layer(OutputLayer(n_in=5, n_out=3, activation="softmax")).build())
+    net = MultiLayerNetwork(conf, device="cpu").init()
+    net.set_mesh(bucket_bytes=1)
+    grads = [{k: torch.full_like(v, rank + 1.0) for k, v in p.items()}
+             for p in net.params_list]
+    # the output layer's W: a bucket of its own that the score does not
+    # ride in (the buckets run from the last leaf to the first)
+    grads[1]["W"] = torch.full((3, 5), rank + 1.0).t()
+    assert not grads[1]["W"].is_contiguous()
+    import torch.distributed as dist
+
+    seen, real = [], dist.all_reduce
+
+    def spy(t, *a, **k):  # NCCL refuses a tensor that is not contiguous
+        seen.append(t.is_contiguous())
+        return real(t, *a, **k)
+
+    dist.all_reduce = spy
+    try:
+        out, score = net._mesh_plan.reduce_grads(net, grads, torch.tensor(rank + 1.0))
+    finally:
+        dist.all_reduce = real
+    return {"grads": _leaves(out), "score": float(score), "contiguous": seen}
+
+
 # -- the sharded step's surface -----------------------------------------------------
 
 
