@@ -330,6 +330,31 @@ result lines:
    ResNet-50 steps and 2 char-LSTM batches, write_profile_json: K1, K3 and
    K4-K8 named by family, each with its cost-model bound. Phase 15's
    numbers are a JSON line before the last three.
+16. The training UI and the clustering stack (ui/, clustering/,
+   serving/knnserver.py, keras_backend.py; in `_ui_smoke/`, removed at
+   the end). 16a: phase 6's ResNet-50 (bf16, b128) for 8 steps with
+   collect_stats and StatsListener(frequency=1, 20-bin histograms every
+   4th report) through RemoteUIStatsStorageRouter into a UIServer over a
+   FileStatsStorage: each record's score is the fit's own, the mean
+   magnitudes cover every parameter leaf, histogram counts sum to each
+   leaf's size, device0's memory and the card's name are there, K4-K8
+   launch in every step, every data route answers 200, the file read
+   cold equals the server's records; step p50 with the listener and
+   without it, and the device-to-host copies of one report step (at most
+   UI_D2H_MAX). 16b: VGG16 bf16 b32, 3 steps with
+   ConvolutionalIterationListener: the dashboard's activation grid
+   within CONV_UI_ATOL of the CPU's f32 grid from the same parameters and
+   batch. 16c: KerasBackendServer /fit with the published VGG16 widths
+   (32 examples as .npy, batch 16, one epoch) and /evaluate. 16d: 100,000
+   x 300 f32 "word vectors" (100 Gaussian clusters) on the card: k-means
+   (k=100, euclidean and cosine) whose first Lloyd step matches the CPU's
+   from the same centres and whose two runs are bit-equal; t-SNE's P
+   against the CPU's, card and CPU kl_ from the same y0 at n=2,000, and
+   the wall at n=10,000 (1000 iterations); the k-NN server's cosine (flat
+   device) and euclidean (host tree) arms under 16 clients, every answer
+   equal to the CPU's brute force bar ties; the dashboard's /tsne/compute
+   on 2,000 vectors. Phase 16's numbers are a JSON line before the last
+   three.
 The last three lines of standard output are the kernels JSON line, the
 card line, and {"ok": true, "device": {...}}. Imports nothing of JAX.
 """
@@ -6860,6 +6885,573 @@ def observability_summary(p15, card) -> dict:
             "15d_device_ms": {n: p["device_ms"] for n, p in p15["profile"].items()},
             "seconds": p15["seconds"]}
 
+# -- 16: the training UI and the clustering stack ----------------------------
+
+UI_DIR = os.path.join(HERE, "_ui_smoke")
+UI_STEPS = 8               # 16a: ResNet-50 steps under StatsListener (2 batches x 4 epochs)
+UI_HIST_BINS, UI_HIST_EVERY = 20, 4
+UI_D2H_MAX = 5             # 16a: device-to-host copies of one report step without histograms
+UI_DATA_ROUTES = ("/train/overview/data", "/train/histogram/data", "/train/activations/data",
+                  "/train/model/data", "/train/model/graph", "/train/flow/data",
+                  "/train/system/data", "/train/alerts/data", "/train/tsne/data",
+                  "/train/sessions/current", "/train/sessions/all")
+CONV_UI_BATCH, CONV_UI_STEPS = 32, 3   # 16b: VGG16 bf16
+CONV_UI_ATOL = 1e-2        # 16b: the card's bf16 grid against the CPU's f32 one, in [0, 1]
+KERAS_UI_N, KERAS_UI_BATCH = 32, 16    # 16c: /fit examples and batch size
+WORDS_N, WORDS_DIM, WORDS_K = 100_000, 300, 100   # 16d: word2vec's width, 100 clusters
+WORDS_SIGMA = 0.5          # each cluster's spread about its N(0, 1) centre
+KM_ITERS = 50
+KM_CENTRE_TOL = 1e-4       # first Lloyd step, card vs CPU, of the centres' largest entry
+KM_TIE = 1e-5              # a row's best two distances "within rounding": relative gap
+TSNE_N, TSNE_PERPLEXITY, TSNE_ITERS = 10_000, 30.0, 1000
+TSNE_HOLD_N, TSNE_HOLD_ITERS = 2_000, 1000  # card against CPU, the same y0
+TSNE_P_ATOL = 1e-5         # conditional P after the search, card vs CPU
+TSNE_KL_RTOL = 0.05
+TSNE_UI_N = 2_000          # /tsne/compute's vectors
+KNN_CLIENTS, KNN_K = 16, 10
+KNN_POOL = 64              # distinct /knn indices and /knnvector vectors in each arm
+# of each route, per arm; the host tree visits most points in 300
+# dimensions (0.4 s a query under 16 clients on the H100), so
+# its arm is cut to 32 of each
+KNN_REQUESTS = {"cosinesimilarity": 512, "euclidean": 32}
+KNN_TIE = 1e-6
+
+
+def one_step_d2h(torch, net, ds, ExistingDataSetIterator, listeners):
+    """One fit step with `listeners` under the profiler: its device-to-host
+    copies, and its kernel launches by the port's kernel families."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from deeplearning4j_tpu_torch.utils.profiler import op_family
+
+    net.set_listeners(*listeners)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        net.fit(ExistingDataSetIterator([ds]), async_prefetch=False)
+        torch.cuda.synchronize()
+    net.set_listeners()
+    events = prof.key_averages()
+    fams = collections.Counter()
+    for e in events:
+        if op_family(e.key).startswith("K"):
+            fams[op_family(e.key)] += e.count
+    return int(sum(e.count for e in events if "Memcpy DtoH" in e.key)), dict(fams)
+
+
+def stats_listener_phase(torch, F, counts, storage, port, seed, card):
+    """16a: ResNet-50 bf16 b128 with StatsListener through the remote
+    router into the UIServer on `port`, over the FileStatsStorage
+    `storage`."""
+    from deeplearning4j_tpu_torch.data import DataSet, ExistingDataSetIterator
+    from deeplearning4j_tpu_torch.models.resnet import resnet50_network
+    from deeplearning4j_tpu_torch.train.listeners import IterationListener
+    from deeplearning4j_tpu_torch.ui import (FileStatsStorage, InMemoryStatsStorage,
+                                             RemoteUIStatsStorageRouter, StatsListener)
+
+    class Steps(IterationListener):
+        """The fit's own scores, each step's K4-K8 launches, synced step times."""
+
+        def __init__(self):
+            self.scores, self.launches, self.times = [], [], [time.perf_counter()]
+            self.last = counts.read()
+
+        def iteration_done(self, model, iteration, info):
+            torch.cuda.synchronize()
+            self.times.append(time.perf_counter())
+            self.scores.append(float(info["score"]()))
+            now = counts.read()
+            self.launches.append({k: now.get(k, 0) - self.last.get(k, 0) for k in now})
+            self.last = now
+
+    out = {}
+    net = resnet50_network(precision="bf16", seed=seed, learning_rate=RESNET_LR)
+    net.set_collect_stats(True)
+    n_leaves = sum(len(p) for p in net.params_list)
+    data = resnet_batches(torch, F, DataSet, seed + 161, 2, RESNET_BATCH)
+    per = resnet_per_step(RESNET_BATCH)
+    path = storage.path
+    router = RemoteUIStatsStorageRouter(f"http://127.0.0.1:{port}")
+    sid = "resnet50-ui"
+    try:
+        lst = StatsListener(router, session_id=sid, frequency=1, histogram_bins=UI_HIST_BINS,
+                            histogram_frequency=UI_HIST_EVERY)
+        with_l = Steps()
+        net.set_listeners(lst, with_l)
+        net.fit(ExistingDataSetIterator(data), epochs=UI_STEPS // len(data),
+                async_prefetch=False)
+        router.flush(timeout=60.0)
+        without = Steps()
+        net.set_listeners(without)
+        net.fit(ExistingDataSetIterator(data), epochs=UI_STEPS // len(data),
+                async_prefetch=False)
+        net.set_listeners()
+        ups = storage.get_updates(sid)
+        static = storage.get_static_info(sid) or {}
+        check(len(ups) == UI_STEPS == len(with_l.scores),
+              f"16a: {len(ups)} records for {len(with_l.scores)} steps")
+        keys = {f"{li}_{n}" for li, p in enumerate(net.params_list) for n in p}
+        for u, score, ln in zip(ups, with_l.scores, with_l.launches):
+            check(u["score"] == score, f"16a: record score {u['score']} != the fit's {score}")
+            for g in ("grad_mm", "update_mm", "param_mm"):
+                check(set(u[g]) == keys, f"16a: {g} covers {len(u[g])} of {len(keys)} leaves")
+            check(u.get("memory", {}).get("device0", {}).get("bytes_in_use", 0) > 0,
+                  f"16a: memory {u.get('memory')}")
+            for k in ("conv1x1_stats", "conv_kxk_stats", "bn_apply", "bn_backward_reduce",
+                      "bn_backward_apply"):
+                check(ln.get(k, 0) == per[k] > 0,
+                      f"16a: a step launched {k} {ln.get(k, 0)} times, expected {per[k]}")
+        sizes = {f"{li}_{n}": v.numel() for li, p in enumerate(net.params_list)
+                 for n, v in p.items()}
+        hist_its = [u["iteration"] for u in ups if "hists" in u]
+        check(len(hist_its) == UI_STEPS // UI_HIST_EVERY, f"16a: histograms at {hist_its}")
+        for u in ups:
+            for k, h in u.get("hists", {}).items():
+                check(sum(h["counts"]) == sizes[k] and len(h["edges"]) == UI_HIST_BINS + 1,
+                      f"16a: {k}'s histogram counts {sum(h['counts'])} of {sizes[k]}")
+        check(static.get("device") == torch.cuda.get_device_name(0)
+              and static.get("backend") == "cuda", f"16a: static {static.get('device')}")
+        codes = {}
+        for route in UI_DATA_ROUTES:
+            import urllib.request
+
+            with urllib.request.urlopen(f"http://127.0.0.1:{port}{route}", timeout=60) as r:
+                json.loads(r.read())
+                codes[route] = r.status
+        check(all(c == 200 for c in codes.values()), f"16a: routes {codes}")
+        cold = FileStatsStorage(path)
+        check(cold.get_updates(sid) == ups and cold.get_static_info(sid) == static,
+              "16a: the stats file read cold differs from the server's records")
+        step_with = np.diff(with_l.times)[1:]
+        step_without = np.diff(without.times)[1:]
+        out.update(
+            steps=UI_STEPS, leaves=n_leaves, records=len(ups), histogram_iterations=hist_its,
+            per_step_launches={k: with_l.launches[-1].get(k, 0) for k in per},
+            step_p50_ms_with_listener=float(np.median(step_with)) * 1e3,
+            step_p50_ms_without=float(np.median(step_without)) * 1e3,
+            step_ms_with_listener=[float(s) * 1e3 for s in np.diff(with_l.times)],
+            step_ms_without=[float(s) * 1e3 for s in np.diff(without.times)],
+            file_bytes=os.path.getsize(path), routes=codes)
+        # the copies one report step makes, against a step with no listener
+        mem = InMemoryStatsStorage()
+        out["d2h_no_listener"], _ = one_step_d2h(torch, net, data[0],
+                                                 ExistingDataSetIterator, [])
+        out["d2h_report"], fams = one_step_d2h(
+            torch, net, data[0], ExistingDataSetIterator,
+            [StatsListener(mem, session_id="p", histogram_bins=0, report_memory=True)])
+        out["d2h_report_histograms"], _ = one_step_d2h(
+            torch, net, data[0], ExistingDataSetIterator,
+            [StatsListener(mem, session_id="q", histogram_bins=UI_HIST_BINS)])
+        out["profiled_report_step_kernels"] = fams
+        check(all(fams.get(f, 0) > 0 for f in OBS_KERNEL_FAMILIES),
+              f"16a: the profiled report step ran kernels {fams}")
+        check(out["d2h_report"] <= UI_D2H_MAX,
+              f"16a: a report step made {out['d2h_report']} device-to-host copies "
+              f"(at most {UI_D2H_MAX}, where a read per leaf would make {3 * n_leaves})")
+        print(f"  16a: ResNet-50 bf16 b{RESNET_BATCH}, {UI_STEPS} steps, StatsListener(frequency=1,"
+              f" histograms of {UI_HIST_BINS} bins every {UI_HIST_EVERY}th report) -> remote "
+              f"router -> UIServer over a FileStatsStorage ({out['file_bytes']} bytes): every "
+              f"record's score is the fit's, mm groups cover all {n_leaves} leaves, histogram "
+              f"counts sum to each leaf's size, device0 in use "
+              f"{ups[-1].get('memory', {}).get('device0', {}).get('bytes_in_use', 0) / 2**30:.2f}"
+              f" GiB, static device "
+              f"{static['device']!r}; K4-K8 a step {out['per_step_launches']}; {len(codes)} data "
+              f"routes 200; the cold file equals the server's records")
+        print(f"  16a: step p50 synced, collect_stats on: {out['step_p50_ms_with_listener']:.2f} ms"
+              f" with the listener (histogram steps included), {out['step_p50_ms_without']:.2f} "
+              f"ms without; device-to-host copies in one step: {out['d2h_no_listener']} without a "
+              f"listener, {out['d2h_report']} with a report, {out['d2h_report_histograms']} with "
+              f"a report and histograms; the profiled report step's kernels {fams}, on {card}")
+    finally:
+        router.close()
+    del net, data
+    torch.cuda.empty_cache()
+    return out
+
+
+def conv_listener_phase(torch, F, seed, card):
+    """16b: ConvolutionalIterationListener on VGG16 bf16, the grid held
+    to the same grid computed on the CPU in f32 from the same parameters
+    and batch."""
+    from deeplearning4j_tpu_torch.data import DataSet, ExistingDataSetIterator
+    from deeplearning4j_tpu_torch.models.vgg16 import vgg16_network
+    from deeplearning4j_tpu_torch.ui import (ConvolutionalIterationListener,
+                                             InMemoryStatsStorage, UIServer)
+
+    net = vgg16_network(image_size=PHASE9_IMAGE, seed=seed)
+    data = vgg_batches(torch, F, DataSet, seed + 162, CONV_UI_STEPS, CONV_UI_BATCH, 1000)
+    storage = InMemoryStatsStorage()
+    lst = ConvolutionalIterationListener(storage, "vgg16-acts", frequency=1)
+    net.set_listeners(lst)
+    t0 = time.perf_counter()
+    net.fit(ExistingDataSetIterator(data), async_prefetch=False)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    net.set_listeners()
+    server = UIServer(storage, port=0)
+    port = server.start()
+    try:
+        import urllib.request
+
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/train/activations/data",
+                                    timeout=60) as r:
+            d = json.loads(r.read())
+    finally:
+        server.stop()
+    grid = np.asarray(d["activations"]["channels"], np.float64)
+    check(d["iteration"] == CONV_UI_STEPS - 1 and grid.ndim == 3 and grid.shape[0] <= 12
+          and max(grid.shape[1:]) <= 24 and grid.min() >= 0.0 and grid.max() <= 1.0,
+          f"16b: activation grid {grid.shape} in [{grid.min()}, {grid.max()}]")
+    # the same grid on the CPU: the first conv layer's parameters after the
+    # last step, the last batch, in f32
+    cpu = vgg16_network(image_size=PHASE9_IMAGE, precision="f32", seed=seed, device="cpu")
+    ci = d["activations"]["layer"]
+    cpu.params_list[ci] = {k: v.detach().float().cpu() for k, v in net.params_list[ci].items()}
+    ref = InMemoryStatsStorage()
+    ds = data[-1]
+    ConvolutionalIterationListener(ref, "cpu", frequency=1).iteration_done(
+        cpu, CONV_UI_STEPS - 1, {"batch": lambda: DataSet(ds.features[:1].float().cpu(),
+                                                          ds.labels[:1].cpu())})
+    want = np.asarray(ref.get_updates("cpu")[0]["activations"]["channels"], np.float64)
+    err = float(np.abs(grid - want).max())
+    check(grid.shape == want.shape and err <= CONV_UI_ATOL,
+          f"16b: the card's grid is {err:.2e} from the CPU's (at most {CONV_UI_ATOL})")
+    print(f"  16b: VGG16 bf16 b{CONV_UI_BATCH}, {CONV_UI_STEPS} steps ({wall:.2f} s) with "
+          f"ConvolutionalIterationListener(frequency=1): /train/activations/data holds "
+          f"{grid.shape[0]} channels of {grid.shape[1]}x{grid.shape[2]} from layer {ci} in "
+          f"[0, 1], {err:.2e} from the CPU's f32 grid (at most {CONV_UI_ATOL}) on {card}")
+    del net, cpu, data
+    torch.cuda.empty_cache()
+    return {"channels": grid.shape[0], "hw": list(grid.shape[1:]), "max_abs_vs_cpu": err,
+            "fit_seconds": wall}
+
+
+def keras_backend_phase(torch, seed, card):
+    """16c: KerasBackendServer /fit and /evaluate with the published VGG16
+    widths."""
+    from deeplearning4j_tpu_torch.keras_backend import KerasBackendServer
+    from deeplearning4j_tpu_torch.models.vgg16 import vgg16_keras_config
+
+    rng = np.random.default_rng(seed + 163)
+    x = rng.standard_normal((KERAS_UI_N, PHASE9_IMAGE, PHASE9_IMAGE, 3), np.float32)
+    y = np.eye(1000, dtype=np.float32)[rng.integers(0, 1000, KERAS_UI_N)]
+    xp, yp = os.path.join(UI_DIR, "x.npy"), os.path.join(UI_DIR, "y.npy")
+    np.save(xp, x)
+    np.save(yp, y)
+    server = KerasBackendServer(port=0)
+    port = server.start()
+    try:
+        t0 = time.perf_counter()
+        code, body = post_json(f"http://127.0.0.1:{port}/fit", {
+            "model_config": vgg16_keras_config(1000, PHASE9_IMAGE), "features_path": xp,
+            "labels_path": yp, "batch_size": KERAS_UI_BATCH, "nb_epoch": 1})
+        fit_s = time.perf_counter() - t0
+        fit = json.loads(body)
+        code_e, body_e = post_json(f"http://127.0.0.1:{port}/evaluate",
+                                   {"features_path": xp, "labels_path": yp})
+        ev = json.loads(body_e)
+        devices = {t.device.type for p in server._net.params_list for t in p.values()}
+        n_params = sum(t.numel() for p in server._net.params_list for t in p.values())
+        iters = server._net.iteration
+    finally:
+        server.stop()
+        server._net = None
+    check(code == 200 and math.isfinite(fit["score"]), f"16c: /fit {code} {fit}")
+    check(devices == {"cuda"} and iters == KERAS_UI_N // KERAS_UI_BATCH,
+          f"16c: the fitted net's parameters on {devices}, {iters} steps")
+    check(code_e == 200 and set(ev) == {"accuracy", "f1"}, f"16c: /evaluate {code_e} {ev}")
+    print(f"  16c: KerasBackendServer POST /fit with vgg16_keras_config(1000, {PHASE9_IMAGE}) "
+          f"({n_params / 1e6:.1f}M parameters, f32), {KERAS_UI_N} examples at batch "
+          f"{KERAS_UI_BATCH}, one epoch: {fit_s:.2f} s, score {fit['score']:.4f}; /evaluate "
+          f"{ev} on {card}")
+    torch.cuda.empty_cache()
+    return {"fit_seconds": fit_s, "score": fit["score"], "evaluate": ev, "params": n_params}
+
+
+def word_vectors(torch, seed):
+    """WORDS_N x WORDS_DIM f32 from a mixture of WORDS_K Gaussian clusters,
+    made on the card; the host copy is what the numpy entry points take."""
+    g = torch.Generator(device="cuda").manual_seed(seed + 164)
+    centres = torch.randn((WORDS_K, WORDS_DIM), generator=g, device="cuda")
+    lab = torch.randint(0, WORDS_K, (WORDS_N,), generator=g, device="cuda")
+    x = centres[lab] + WORDS_SIGMA * torch.randn((WORDS_N, WORDS_DIM), generator=g,
+                                                 device="cuda")
+    return x, x.cpu().numpy()
+
+
+def kmeans_phase(torch, x, points, seed, card):
+    from deeplearning4j_tpu_torch.clustering import KMeansClustering
+    from deeplearning4j_tpu_torch.clustering.distances import is_similarity, pairwise
+    from deeplearning4j_tpu_torch.clustering.kmeans import _lloyd_step
+
+    out = {}
+    cpu_pts = torch.from_numpy(points)
+    for dist in ("euclidean", "cosinesimilarity"):
+        km = KMeansClustering(WORDS_K, KM_ITERS, dist, seed=seed)
+        c0 = km._init_centers(x)
+        cc, ac, _ = _lloyd_step(x, c0, dist)
+        cr, ar, _ = _lloyd_step(cpu_pts, c0.cpu(), dist)
+        d = pairwise(cpu_pts, c0.cpu(), dist)
+        top2 = torch.topk(d, 2, dim=1, largest=is_similarity(dist)).values
+        tied = (top2[:, 0] - top2[:, 1]).abs() <= KM_TIE * top2[:, 0].abs().clamp_min(1.0)
+        diff = ac.cpu() != ar
+        cerr = float((cc.cpu() - cr).abs().max() / cr.abs().max())
+        check(bool((~diff | tied).all()) and cerr <= KM_CENTRE_TOL,
+              f"16d: {dist} first Lloyd step: {int(diff.sum())} assignments differ "
+              f"({int((diff & ~tied).sum())} not tied), centres {cerr:.2e} of the largest")
+        # ms a Lloyd step, by CUDA events over back-to-back steps
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        c = c0
+        torch.cuda.synchronize()
+        start.record()
+        for _ in range(20):
+            c, _, _ = _lloyd_step(x, c, dist)
+        end.record()
+        torch.cuda.synchronize()
+        step_ms = start.elapsed_time(end) / 20
+        runs = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            runs.append(KMeansClustering(WORDS_K, KM_ITERS, dist, seed=seed).apply_to(points))
+            runs[-1].wall = time.perf_counter() - t0
+        a, b = runs
+        check(np.array_equal(a.centers, b.centers) and np.array_equal(a.assignments, b.assignments)
+              and a.iterations == b.iterations,
+              f"16d: two {dist} k-means runs on the card differ")
+        out[dist] = {"lloyd_step_ms": step_ms, "iterations": a.iterations,
+                     "apply_seconds": [a.wall, b.wall], "first_step_differs": int(diff.sum()),
+                     "first_step_tied_rows": int(tied.sum()), "centre_rel_err": cerr}
+        print(f"  16d k-means {dist}, k={WORDS_K} on [{WORDS_N}, {WORDS_DIM}]: first Lloyd step "
+              f"card vs CPU from the same centres: {int(diff.sum())} assignments differ "
+              f"({int(tied.sum())} rows tied within {KM_TIE}), centres {cerr:.2e} of the "
+              f"largest; {step_ms:.3f} ms a Lloyd step; {a.iterations} iterations, "
+              f"apply_to {a.wall:.2f} / {b.wall:.2f} s, two runs bit-equal, on {card}")
+    return out
+
+
+def tsne_phase(torch, x, seed, card):
+    from deeplearning4j_tpu_torch.clustering import Tsne
+    from deeplearning4j_tpu_torch.clustering import tsne as tsne_mod
+
+    out = {}
+    # P of a TSNE_HOLD_N subset after the perplexity search, card vs CPU
+    sub = x[:TSNE_HOLD_N]
+    target = float(np.log2(TSNE_PERPLEXITY))
+    pc = tsne_mod._binary_search_beta(tsne_mod._pairwise_sq(sub),
+                                     torch.full((TSNE_HOLD_N,), target, device="cuda"))
+    sub_cpu = sub.cpu()
+    pr = tsne_mod._binary_search_beta(tsne_mod._pairwise_sq(sub_cpu),
+                                     torch.full((TSNE_HOLD_N,), target))
+    perr = float((pc.cpu() - pr).abs().max())
+    check(perr <= TSNE_P_ATOL, f"16d: t-SNE P card vs CPU {perr:.2e} (at most {TSNE_P_ATOL})")
+    # card and CPU from the same y0 at TSNE_HOLD_N
+    gen = torch.Generator().manual_seed(seed)
+    y0 = 1e-4 * torch.randn((TSNE_HOLD_N, 2), generator=gen)
+    kls = {}
+    for name, dev in (("card", "cuda"), ("cpu", "cpu")):
+        t = Tsne(perplexity=TSNE_PERPLEXITY, n_iter=TSNE_HOLD_ITERS, seed=seed, device=dev)
+        t0 = time.perf_counter()
+        t.fit_transform(sub_cpu.numpy(), y0=y0)
+        kls[name] = (t.kl_, time.perf_counter() - t0)
+    kl_rel = abs(kls["card"][0] - kls["cpu"][0]) / kls["cpu"][0]
+    check(kl_rel <= TSNE_KL_RTOL, f"16d: t-SNE at n={TSNE_HOLD_N}: kl_ card {kls['card'][0]} "
+          f"CPU {kls['cpu'][0]} ({kl_rel:.3f} apart, at most {TSNE_KL_RTOL})")
+    # the dashboard's scale on the card
+    big = x[:TSNE_N]
+    t = Tsne(perplexity=TSNE_PERPLEXITY, n_iter=TSNE_ITERS, seed=seed)
+    p_sym = tsne_mod._joint_probabilities(big, TSNE_PERPLEXITY)
+    yb0 = 1e-4 * torch.randn((TSNE_N, 2), generator=torch.Generator().manual_seed(seed))
+    kl0 = float(tsne_mod._kl_divergence(p_sym, yb0.to(big.device)))
+    del p_sym
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    emb = t.fit_transform(big.cpu().numpy(), y0=yb0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    check(emb.shape == (TSNE_N, 2) and np.isfinite(emb).all() and math.isfinite(t.kl_)
+          and t.kl_ < kl0, f"16d: t-SNE at n={TSNE_N}: kl_ {t.kl_} from {kl0}")
+    out.update(p_max_abs_err=perr, hold_n=TSNE_HOLD_N, hold_iters=TSNE_HOLD_ITERS,
+               kl_card=kls["card"][0], kl_cpu=kls["cpu"][0], kl_rel=kl_rel,
+               hold_seconds_card=kls["card"][1], hold_seconds_cpu=kls["cpu"][1],
+               n=TSNE_N, iters=TSNE_ITERS, wall_seconds=wall, kl=t.kl_, kl0=kl0,
+               peak_bytes=torch.cuda.max_memory_allocated())
+    print(f"  16d t-SNE: P after the perplexity search at n={TSNE_HOLD_N}, card vs CPU "
+          f"{perr:.2e} (at most {TSNE_P_ATOL}); {TSNE_HOLD_ITERS} iterations from the same y0: "
+          f"kl_ card {kls['card'][0]:.4f} ({kls['card'][1]:.2f} s), CPU {kls['cpu'][0]:.4f} "
+          f"({kls['cpu'][1]:.2f} s), {kl_rel:.3f} apart; n={TSNE_N}, perplexity "
+          f"{TSNE_PERPLEXITY:g}, {TSNE_ITERS} iterations: {wall:.2f} s wall, kl_ {t.kl_:.4f} "
+          f"(from {kl0:.4f}), peak {out['peak_bytes'] / 2**30:.2f} GiB, on {card}")
+    return out
+
+
+def knn_tolerance(ref_d, sq_norm_bound, distance):
+    """Per-entry tolerance of a server distance against the CPU's
+    brute-force one: rtol 1e-5, plus for euclidean the matmul form's
+    cancellation: ||q||^2 + ||p||^2 - 2 q.p is off by up to e2 = 4 eps
+    (||q||^2 + ||p||^2), and |sqrt(a) - sqrt(a - e2)| is at most
+    min(sqrt(e2), e2 / sqrt(a)), the reference distance being sqrt(a)."""
+    tol = 1e-5 * np.abs(ref_d) + 1e-6
+    if distance == "euclidean":
+        e2 = 4 * np.finfo(np.float32).eps * sq_norm_bound
+        tol = tol + np.minimum(np.sqrt(e2), e2 / np.maximum(ref_d, 1e-30))
+    return tol
+
+
+def knn_agrees(got, ref_idx, ref_d, sq_norm_bound, distance) -> tuple:
+    """(ok, tied positions): indices equal to the reference's except where
+    the reference ties (its k+1-th included), distances within
+    knn_tolerance."""
+    gi = np.array([r["index"] for r in got["results"]])
+    gd = np.array([r["distance"] for r in got["results"]])
+    k = len(gi)
+    if k != KNN_K:
+        return False, 0
+    tol = knn_tolerance(ref_d, sq_norm_bound, distance)
+    tie = np.zeros(k, bool)
+    for j in range(k):
+        # a tie within KNN_TIE, or within the comparison's own rounding
+        # (the host tree's distances against the CPU's matmul form)
+        within = max(KNN_TIE * max(1.0, abs(ref_d[j])), tol[j])
+        tie[j] = (np.abs(ref_d - ref_d[j]) <= within).sum() > 1
+    ok_idx = (gi == ref_idx[:k]) | tie
+    ok_d = np.abs(gd - ref_d[:k]) <= tol[:k]
+    return bool(ok_idx.all() and ok_d.all()), int(((gi != ref_idx[:k]) & tie).sum())
+
+
+def knn_phase(torch, points, seed, card):
+    from deeplearning4j_tpu_torch.clustering.distances import brute_force_knn
+    from deeplearning4j_tpu_torch.serving import NearestNeighborsServer
+
+    rng = np.random.default_rng(seed + 165)
+    idx_pool = rng.choice(WORDS_N, KNN_POOL, replace=False)
+    vec_pool = (points[rng.choice(WORDS_N, KNN_POOL, replace=False)]
+                + WORDS_SIGMA * rng.standard_normal((KNN_POOL, WORDS_DIM))).astype(np.float32)
+    queries = np.concatenate([points[idx_pool], vec_pool])
+    sq = float((points.astype(np.float64) ** 2).sum(axis=1).max()
+               + (queries.astype(np.float64) ** 2).sum(axis=1).max())
+    out = {}
+    for dist, n_req in KNN_REQUESTS.items():
+        t0 = time.perf_counter()
+        server = NearestNeighborsServer(points, dist, port=0)
+        build_s = time.perf_counter() - t0
+        port = server.start()
+        ri, rd = brute_force_knn(points, queries, KNN_K + 1, dist, device="cpu")
+        jobs = ([("/knn", {"k": KNN_K, "inputIndex": int(idx_pool[i % KNN_POOL])}, i % KNN_POOL)
+                 for i in range(n_req)]
+                + [("/knnvector", {"k": KNN_K, "vector": vec_pool[i % KNN_POOL].tolist()},
+                    KNN_POOL + i % KNN_POOL) for i in range(n_req)])
+        jobs = [jobs[i] for i in rng.permutation(len(jobs))]
+
+        def call(i):
+            route, payload, _ = jobs[i]
+            t = time.perf_counter()
+            code, body = post_json(f"http://127.0.0.1:{port}{route}", payload)
+            return code, json.loads(body), time.perf_counter() - t
+
+        try:
+            res, wall = run_clients(KNN_CLIENTS, jobs, call)
+        finally:
+            server.stop()
+        bad = [r for r in res if isinstance(r, Exception) or r[0] != 200]
+        check(not bad, f"16d: k-NN {dist}: {len(bad)} failed requests, e.g. {bad[:1]}")
+        ties, wrong = 0, []
+        for (route, _, q), (_, body, _) in zip(jobs, res):
+            ok, t = knn_agrees(body, ri[q], rd[q], sq, dist)
+            ties += t
+            if not ok:
+                wrong.append((route, q))
+        check(not wrong, f"16d: k-NN {dist}: {len(wrong)} answers differ from the CPU's brute "
+              f"force, e.g. {wrong[:3]}")
+        st = latency_stats([r[2] for r in res], wall, len(res))
+        st.update(build_seconds=build_s, tied_positions=ties,
+                  path="flat" if server.tree._points_dev is not None else "tree")
+        out[dist] = st
+        print(f"  16d k-NN server, {dist} ({st['path']} path, built in {build_s:.2f} s) over "
+              f"[{WORDS_N}, {WORDS_DIM}]: {KNN_CLIENTS} clients, {n_req} /knn + {n_req} "
+              f"/knnvector, k={KNN_K}: {st['requests_per_s']:.1f} requests/s, p50 "
+              f"{st['p50_ms']:.2f} ms, p99 {st['p99_ms']:.2f} ms; every answer equals the CPU's "
+              f"brute force ({ties} positions tied within {KNN_TIE}), on {card}")
+    return out
+
+
+def tsne_ui_phase(ui_port, points, card):
+    """The dashboard's /tsne/compute on TSNE_UI_N of the vectors."""
+    t0 = time.perf_counter()
+    code, body = post_json(f"http://127.0.0.1:{ui_port}/tsne/compute", {
+        "vectors": points[:TSNE_UI_N].tolist(),
+        "words": [f"w{i}" for i in range(TSNE_UI_N)]})
+    wall = time.perf_counter() - t0
+    d = json.loads(get_body(f"http://127.0.0.1:{ui_port}/tsne/data"))
+    check(code == 200 and len(d["coords"]) == TSNE_UI_N == len(d["words"])
+          and all(len(c) == 2 and math.isfinite(c[0]) and math.isfinite(c[1])
+                  for c in d["coords"]),
+          f"16d: /tsne/compute {code}, /tsne/data {len(d['coords'])} pairs")
+    print(f"  16d UIServer /tsne/compute on {TSNE_UI_N} vectors of {WORDS_DIM} (perplexity 20, "
+          f"300 iterations, the route's defaults): 200 in {wall:.2f} s; /tsne/data holds "
+          f"{len(d['coords'])} coordinate pairs, on {card}")
+    return {"seconds": wall, "pairs": len(d["coords"])}
+
+
+def ui_phase(torch, F, counts, seed, card):
+    """16: the training UI (StatsListener, the conv-activation listener,
+    the dashboard), the Keras backend entry point, and the clustering
+    stack (k-means, t-SNE, the k-NN server) on the card at full width."""
+    import shutil
+
+    from deeplearning4j_tpu_torch.ui import FileStatsStorage, UIServer
+
+    t_phase = time.perf_counter()
+    shutil.rmtree(UI_DIR, ignore_errors=True)
+    os.makedirs(UI_DIR)
+    counts.reset()
+    out = {}
+    server = UIServer(FileStatsStorage(os.path.join(UI_DIR, "stats.bin")), port=0)
+    port = server.start()
+    try:
+        out["stats_listener"] = stats_listener_phase(torch, F, counts, server.storage, port,
+                                                     seed, card)
+        out["conv_listener"] = conv_listener_phase(torch, F, seed, card)
+        out["keras_backend"] = keras_backend_phase(torch, seed, card)
+        x, points = word_vectors(torch, seed)
+        out["kmeans"] = kmeans_phase(torch, x, points, seed, card)
+        out["tsne"] = tsne_phase(torch, x, seed, card)
+        del x
+        torch.cuda.empty_cache()
+        out["knn"] = knn_phase(torch, points, seed, card)
+        out["tsne_ui"] = tsne_ui_phase(port, points, card)
+    finally:
+        server.stop()
+        shutil.rmtree(UI_DIR, ignore_errors=True)
+    torch.cuda.synchronize()
+    out["launches"] = counts.read()
+    for k in ("conv1x1_stats", "conv_kxk_stats", "bn_apply", "bn_backward_reduce",
+              "bn_backward_apply"):
+        check(out["launches"].get(k, 0) > 0, f"16: {k} launched {out['launches']}")
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"  16: launches {out['launches']}; {out['seconds']:.1f} s")
+    torch.cuda.empty_cache()
+    return out
+
+
+def ui_summary(p16, card) -> dict:
+    s = p16["stats_listener"]
+    return {"card": card,
+            "16a_stats_listener": {k: s[k] for k in (
+                "step_p50_ms_with_listener", "step_p50_ms_without", "d2h_no_listener",
+                "d2h_report", "d2h_report_histograms", "leaves", "records")},
+            "16b_conv_listener": p16["conv_listener"],
+            "16c_keras_backend": {k: p16["keras_backend"][k] for k in ("fit_seconds", "score")},
+            "16d_kmeans": {d: {k: r[k] for k in ("lloyd_step_ms", "iterations")}
+                           for d, r in p16["kmeans"].items()},
+            "16d_tsne": {k: p16["tsne"][k] for k in ("wall_seconds", "kl", "kl_card", "kl_cpu",
+                                                     "p_max_abs_err")},
+            "16d_knn": {d: {k: r[k] for k in ("requests_per_s", "p50_ms", "p99_ms", "path")}
+                        for d, r in p16["knn"].items()},
+            "16d_tsne_ui_seconds": p16["tsne_ui"]["seconds"],
+            "seconds": p16["seconds"]}
+
+
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -7044,6 +7636,12 @@ def main(argv=None) -> int:
     p15 = observability_phase(torch, F, fcb, helpers, cuda_build, counts, fu, args.seed,
                               card)
 
+    print("[16] the training UI and the clustering stack: StatsListener through the remote "
+          "router into the dashboard on ResNet-50, the conv-activation listener on VGG16, the "
+          "Keras backend server, k-means, t-SNE and the k-NN server at word2vec's width")
+    torch.cuda.empty_cache()
+    p16 = ui_phase(torch, F, counts, args.seed, card)
+
     # each main path's count, read just after it ran from zero
     by_path = {"output": sl["launches"], "serve": sv["launches"],
                "train": tr["launches"], "train_resnet": rn["launches"],
@@ -7059,7 +7657,7 @@ def main(argv=None) -> int:
                "serving_overload": p13["overload"]["launches"],
                "recsys": p14["launches"],
                "ledger_serving": p14["ledger_serving"]["launches"],
-               "observability": p15["launches"]}
+               "observability": p15["launches"], "ui": p16["launches"]}
     main_launches = {name: sum(c.get(name, 0) for c in by_path.values())
                      for name in rows}
     meta = {
@@ -7108,6 +7706,7 @@ def main(argv=None) -> int:
               "phase13": p13,
               "phase14": p14,
               "phase15": p15,
+              "phase16": p16,
               "build": {k: v["seconds"] for k, v in info.items()},
               "ptxas": {k: v["log"] for k, v in info.items() if k not in cuda_build.SOURCES},
               "seconds": time.perf_counter() - t_start}
@@ -7119,6 +7718,7 @@ def main(argv=None) -> int:
     print(json.dumps({"serving": serving_summary(p13, card)}))
     print(json.dumps({"recsys": recsys_summary(p14, card)}))
     print(json.dumps({"observability": observability_summary(p15, card)}))
+    print(json.dumps({"ui": ui_summary(p16, card)}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

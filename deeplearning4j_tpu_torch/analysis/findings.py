@@ -43,7 +43,8 @@ cost model (analysis/costmodel — static device cost of the train step):
 
 The JAX package's JX006 (undonated step buffers) has no counterpart in
 eager PyTorch (analysis/graph_audit), and its concurrency lint (CC*/CN*)
-is not ported yet.
+is not ported yet: it waits for analysis/lint.py and
+analysis/concurrency_audit.py.
 """
 
 from __future__ import annotations

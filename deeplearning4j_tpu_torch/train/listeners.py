@@ -243,8 +243,9 @@ class HealthTransitionListener(IterationListener):
     Cursor-based: each `iteration_done` drains transitions newer than
     the last seen sequence number and routes them as one update record
     (`{"health_transitions": [...]}`) through the same
-    StatsStorageRouter StatsListener uses; `on_fit_end` drains once more
-    so a transition during the final partial window still lands. With no
+    `ui/storage.StatsStorageRouter` that `ui/stats.StatsListener` uses;
+    `on_fit_end` drains once more so a transition during the final
+    partial window still lands. With no
     router it degrades to the package logger — degradations are never
     silent."""
 

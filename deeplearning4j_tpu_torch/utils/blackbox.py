@@ -38,8 +38,10 @@ right after the step; at snapshot time a score is resolved to a float
 only when that event's `query()` says the step has finished, else
 reported as "pending" — which is itself forensic signal (the last
 dispatched step never completed). The port of the JAX package's
-utils/blackbox.py; the resource-meter, lock-audit and OOM sections of
-its dumps wait for those modules.
+utils/blackbox.py, OOM forensics included; its dumps have no lock-audit
+section yet (utils/locktrace is not ported) and no resource-meter
+tenants section (utils/resourcemeter is ported, but the snapshot does
+not read it yet).
 """
 
 from __future__ import annotations

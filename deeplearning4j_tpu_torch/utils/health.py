@@ -20,7 +20,8 @@ forward. This module turns liveness into data:
   transition updates the `component_health{component}` gauge (0 ok / 1
   degraded / 2 unhealthy), bumps `watchdog_stall_total{component}` on
   entry to a stall episode, appends to a bounded transition history
-  (consumed by train/listeners.HealthTransitionListener and ui/stats),
+  (consumed by train/listeners.HealthTransitionListener and
+  ui/stats.StatsListener),
   and hands the first degradation of an episode to the flight recorder
   for a forensic snapshot.
 * `status()` is the aggregated health model serving's `GET /health`

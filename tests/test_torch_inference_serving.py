@@ -402,7 +402,14 @@ def _route_walk(server_cls, net, x, mesh=None):
     return rec
 
 
-def test_inference_server_routes(tmp_path):
+def test_inference_server_routes(tmp_path, monkeypatch):
+    from deeplearning4j_tpu.utils import resourcemeter as jrm
+    from deeplearning4j_tpu_torch.utils import resourcemeter as trm
+
+    # both packages unmetered, whatever an earlier test in this process
+    # armed: /tenants answers with the meter's state
+    monkeypatch.setattr(jrm, "_METER", None)
+    monkeypatch.setattr(trm, "_METER", None)
     jnet, tnet = mlp_pair(tmp_path)
     x = requests([3])[0]
     t = _route_walk(InferenceServer, tnet, x)

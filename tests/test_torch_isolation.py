@@ -79,6 +79,27 @@ def test_importing_every_port_module_loads_no_jax():
     assert bad == "[]", f"port imports pulled in {bad}"
 
 
+UI_AND_CLUSTERING = ("ui", "ui.codec", "ui.storage", "ui.stats", "ui.components",
+                     "ui.report", "ui.server", "clustering", "clustering.distances",
+                     "clustering.kmeans", "clustering.kdtree", "clustering.vptree",
+                     "clustering.tsne", "serving.knnserver", "keras_backend")
+
+
+def test_the_walk_reaches_the_ui_and_clustering_modules():
+    """The import walk above covers the training UI, the clustering
+    stack, the k-NN server and the Keras backend entry point; each module
+    stands under the JAX package's name."""
+    import pkgutil
+
+    import deeplearning4j_tpu_torch as pkg
+
+    names = {m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")}
+    for mod in UI_AND_CLUSTERING:
+        assert f"deeplearning4j_tpu_torch.{mod}" in names, mod
+        jax_path = os.path.join(ROOT, "deeplearning4j_tpu", *mod.split("."))
+        assert os.path.exists(jax_path + ".py") or os.path.isdir(jax_path), mod
+
+
 def test_the_port_opens_and_maps_no_file_of_the_jax_package():
     if shutil.which("g++") is None:
         pytest.skip("no C++ toolchain")
