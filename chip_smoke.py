@@ -355,6 +355,35 @@ result lines:
    equal to the CPU's brute force bar ties; the dashboard's /tsne/compute
    on 2,000 vectors. Phase 16's numbers are a JSON line before the last
    three.
+17. The operator CLI and the lock audit (cli.py, utils/locktrace.py,
+   analysis/lint.py, analysis/concurrency_audit.py, analysis/tracecrit.py;
+   in `_cli_smoke/`, removed at the end). 17a: the CLI's
+   inference-server (`cli.main(["inference-server", ...])` in a child,
+   this script with --child server) on phase 3's char-LSTM zip, phase
+   13a's traffic over HTTP: every /predict row within SLICE_ATOL of this
+   process's output() of the same zip, every /generate equal to the
+   greedy rnn_time_step loop; the child counts K1's and K2's launches
+   from its readiness (after its warm-ups) to SIGTERM, and `cli metrics
+   --url` reads the server's helper_hit_total for K1 and K2, a check
+   that both were reached; requests/s beside phase 13a's. 17b: a child started with
+   DL4J_LOCKCHECK=1 runs phase 8's graphed ResNet-50 (bf16, b128,
+   set_fused_steps(4)), phase 4's decode engine (8 slots, 24 requests,
+   one weight swap) and the lock audit's smoke (concurrency_audit.smoke)
+   with the sanitizer armed: the merged audit's CN names equal
+   deeplearning4j_tpu_torch/analysis/lock_baseline.txt, K2 and K4-K8
+   launch while armed, and the graphed step's and the decode step's p50
+   are taken armed and then unarmed in the same process. 17c: `cli
+   train` on LeNet over a CSV of synthetic digits, `cli evaluate` (equal
+   to the saved zip's own evaluation), and `cli resume` on a checkpoint
+   of two graphed ResNet-50 steps. 17d: `cli profile --preset resnet50`
+   over a utils.profiler.trace of two graphed steps names K4-K8 by family,
+   each with the bound of its own instances' work (the launches it prices
+   equal the capture's, and the kernel's time lies between the bound and
+   PROFILE_BOUND_RATIO times it); `cli perf --json` counts phase 15's
+   FLOPs. 17e: in a fresh child, `cli chaos` decode and divergence, twice
+   each with one seed: verdict ok, equal events, and `cli trace` renders
+   each export. Phase 17's numbers are a JSON line before the last
+   three.
 The last three lines of standard output are the kernels JSON line, the
 card line, and {"ok": true, "device": {...}}. Imports nothing of JAX.
 """
@@ -7453,16 +7482,590 @@ def ui_summary(p16, card) -> dict:
 
 
 
+# -- 17: the operator CLI and the lock audit -----------------------------------
+
+CLI_DIR = os.path.join(HERE, "_cli_smoke")
+CLI_SERVER_START = 300      # 17a: seconds for the CLI's server to load, warm up and listen
+LOCK_TIMED_STEPS = 32       # 17b: graphed ResNet-50 steps timed armed, then unarmed
+LOCK_FUSED_K = 4            # 17b: set_fused_steps
+LENET_CSV_ROWS = 1024       # 17c: synthetic 28x28 digits, one CSV row each
+CHILD_TIMEOUT = 600
+PROFILE_BOUND_RATIO = 20    # 17d: a kernel's time at most this many times its own bound
+K4_K8 = ("conv1x1_stats", "conv_kxk_stats", "bn_apply", "bn_backward_reduce",
+         "bn_backward_apply")
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def helper_hits(prom: str) -> dict:
+    """helper_hit_total by op, summed over helpers and families, from a
+    Prometheus text page."""
+    out = collections.Counter()
+    for line in prom.splitlines():
+        if line.startswith("helper_hit_total{") and 'op="' in line:
+            labels, value = line.rsplit(" ", 1)
+            out[labels.split('op="', 1)[1].split('"', 1)[0]] += float(value)
+    return dict(out)
+
+
+def run_port_cli(argv):
+    """The port's CLI in this process, its standard output captured:
+    (exit code, stdout)."""
+    import contextlib
+    import io
+
+    from deeplearning4j_tpu_torch.cli import main as cli_main
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli_main(list(argv))
+    return rc, buf.getvalue()
+
+
+def run_script_child(mode, seed, out, env_extra=None, timeout=CHILD_TIMEOUT) -> dict:
+    """This script again as `--child <mode>`; its JSON record."""
+    env = dict(os.environ, PYTHONPATH=HERE, **(env_extra or {}))
+    res = subprocess.run([sys.executable, os.path.join(HERE, "chip_smoke.py"),
+                          "--child", mode, "--seed", str(seed), "--out", out],
+                         cwd=HERE, env=env, capture_output=True, text=True,
+                         timeout=timeout)
+    for line in res.stdout.splitlines():
+        print(f"    | {line}")
+    check(res.returncode == 0,
+          f"17: the {mode} child exited {res.returncode}: {res.stderr[-3000:]}")
+    with open(out) as f:
+        return json.load(f)
+
+
+def resnet_data(torch, F, DataSet, seed, n):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    data = []
+    for _ in range(n):
+        x = torch.randn((RESNET_BATCH, 224, 224, 3), generator=g, device="cuda")
+        lab = torch.randint(0, 1000, (RESNET_BATCH,), generator=g, device="cuda")
+        data.append(DataSet(x, F.one_hot(lab, 1000).float()))
+    return data
+
+
+def cli_server_phase(torch, seed, card, p13):
+    """17a: the CLI's inference-server in a child process on phase 3's
+    char-LSTM zip, phase 13a's traffic over HTTP; the child counts the
+    kernels' launches from the moment it is ready, and `cli metrics --url`
+    reads the server's helper hits (a check that K1 and K2 were reached)."""
+    import signal
+    import threading
+
+    from deeplearning4j_tpu_torch.models.charlstm import char_lstm_network
+    from deeplearning4j_tpu_torch.utils.model_serializer import load_model, save_model
+
+    zpath = os.path.join(CLI_DIR, "charlstm.zip")
+    save_model(char_lstm_network(vocab_size=VOCAB, hidden=HIDDEN, layers=LAYERS, seed=seed),
+               zpath)
+    net = load_model(zpath)  # the reference: the zip the server loads, in this process
+    port = free_port()
+    base = f"http://127.0.0.1:{port}"
+    log_path = os.path.join(CLI_DIR, "server.log")
+    counts_path = os.path.join(CLI_DIR, "server_launches.json")
+    t0 = time.perf_counter()
+    with open(log_path, "w") as log:
+        proc = subprocess.Popen(
+            [sys.executable, os.path.join(HERE, "chip_smoke.py"), "--child", "server",
+             "--model-path", zpath, "--port", str(port), "--out", counts_path],
+            cwd=HERE, env=dict(os.environ, PYTHONPATH=HERE), stdout=log,
+            stderr=subprocess.STDOUT)
+
+    def log_tail():
+        with open(log_path) as f:
+            return f.read()[-3000:]
+
+    rc = None
+    try:
+        while not os.path.exists(counts_path + ".ready"):
+            if proc.poll() is not None or time.perf_counter() - t0 > CLI_SERVER_START:
+                raise SmokeFailure(f"17a: the CLI's server did not come up "
+                                   f"(exit {proc.poll()}): {log_tail()}")
+            time.sleep(0.5)
+        t_up = time.perf_counter() - t0
+        rng = np.random.default_rng(seed + 13)
+        sizes = request_sizes(rng, SERVE_PREDICTS)
+        tokens = [rng.integers(0, VOCAB, (n, SERVE_T)) for n in sizes]
+        eye = np.eye(VOCAB, dtype=np.int8)
+        grng = np.random.default_rng(seed + 1)
+        gens = [(grng.integers(0, VOCAB, size=int(grng.integers(1, 33))).tolist(),
+                 int(grng.integers(32, 65)), "a" if i % 4 else "b") for i in range(24)]
+        lat = {"predict": [None] * len(sizes), "generate": [None] * len(gens)}
+
+        def predict(i):
+            t = time.perf_counter()
+            status, raw = post_json(f"{base}/predict", {"features": eye[tokens[i]].tolist()})
+            lat["predict"][i] = time.perf_counter() - t
+            check(status == 200, f"17a: /predict answered {status}")
+            return np.asarray(json.loads(raw)["predictions"], np.float32)
+
+        def generate(i):
+            prompt, mx, tenant = gens[i]
+            t = time.perf_counter()
+            status, raw = post_json(f"{base}/generate", {"prompt": prompt, "max_tokens": mx},
+                                    headers={"X-Tenant": tenant})
+            lat["generate"][i] = time.perf_counter() - t
+            check(status == 200, f"17a: /generate answered {status}")
+            return json.loads(raw)["tokens"]
+
+        gen_res = {}
+        gen_thread = threading.Thread(
+            target=lambda: gen_res.update(zip(("out", "wall"), run_clients(
+                SERVE_GEN_CLIENTS, list(range(len(gens))), generate))),
+            name="smoke-cli-generate-clients", daemon=True)
+        gen_thread.start()
+        preds, wall = run_clients(SERVE_CLIENTS, list(range(len(sizes))), predict)
+        gen_thread.join(timeout=600)
+        check(not gen_thread.is_alive(), "17a: the /generate clients hung")
+        bad = [repr(o) for o in list(preds) + list(gen_res["out"]) if isinstance(o, Exception)]
+        check(not bad, f"17a: requests failed: {bad[:3]}")
+        pm = json.loads(get_body(f"{base}/metrics"))
+        prom_path = os.path.join(CLI_DIR, "metrics.prom")
+        rc, _ = run_port_cli(["metrics", "--url", base, "--format", "prometheus",
+                              "--output", prom_path])
+        check(rc == 0, f"17a: cli metrics --url exited {rc}")
+        with open(prom_path) as f:
+            hits = helper_hits(f.read())
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(60)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(30)
+    check(rc == 0 and os.path.exists(counts_path),
+          f"17a: the server child exited {rc} at SIGTERM: {log_tail()}")
+    with open(counts_path) as f:
+        launches = {k: v for k, v in json.load(f).items() if v}
+    h1, h2 = hits.get("lstm_sequence", 0.0), hits.get("lstm_decode_step", 0.0)
+    check(h1 > 0 and h2 > 0, f"17a: the server's helper_hit_total shows K1 {h1}, K2 {h2}")
+    k1, k2 = launches.get("lstm_sequence", 0), launches.get("lstm_step", 0)
+    check(k1 > 0 and k2 > 0 and set(launches) <= {"lstm_sequence", "lstm_step"},
+          f"17a: the server launched {launches} while it served")
+    check(pm["admitted"] == pm["completed"] == len(sizes) and pm["conservation_ok"],
+          f"17a: /predict books {pm}")
+    errs = []
+    for i, n in enumerate(sizes):
+        ref = net.output(np.eye(VOCAB, dtype=np.float32)[tokens[i]]).float().cpu().numpy()
+        errs.append(float(np.abs(preds[i] - ref).max()))
+    check(max(errs) <= SLICE_ATOL,
+          f"17a: a /predict row differs from in-process output() by {max(errs)} > {SLICE_ATOL}")
+    gen_out = gen_res["out"]
+    badg = [i for i, (p, mx, _) in enumerate(gens)
+            if gen_out[i] != greedy_reference(torch, net, p, mx)]
+    check(not badg, f"17a: /generate tokens differ from the greedy rnn_time_step loop for {badg}")
+    n_ex = sum(sizes)
+    rec = {"server_up_s": t_up, "predict": latency_stats(lat["predict"], wall, n_ex),
+           "generate": latency_stats(lat["generate"], gen_res["wall"],
+                                     sum(len(g) for g in gen_out)),
+           "predict_max_abs_err": max(errs), "batches": pm["batches"],
+           "helper_hits": hits, "launches": launches,
+           "phase13_requests_per_s": p13["charlstm_server"]["predict"]["requests_per_s"]}
+    print(f"  17a: cli inference-server (a child process, up in {t_up:.1f} s): "
+          f"{len(sizes)} /predict from {SERVE_CLIENTS} clients beside 24 /generate: "
+          f"{rec['predict']['requests_per_s']:.2f} requests/s (phase 13a in-process "
+          f"{rec['phase13_requests_per_s']:.2f}), p50 {rec['predict']['p50_ms']:.1f} ms p99 "
+          f"{rec['predict']['p99_ms']:.1f} ms; rows vs output() max abs {max(errs):.3e} "
+          f"(tolerance {SLICE_ATOL}); /generate equals the greedy loop; launches counted in "
+          f"the server from readiness to SIGTERM: K1 {k1}, K2 {k2}; cli metrics --url: "
+          f"helper_hit_total lstm_sequence {h1:.0f}, lstm_decode_step {h2:.0f} on {card}")
+    return rec
+
+
+def server_child(model_path, port, out) -> int:
+    """17a's server, in a process of its own: the CLI's entry point,
+    `cli.main(["inference-server", ...])`, on phase 3's char-LSTM zip.
+    Once /health answers (the server's warm-ups and decode captures are
+    done by then) every kernel's launch count is set to 0 and a
+    `<out>.ready` file appears; at SIGTERM the counts go to `out` and the
+    server shuts down as on Ctrl-C."""
+    import signal
+    import threading
+
+    from deeplearning4j_tpu_torch import cli
+    from deeplearning4j_tpu_torch.ops import fused_conv_bn as fcb
+    from deeplearning4j_tpu_torch.ops import fused_lstm as fl
+
+    counts = LaunchCounts(fl, fcb)
+
+    def ready():
+        while True:
+            try:
+                get_body(f"http://127.0.0.1:{port}/health", timeout=5)
+                break
+            except OSError:
+                time.sleep(0.2)
+        counts.reset()
+        with open(out + ".ready", "w") as f:
+            f.write("ready\n")
+
+    def on_term(signum, frame):
+        with open(out, "w") as f:
+            json.dump(counts.read(), f)
+        raise KeyboardInterrupt  # the server's main stops it and returns
+
+    signal.signal(signal.SIGTERM, on_term)
+    threading.Thread(target=ready, name="smoke-server-ready", daemon=True).start()
+    return cli.main(["inference-server", "--model-path", model_path, "--port", str(port),
+                     "--max-batch-size", str(SERVE_MAX_BATCH),
+                     "--warmup-shape", f"{SERVE_T},{VOCAB}",
+                     "--decode-slots", str(SERVE_SLOTS)])
+
+
+def locks_child(seed, out) -> int:
+    """17b, in a process started with DL4J_LOCKCHECK=1: the graphed
+    ResNet-50, the decode engine and the lock-audit smoke under the
+    armed sanitizer, then the same ResNet-50 and a decode engine
+    unarmed."""
+    import torch
+    import torch.nn.functional as F
+
+    from deeplearning4j_tpu_torch.analysis import concurrency_audit as ca
+    from deeplearning4j_tpu_torch.data import DataSet, DataSetIterator, ExistingDataSetIterator
+    from deeplearning4j_tpu_torch.models.charlstm import char_lstm_network
+    from deeplearning4j_tpu_torch.models.resnet import resnet50_network
+    from deeplearning4j_tpu_torch.ops import fused_conv_bn as fcb
+    from deeplearning4j_tpu_torch.ops import fused_lstm as fl
+    from deeplearning4j_tpu_torch.serving.decode import DecodeEngine
+    from deeplearning4j_tpu_torch.utils import locktrace, metrics
+
+    check(locktrace.enabled(), "17b: DL4J_LOCKCHECK=1 did not arm the sanitizer at import")
+    counts = LaunchCounts(fl, fcb)
+    data = resnet_data(torch, F, DataSet, seed + 171, LOCK_FUSED_K)
+    net = resnet50_network(precision="bf16", seed=seed,
+                           learning_rate=RESNET_LR).set_fused_steps(LOCK_FUSED_K)
+
+    def timed_steps():
+        clock = SyncClock(torch, DataSetIterator, data, LOCK_TIMED_STEPS // LOCK_FUSED_K)
+        net.fit(clock.it, async_prefetch=False)
+        return quantiles([t / LOCK_FUSED_K for t in dispatch_times(clock, LOCK_FUSED_K)])
+
+    lstm = char_lstm_network(vocab_size=VOCAB, hidden=HIDDEN, layers=LAYERS, seed=seed)
+    rng = np.random.default_rng(seed + 1)
+    reqs = [(rng.integers(0, VOCAB, size=int(rng.integers(1, 33))).tolist(),
+             int(rng.integers(32, 65)), "a" if i % 4 else "b") for i in range(24)]
+    waves = [reqs[:12], reqs[12:]]
+    v2 = [{k: t * 1.01 for k, t in p.items()} for p in lstm.params_list]
+
+    counts.reset()
+    # armed: the warm-up (an eager group, then the capture), the timed replays
+    net.fit(ExistingDataSetIterator(data * 2), async_prefetch=False)
+    armed = {"resnet_step_s": timed_steps()}
+    toks_armed, armed["decode"] = serve(torch, DecodeEngine, metrics, lstm, waves, v2, 1)
+    smoke = ca.smoke(device="cuda")
+    torch.cuda.synchronize()
+    launches = counts.read()
+    doc = ca.report(runtime=True)
+    names = ca.finding_names(doc)
+    with open(os.path.join(HERE, "deeplearning4j_tpu_torch", "analysis",
+                           "lock_baseline.txt")) as f:
+        baseline = sorted({ln.strip() for ln in f if ln.strip() and not ln.startswith("#")})
+    n_runtime = sum(1 for e in doc["edges"] if e["origin"] != "static")
+    rec = {"smoke": smoke, "names": names, "baseline": baseline,
+           "lock_classes": len(doc["lock_classes"]), "edges": len(doc["edges"]),
+           "runtime_edges": n_runtime, "launches": launches, "armed": armed,
+           "findings": [f.to_dict() for f in doc["findings"]]}
+    locktrace.uninstall()
+    unarmed = {"resnet_step_s": timed_steps()}
+    toks_unarmed, unarmed["decode"] = serve(torch, DecodeEngine, metrics, lstm, waves, v2, 1)
+    rec["unarmed"] = unarmed
+    rec["decode_tokens_equal"] = toks_armed == toks_unarmed
+    with open(out, "w") as f:
+        json.dump(rec, f, indent=1, default=str)
+    print(f"armed: ResNet-50 step p50 {armed['resnet_step_s']['p50'] * 1e3:.2f} ms, decode "
+          f"step p50 {armed['decode']['step_p50_s'] * 1e3:.4f} ms; unarmed: "
+          f"{unarmed['resnet_step_s']['p50'] * 1e3:.2f} ms, "
+          f"{unarmed['decode']['step_p50_s'] * 1e3:.4f} ms; {rec['lock_classes']} lock "
+          f"classes, {rec['edges']} edges ({n_runtime} witnessed); CN names {names}")
+    return 0
+
+
+def chaos_child(seed, out) -> int:
+    """17e, in a fresh process (a chaos verdict reads every health
+    component of its process): `cli chaos` decode and divergence, each
+    twice with one seed, and `cli trace` on each run's export."""
+    from deeplearning4j_tpu_torch.ops import fused_conv_bn as fcb
+    from deeplearning4j_tpu_torch.ops import fused_lstm as fl
+
+    counts = LaunchCounts(fl, fcb)
+    counts.reset()
+    rec = {}
+    for preset in ("decode", "divergence"):
+        runs = []
+        for i in range(2):
+            rep_path = os.path.join(CLI_DIR, f"chaos_{preset}_{i}.json")
+            trace_path = os.path.join(CLI_DIR, f"chaos_{preset}_{i}.jsonl")
+            t0 = time.perf_counter()
+            rc, _ = run_port_cli(["chaos", "--preset", preset, "--seed", str(seed),
+                                  "--json", rep_path, "--trace-out", trace_path])
+            wall = time.perf_counter() - t0
+            with open(rep_path) as f:
+                doc = json.load(f)
+            trc, text = run_port_cli(["trace", trace_path, "--top", "3"])
+            runs.append({"rc": rc, "verdict": doc["verdict"], "outcome": doc["outcome"],
+                         "events": doc["events"], "wall_s": wall, "trace_rc": trc,
+                         "trace_lines": len(text.splitlines()),
+                         "lock_audit": doc.get("lock_audit")})
+        rec[preset] = runs
+    rec["launches"] = counts.read()
+    with open(out, "w") as f:
+        json.dump(rec, f, indent=1, default=str)
+    for preset in ("decode", "divergence"):
+        r = rec[preset]
+        print(f"{preset}: exit codes {[x['rc'] for x in r]}, verdicts "
+              f"{[x['verdict'] for x in r]}, {len(r[0]['events'])} fault(s), events equal "
+              f"{r[0]['events'] == r[1]['events']}, wall {[round(x['wall_s'], 2) for x in r]} s, "
+              f"cli trace exit codes {[x['trace_rc'] for x in r]}")
+    return 0
+
+
+def cli_train_phase(torch, counts, seed, card):
+    """17c: `cli train` on LeNet over a CSV of synthetic digits, `cli
+    evaluate`, then `cli resume` on a checkpoint of two graphed
+    ResNet-50 steps."""
+    import torch.nn.functional as F
+
+    from deeplearning4j_tpu_torch.data import DataSet, ExistingDataSetIterator
+    from deeplearning4j_tpu_torch.data.mnist import synthetic_mnist
+    from deeplearning4j_tpu_torch.data.records import CSVRecordReader, RecordReaderDataSetIterator
+    from deeplearning4j_tpu_torch.models.lenet import lenet_network
+    from deeplearning4j_tpu_torch.models.resnet import resnet50_network
+    from deeplearning4j_tpu_torch.train.checkpoint import CheckpointListener
+    from deeplearning4j_tpu_torch.utils.model_serializer import load_model, save_model
+
+    images, lab = synthetic_mnist(LENET_CSV_ROWS, seed=seed)
+    flat = images.reshape(LENET_CSV_ROWS, -1).astype(np.float32) / 255.0
+    csv_path = os.path.join(CLI_DIR, "digits.csv")
+    np.savetxt(csv_path, np.concatenate([flat, lab[:, None].astype(np.float32)], axis=1),
+               delimiter=",", fmt="%.6g")
+    spec = f"csv:{csv_path}:{flat.shape[1]}:10"
+    start, trained = os.path.join(CLI_DIR, "lenet.zip"), os.path.join(CLI_DIR, "lenet_out.zip")
+    save_model(lenet_network(seed=seed), start)
+    t0 = time.perf_counter()
+    rc_train, _ = run_port_cli(["train", "--model-path", start, "--data", spec, "--epochs", "2",
+                                "--batch-size", "64", "--print-every", "1000",
+                                "--output", trained])
+    t_train = time.perf_counter() - t0
+    rc_eval, printed = run_port_cli(["evaluate", "--model-path", trained, "--data", spec])
+    check(rc_train == 0 and rc_eval == 0,
+          f"17c: cli train exited {rc_train}, cli evaluate {rc_eval}")
+    net = load_model(trained)
+    ev = net.evaluate(RecordReaderDataSetIterator(CSVRecordReader(csv_path), 128,
+                                                  label_index=flat.shape[1], num_classes=10))
+    check(printed.strip() == ev.stats().strip(),
+          f"17c: the saved zip scores {ev.stats()!r}, cli evaluate printed {printed!r}")
+    check(net.iteration == 2 * LENET_CSV_ROWS // 64, f"17c: {net.iteration} LeNet steps")
+
+    data = resnet_data(torch, F, DataSet, seed + 173, 2)
+    rn = resnet50_network(precision="bf16", seed=seed, learning_rate=RESNET_LR).set_fused_steps(2)
+    rn.fit(ExistingDataSetIterator(data), async_prefetch=False)  # the eager warm-up group
+    counts.reset()
+    rn.fit(ExistingDataSetIterator(data), async_prefetch=False)  # captured, then replayed
+    torch.cuda.synchronize()
+    launches = counts.read()
+    check(all(launches[k] > 0 for k in K4_K8), f"17c: the graphed steps launched {launches}")
+    # a listener would turn the graphed group back into the per-step loop:
+    # the listener's own save runs after the group
+    ckdir = os.path.join(CLI_DIR, "ckpt")
+    ckl = CheckpointListener(ckdir, every_n_iterations=None, every_n_epochs=None,
+                             async_save=False)
+    t0 = time.perf_counter()
+    ckl.save(rn, reason="graphed")
+    ckl.close()
+    t_save = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rc_resume, text = run_port_cli(["resume", ckdir])
+    t_resume = time.perf_counter() - t0
+    check(rc_resume == 0 and "integrity: ok" in text and "loads OK" in text,
+          f"17c: cli resume exited {rc_resume}: {text}")
+    acc = float(ev.accuracy())
+    rec = {"train_s": t_train, "lenet_steps": net.iteration, "accuracy": acc,
+           "save_s": t_save, "resume_s": t_resume, "resnet_iteration": rn.iteration,
+           "launches": launches}
+    print(f"  17c: cli train LeNet ({LENET_CSV_ROWS} CSV rows, 2 epochs, b64) {t_train:.2f} s; "
+          f"cli evaluate: accuracy {acc:.4f}, equal to the saved zip's own evaluation; two "
+          f"graphed ResNet-50 steps (launches {launches}), checkpoint saved in {t_save:.2f} s; "
+          f"cli resume: integrity ok, loads, {t_resume:.2f} s on {card}")
+    del rn
+    return rec
+
+
+def cli_profile_phase(torch, counts, p15, seed, card):
+    """17d: `cli profile` over a utils.profiler.trace of two graphed
+    ResNet-50 steps; `cli perf --json` against phase 15's FLOP count."""
+    import torch.nn.functional as F
+
+    from deeplearning4j_tpu_torch.data import DataSet, ExistingDataSetIterator
+    from deeplearning4j_tpu_torch.models.resnet import resnet50_network
+    from deeplearning4j_tpu_torch.utils import profiler
+
+    data = resnet_data(torch, F, DataSet, seed + 174, 2)
+    rn = resnet50_network(precision="bf16", seed=seed, learning_rate=RESNET_LR).set_fused_steps(2)
+    for _ in range(2):  # the eager warm-up group, then the capture
+        rn.fit(ExistingDataSetIterator(data), async_prefetch=False)
+    log_dir = os.path.join(CLI_DIR, "profile")
+    counts.reset()
+    with profiler.trace(log_dir):
+        rn.fit(ExistingDataSetIterator(data), async_prefetch=False)  # one replay, two steps
+    launches = counts.read()
+    del rn
+    prof_json = os.path.join(CLI_DIR, "profile.json")
+    rc, _ = run_port_cli(["profile", "--log-dir", log_dir, "--json", prof_json, "--preset",
+                          "resnet50", "--batch", str(RESNET_BATCH), "--steps", "2",
+                          "--precision", "bf16"])
+    with open(prof_json) as f:
+        doc = json.load(f)
+    fams = doc.get("families") or {}
+    named = {n: fams.get(n) for n in OBS_KERNEL_FAMILIES}
+    check(rc == 0 and doc["device"], f"17d: cli profile exited {rc}, device {doc.get('device')}")
+    check(all(r is not None and r.get("ms", 0) > 0 and r.get("bound_of") == "kernel"
+              for r in named.values()),
+          f"17d: cli profile named {sorted(fams)}; K4-K8 rows {named}")
+    # each kernel's bound prices the launches this capture made, and its
+    # time lies at or above that floor, within PROFILE_BOUND_RATIO of it
+    bad = {n: r for n, r in named.items()
+           if r["launches"] != launches[n.split(" ", 1)[1]]
+           or not r["bound_ms"] <= r["ms"] <= PROFILE_BOUND_RATIO * r["bound_ms"]}
+    check(not bad, f"17d: K4-K8 against their own bounds (launches counted {launches}): {bad}")
+    perf_json = os.path.join(CLI_DIR, "perf.json")
+    t0 = time.perf_counter()
+    rc_perf, _ = run_port_cli(["perf", "--preset", "resnet50", "--batch", str(RESNET_BATCH),
+                               "--precision", "bf16", "--json", perf_json])
+    t_perf = time.perf_counter() - t0
+    with open(perf_json) as f:
+        perf = json.load(f)
+    flops = perf["cost_model"]["model_flops"]
+    want = p15["resnet50_cost"]["model_flops"]
+    check(rc_perf == 0 and flops == want,
+          f"17d: cli perf exited {rc_perf}, FLOPs a step {flops} vs phase 15's {want}")
+    rec = {"families": {n: {k: (r or {}).get(k) for k in ("ms", "bound_ms", "flops", "bytes",
+                                                          "launches", "bound_of")}
+                        for n, r in named.items()},
+           "total_device_ms": doc["total_device_sec"] * 1e3, "launches": launches,
+           "perf_model_flops": flops, "phase15_model_flops": want, "perf_s": t_perf,
+           "vs_prior": perf.get("vs_prior")}
+    print(f"  17d: cli profile over two graphed steps ({rec['total_device_ms']:.2f} ms of "
+          f"device), each kernel against the bound of its own {RESNET_BATCH}-image work: "
+          + ", ".join(f"{n} {r['ms']} ms (bound {r['bound_ms']}, {r['launches']} launches)"
+                      for n, r in rec["families"].items())
+          + f"; cli perf --json: {flops:.6g} FLOPs a step = phase 15's, {t_perf:.1f} s on {card}")
+    return rec
+
+
+def cli_locks_phase(torch, counts, p13, p15, seed, card):
+    import shutil
+
+    t0 = time.perf_counter()
+    shutil.rmtree(CLI_DIR, ignore_errors=True)
+    os.makedirs(CLI_DIR)
+    out = {}
+    try:
+        out["server"] = cli_server_phase(torch, seed, card, p13)
+        torch.cuda.empty_cache()
+        t1 = time.perf_counter()
+        lk = run_script_child("locks", seed, os.path.join(CLI_DIR, "locks.json"),
+                       env_extra={"DL4J_LOCKCHECK": "1"})
+        lk["wall_s"] = time.perf_counter() - t1
+        check(lk["names"] == lk["baseline"],
+              f"17b: the armed run's CN names {lk['names']} != lock_baseline.txt "
+              f"{lk['baseline']}: {lk['findings']}")
+        check(all(lk["launches"][k] > 0 for k in ("lstm_step",) + K4_K8),
+              f"17b: launches while armed {lk['launches']}")
+        check(lk["smoke"]["decode_ok"] and lk["smoke"]["sparse_ok"] and lk["runtime_edges"] > 0,
+              f"17b: the audit smoke {lk['smoke']}, {lk['runtime_edges']} witnessed edges")
+        check(lk["decode_tokens_equal"], "17b: the armed decode's tokens differ from unarmed")
+        out["locks"] = lk
+        a, u = lk["armed"], lk["unarmed"]
+        print(f"  17b: DL4J_LOCKCHECK=1 child: ResNet-50 bf16 b{RESNET_BATCH} "
+              f"set_fused_steps({LOCK_FUSED_K}) step p50 {a['resnet_step_s']['p50'] * 1e3:.2f} ms "
+              f"armed / {u['resnet_step_s']['p50'] * 1e3:.2f} ms unarmed; decode step p50 "
+              f"{a['decode']['step_p50_s'] * 1e3:.4f} / {u['decode']['step_p50_s'] * 1e3:.4f} ms; "
+              f"{lk['lock_classes']} traced lock classes, {lk['edges']} edges "
+              f"({lk['runtime_edges']} witnessed); CN names = lock_baseline.txt "
+              f"({lk['names']}); launches armed {lk['launches']}; {lk['wall_s']:.1f} s on {card}")
+        torch.cuda.empty_cache()
+        out["train"] = cli_train_phase(torch, counts, seed, card)
+        torch.cuda.empty_cache()
+        out["profile"] = cli_profile_phase(torch, counts, p15, seed, card)
+        torch.cuda.empty_cache()
+        t1 = time.perf_counter()
+        ch = run_script_child("chaos", seed, os.path.join(CLI_DIR, "chaos.json"))
+        ch["wall_s"] = time.perf_counter() - t1
+        for preset in ("decode", "divergence"):
+            r = ch[preset]
+            check([x["rc"] for x in r] == [0, 0] and [x["verdict"] for x in r] == ["ok", "ok"],
+                  f"17e: chaos {preset}: {[(x['rc'], x['verdict'], x['outcome']) for x in r]}")
+            check(r[0]["events"] == r[1]["events"] and r[0]["events"],
+                  f"17e: chaos {preset}'s two runs injected {r[0]['events']} and {r[1]['events']}")
+            check([x["trace_rc"] for x in r] == [0, 0] and r[0]["trace_lines"] > 3,
+                  f"17e: cli trace on the {preset} exports: {r}")
+        check(ch["launches"]["lstm_step"] > 0, f"17e: the decode preset launched {ch['launches']}")
+        out["chaos"] = ch
+        print(f"  17e: cli chaos decode and divergence, twice each with seed {seed}: verdicts ok, "
+              f"events equal ({len(ch['decode'][0]['events'])} and "
+              f"{len(ch['divergence'][0]['events'])} faults), cli trace renders each export; "
+              f"K2 launches {ch['launches']['lstm_step']}; {ch['wall_s']:.1f} s")
+    finally:
+        shutil.rmtree(CLI_DIR, ignore_errors=True)
+    # each path's count from zero: 17a's, 17b's and 17e's from their
+    # children (the server's from its readiness on), 17c's and 17d's here
+    out["launches"] = {"cli_serving": out["server"]["launches"],
+                       "lock_audit": out["locks"]["launches"],
+                       "cli_resume": out["train"]["launches"],
+                       "cli_profile": out["profile"]["launches"],
+                       "cli_chaos": out["chaos"]["launches"]}
+    out["seconds"] = time.perf_counter() - t0
+    print(f"  phase 17: {out['seconds']:.1f} s")
+    return out
+
+
+def cli_locks_summary(p17, card) -> dict:
+    lk = p17["locks"]
+    return {"card": card,
+            "17a_requests_per_s": p17["server"]["predict"]["requests_per_s"],
+            "17a_phase13_requests_per_s": p17["server"]["phase13_requests_per_s"],
+            "17a_predict_p50_ms": p17["server"]["predict"]["p50_ms"],
+            "17a_helper_hits": p17["server"]["helper_hits"],
+            "17b_resnet_step_p50_ms": {arm: lk[arm]["resnet_step_s"]["p50"] * 1e3
+                                       for arm in ("armed", "unarmed")},
+            "17b_decode_step_p50_ms": {arm: lk[arm]["decode"]["step_p50_s"] * 1e3
+                                       for arm in ("armed", "unarmed")},
+            "17b_lock_classes": lk["lock_classes"], "17b_edges": lk["edges"],
+            "17b_runtime_edges": lk["runtime_edges"], "17b_names": lk["names"],
+            "17c_accuracy": p17["train"]["accuracy"],
+            "17d_families": p17["profile"]["families"],
+            "17d_model_flops": p17["profile"]["perf_model_flops"],
+            "17e_faults": {p: len(p17["chaos"][p][0]["events"]) for p in ("decode", "divergence")},
+            "launches": p17["launches"], "seconds": p17["seconds"]}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default=os.path.join("chiprun_out", "chip_smoke.json"))
-    ap.add_argument("--child", choices=["charlstm"], default=None,
-                    help="run phase 7a's killed fit (started by the script itself)")
+    ap.add_argument("--child", choices=["charlstm", "server", "locks", "chaos"], default=None,
+                    help="run phase 7a's killed fit, 17a's server, 17b's armed run or "
+                         "17e's chaos runs (started by the script itself)")
     ap.add_argument("--ckpt-dir", default=None, help="the child's checkpoint directory")
+    ap.add_argument("--model-path", default=None, help="the server child's model zip")
+    ap.add_argument("--port", type=int, default=None, help="the server child's port")
     args = ap.parse_args(argv)
-    if args.child is not None:
+    if args.child == "charlstm":
         return charlstm_child(args.ckpt_dir, args.seed)
+    if args.child == "server":
+        return server_child(args.model_path, args.port, args.out)
+    if args.child == "locks":
+        return locks_child(args.seed, args.out)
+    if args.child == "chaos":
+        return chaos_child(args.seed, args.out)
 
     import torch
 
@@ -7642,6 +8245,12 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     p16 = ui_phase(torch, F, counts, args.seed, card)
 
+    print("[17] the operator CLI and the lock audit: cli inference-server in a child process, "
+          "the graphed ResNet-50, the decode engine and the audit smoke under DL4J_LOCKCHECK=1, "
+          "cli train/evaluate/resume, cli profile and perf, cli chaos and trace")
+    torch.cuda.empty_cache()
+    p17 = cli_locks_phase(torch, counts, p13, p15, args.seed, card)
+
     # each main path's count, read just after it ran from zero
     by_path = {"output": sl["launches"], "serve": sv["launches"],
                "train": tr["launches"], "train_resnet": rn["launches"],
@@ -7657,7 +8266,8 @@ def main(argv=None) -> int:
                "serving_overload": p13["overload"]["launches"],
                "recsys": p14["launches"],
                "ledger_serving": p14["ledger_serving"]["launches"],
-               "observability": p15["launches"], "ui": p16["launches"]}
+               "observability": p15["launches"], "ui": p16["launches"],
+               **p17["launches"]}
     main_launches = {name: sum(c.get(name, 0) for c in by_path.values())
                      for name in rows}
     meta = {
@@ -7707,6 +8317,7 @@ def main(argv=None) -> int:
               "phase14": p14,
               "phase15": p15,
               "phase16": p16,
+              "phase17": p17,
               "build": {k: v["seconds"] for k, v in info.items()},
               "ptxas": {k: v["log"] for k, v in info.items() if k not in cuda_build.SOURCES},
               "seconds": time.perf_counter() - t_start}
@@ -7719,6 +8330,7 @@ def main(argv=None) -> int:
     print(json.dumps({"recsys": recsys_summary(p14, card)}))
     print(json.dumps({"observability": observability_summary(p15, card)}))
     print(json.dumps({"ui": ui_summary(p16, card)}))
+    print(json.dumps({"cli_locks": cli_locks_summary(p17, card)}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -33,7 +33,15 @@ audit on fake tensors (`analysis/costmodel.py`, `analysis/graph_audit.py`),
 the conv kernels' coverage table with the routing's economic stage as
 its plan (`analysis/kernelcoverage.py`), the sampled device profiler with OOM
 forensics (`utils/devprof.py`) and the torch.profiler family summary
-(`utils/profiler.py`).
+(`utils/profiler.py`); the training UI and the clustering stack (`ui/`,
+`clustering/`, `serving/knnserver.py`, `keras_backend.py`); and the
+operator CLI (`cli.py`, `python -m deeplearning4j_tpu_torch.cli`, 19
+subcommands, `--device cpu` to run off the GPU) with the lock audit: the
+runtime lock-order sanitizer (`utils/locktrace.py`, armed by
+`DL4J_LOCKCHECK=1`), the concurrency lint (`analysis/lint.py`), their
+merge (`analysis/concurrency_audit.py`) and the trace critical-path
+readout (`analysis/tracecrit.py`). Every module of the JAX package has a
+counterpart here.
 """
 
 __version__ = "0.1.0"
@@ -42,3 +50,67 @@ import logging as _logging
 
 # library code logs to the package logger and never configures handlers
 _logging.getLogger("deeplearning4j_tpu_torch").addHandler(_logging.NullHandler())
+
+
+def configure_logging(level=_logging.INFO, json_lines: bool = False,
+                      stream=None):
+    """Opt-in log output for applications and CLIs.
+
+    Plain mode attaches a conventional stderr handler. `json_lines=True`
+    emits one JSON object per record (ts/level/logger/message, plus
+    `trace_id`/`span_id` — the active distributed-tracing context when a
+    span is open on the logging thread, empty strings otherwise — so one
+    trace id greps across logs, span exports, flight-recorder dumps and
+    histogram exemplars) so log aggregators get structured records
+    without a parsing layer. Calling again replaces the handler installed
+    by the previous call (idempotent — safe from notebooks/REPLs)."""
+    import json as _json
+    import time as _time
+
+    from deeplearning4j_tpu_torch.utils import tracing as _tracing
+
+    logger = _logging.getLogger("deeplearning4j_tpu_torch")
+    for h in list(logger.handlers):
+        if getattr(h, "_dl4j_tpu_configured", False):
+            logger.removeHandler(h)
+    handler = _logging.StreamHandler(stream)
+    if json_lines:
+        class _JsonFormatter(_logging.Formatter):
+            def format(self, record):
+                # format() runs on the emitting thread, so the active
+                # span context here IS the one the message belongs to
+                ctx = _tracing.current_context()
+                doc = {
+                    "ts": round(record.created, 3),
+                    "iso": _time.strftime(
+                        "%Y-%m-%dT%H:%M:%S",
+                        _time.gmtime(record.created)) + "Z",
+                    "level": record.levelname,
+                    "logger": record.name,
+                    "message": record.getMessage(),
+                    "trace_id": ctx.trace_id if ctx is not None else "",
+                    "span_id": (format(ctx.span_id, "016x")
+                                if ctx is not None else ""),
+                }
+                if record.exc_info:
+                    doc["exc"] = self.formatException(record.exc_info)
+                return _json.dumps(doc)
+
+        handler.setFormatter(_JsonFormatter())
+    else:
+        handler.setFormatter(_logging.Formatter(
+            "%(asctime)s %(levelname)s %(name)s: %(message)s"))
+    handler._dl4j_tpu_configured = True
+    logger.addHandler(handler)
+    logger.setLevel(level)
+    return logger
+
+
+import os as _os
+
+if _os.environ.get("DL4J_LOCKCHECK", "") == "1":
+    # arm the lock-order sanitizer BEFORE any framework module runs its
+    # module-level lock constructions (utils.metrics, utils.health) so
+    # those locks are traced too; off-path cost is zero — the import
+    # below is what patches, and it only happens under the env flag
+    from deeplearning4j_tpu_torch.utils import locktrace as _locktrace  # noqa: F401

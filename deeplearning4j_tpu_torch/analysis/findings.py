@@ -42,9 +42,10 @@ cost model (analysis/costmodel — static device cost of the train step):
          activation liveness peak) exceeds the card's memory — will OOM
 
 The JAX package's JX006 (undonated step buffers) has no counterpart in
-eager PyTorch (analysis/graph_audit), and its concurrency lint (CC*/CN*)
-is not ported yet: it waits for analysis/lint.py and
-analysis/concurrency_audit.py.
+eager PyTorch (analysis/graph_audit). The concurrency codes come from
+analysis/lint.py (CC001–CC007 and the lexical CN002/CN003) and
+analysis/concurrency_audit.py (CN001–CN003 over the merged static and
+runtime lock graphs, utils/locktrace).
 """
 
 from __future__ import annotations

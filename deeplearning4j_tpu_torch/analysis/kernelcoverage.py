@@ -147,6 +147,92 @@ def launches_per_step(rows: List[dict]) -> Dict[str, int]:
             "bn_apply": len(covered)}
 
 
+def _bn_after(conf) -> Dict[str, Optional[bool]]:
+    """{conv name (as `conv_instances` names it): whether the batch norm
+    it feeds applies the ReLU itself in training} for every conv whose
+    sole consumer is a BatchNormalization; a conv that feeds no BN is
+    absent. Only a graph fuses the ReLU into its BNs
+    (nn/compgraph.relu_fused_bn_vertices)."""
+    from deeplearning4j_tpu_torch.nn.conf import layers as L
+
+    if isinstance(getattr(conf, "layers", None), list):  # MultiLayerConfiguration
+        return {f"layer{i}": False for i, layer in enumerate(conf.layers[:-1])
+                if type(layer) is L.ConvolutionLayer
+                and isinstance(conf.layers[i + 1], L.BatchNormalization)}
+    from deeplearning4j_tpu_torch.nn.compgraph import relu_fused_bn_vertices
+
+    consumers: Dict[str, List[str]] = {}
+    for name, ins in conf.vertex_inputs.items():
+        for src in ins:
+            consumers.setdefault(src, []).append(name)
+    fused = relu_fused_bn_vertices(conf)
+    out: Dict[str, Optional[bool]] = {}
+    for name, v in conf.vertices.items():
+        cs = consumers.get(name, [])
+        if type(getattr(v, "layer", None)) is not L.ConvolutionLayer or len(cs) != 1:
+            continue
+        if isinstance(getattr(conf.vertices[cs[0]], "layer", None), L.BatchNormalization):
+            out[name] = cs[0] in fused
+    return out
+
+
+def kernel_costs(conf, batch: int = 128, itemsize: int = 2) -> Dict[str, dict]:
+    """Each conv/BN kernel's work in one training step, summed over the
+    instances this process routes to it (the structural stage, as
+    `launches_per_step` counts them), by launch-counter name:
+    {"conv1x1_stats" | "conv_kxk_stats" | "bn_apply" | "bn_backward_reduce"
+    | "bn_backward_apply": {"flops", "bytes", "launches"}}.
+
+    The least each launch must do, at `itemsize` bytes an activation or
+    weight element: K4 and K5 read x and w once and write y once, plus
+    the two f32 statistics vectors (K4 reads a stride-2 instance's
+    subsampled rows only), at the conv's valid-pair FLOPs
+    (`costmodel.conv_instance_cost`); the BN passes run on the conv's
+    output [M, C]: K6 reads x and writes y, K7 reads g and x, K8 reads g
+    and x and writes dx, and K7 and K8 read the saved output once more
+    where the BN applies the ReLU itself (the gate). Per-channel vectors
+    count 4 bytes each. `utils/profiler.roofline_columns` puts each
+    kernel's measured time beside the bound of exactly this work."""
+    import torch
+
+    from deeplearning4j_tpu_torch.analysis.costmodel import conv_instance_cost
+    from deeplearning4j_tpu_torch.ops.fused_conv_bn import conv_decision
+
+    names = ("conv1x1_stats", "conv_kxk_stats", "bn_apply", "bn_backward_reduce",
+             "bn_backward_apply")
+    out = {n: {"flops": 0.0, "bytes": 0.0, "launches": 0} for n in names}
+    dtype = torch.bfloat16 if itemsize == 2 else torch.float32
+    bns = _bn_after(conf)
+
+    def add(name, flops, nbytes):
+        out[name]["flops"] += flops
+        out[name]["bytes"] += nbytes
+        out[name]["launches"] += 1
+
+    for name, ctx in conv_instances(conf, batch=batch):
+        if conv_decision(dtype=dtype, planning=False, **ctx)["status"] != "covered":
+            continue
+        cost = conv_instance_cost(kernel=ctx["kernel"], stride=ctx["stride"],
+                                  x_shape=ctx["x_shape"], n_out=ctx["n_out"],
+                                  itemsize=itemsize)
+        n, ho, wo, cout = cost["out_shape"]
+        kh, kw = ctx["kernel"]
+        cin = ctx["x_shape"][3]
+        m = n * ho * wo
+        if (kh, kw) == (1, 1):
+            nbytes = itemsize * (m * cin + cin * cout + m * cout)
+            add("conv1x1_stats", cost["flops"], nbytes + 8 * cout)
+        else:
+            add("conv_kxk_stats", cost["flops"], cost["bytes"] + 8 * cout)
+        if name not in bns:
+            continue
+        mc, gate = m * cout, int(bool(bns[name]))
+        add("bn_apply", 3.0 * mc, itemsize * 2 * mc + 12 * cout)
+        add("bn_backward_reduce", 3.0 * mc, itemsize * (2 + gate) * mc + 8 * cout)
+        add("bn_backward_apply", 4.0 * mc, itemsize * (3 + gate) * mc + 12 * cout)
+    return out
+
+
 def format_table(rows: List[dict]) -> str:
     s = coverage_summary(rows)
     lines = [f"conv kernel coverage: {s['total']} conv instances — "

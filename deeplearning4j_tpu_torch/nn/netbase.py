@@ -65,6 +65,7 @@ from deeplearning4j_tpu_torch.utils import blackbox as _blackbox
 from deeplearning4j_tpu_torch.utils import devprof as _devprof
 from deeplearning4j_tpu_torch.utils import faultpoints as _faults
 from deeplearning4j_tpu_torch.utils import health as _health
+from deeplearning4j_tpu_torch.utils import locktrace as _locktrace
 from deeplearning4j_tpu_torch.utils import metrics as _metrics
 from deeplearning4j_tpu_torch.utils import resourcemeter as _resourcemeter
 from deeplearning4j_tpu_torch.utils import runledger as _runledger
@@ -1101,6 +1102,9 @@ class NetworkBase:
                 injected = _faults.fault_point("train_step")
                 if injected == "nan" and batches:
                     _faults.taint_nan(batches[0])
+                # CN003 probe (DL4J_LOCKCHECK): a step or graph replay
+                # entered with a traced lock held; one global read when off
+                _locktrace.note_dispatch("fit/dispatch")
                 fit_fn()
             dispatch = time.perf_counter() - t0
             if _tracing.is_enabled() and self._score is not None:

@@ -61,8 +61,9 @@ register under the decode tier. The REST layer exposes `POST /generate`
 (serving/inference_server.py) behind the same deadline/429 contract as
 /predict. `run_ledger=` (a path or a utils.runledger.RunLedger) records
 the engine's metrics for its lifetime; each submit notes one request.
-The JAX engine's lock-audit probe (utils/locktrace) waits for that
-module in the port.
+Before each step or window replay the engine calls the lock audit's
+`note_dispatch("decode/step")` probe (utils/locktrace; one global read
+unless DL4J_LOCKCHECK is armed).
 """
 
 from __future__ import annotations
@@ -95,6 +96,7 @@ from deeplearning4j_tpu_torch.parallel.inference import (
 from deeplearning4j_tpu_torch.utils import blackbox as _blackbox
 from deeplearning4j_tpu_torch.utils import faultpoints as _faults
 from deeplearning4j_tpu_torch.utils import health as _health
+from deeplearning4j_tpu_torch.utils import locktrace as _locktrace
 from deeplearning4j_tpu_torch.utils import metrics as _metrics
 from deeplearning4j_tpu_torch.utils import resourcemeter as _resourcemeter
 from deeplearning4j_tpu_torch.utils import runledger as _runledger
@@ -212,7 +214,7 @@ class DecodeEngine:
         # the static carry: the program's input and, copied back, its output
         self._carry = model.rnn_zero_carry(self.n_slots)
         self._version = 0
-        self._pending_swap = None                # (version, parameter set)
+        self._pending_swap = None                # (version, parameter set, copy event)
         self._swaps = 0
         self._load_lock = threading.Lock()       # one load_version at a time
         # host mirror of the per-slot input token fed next step
@@ -434,12 +436,14 @@ class DecodeEngine:
                         f"live {tuple(old[k].shape)} — a swap must not "
                         f"change the step")
             sources.append(src)
+        cuda = self.device.type == "cuda"
         with self._load_lock:
             with self._lock:
-                if self._pending_swap is not None:
+                superseded = self._pending_swap
+                if superseded is not None:
                     logger.warning(
                         "decode load_version: pending version %d superseded "
-                        "before it was served", self._pending_swap[0])
+                        "before it was served", superseded[0])
                 v = self._version + self._swaps_pending_locked() + 1
                 # the engine flips only to a pending set: while this copy
                 # runs, none is pending, so the target stays unread. Its
@@ -447,14 +451,24 @@ class DecodeEngine:
                 # it, ended in a host sync on its output.
                 self._pending_swap = None
                 target = 1 - self._live
+            if cuda and superseded is not None:
+                # the superseded copy may still be in flight on its
+                # loader's stream: this one writes the same set after it
+                torch.cuda.current_stream(self.device).wait_event(superseded[2])
             for src, dst in zip(sources, self._sets[target]):
                 for k, a in dst.items():
                     a.copy_(src[k])
-            if self.device.type == "cuda":
-                torch.cuda.current_stream(self.device).synchronize()
+            done = None
+            if cuda:
+                # the engine's stream waits on this before its first step
+                # on the set; the host wait below is outside every lock
+                done = torch.cuda.Event()
+                done.record(torch.cuda.current_stream(self.device))
             with self._lock:
-                self._pending_swap = (v, target)
+                self._pending_swap = (v, target, done)
                 self._wake.notify_all()
+        if done is not None:
+            done.synchronize()
         return v
 
     def set_fused_steps(self, k: int) -> "DecodeEngine":
@@ -775,10 +789,13 @@ class DecodeEngine:
             pending = self._pending_swap
             self._pending_swap = None
             if pending is not None:
-                self._version, self._live = pending
+                self._version, self._live = pending[:2]
                 self._swaps += 1
         if pending is not None:
             v = pending[0]
+            if pending[2] is not None:
+                # device-side order: the copies into the set, then its steps
+                torch.cuda.current_stream(self.device).wait_event(pending[2])
             self._m_swaps.inc()
             self._note_weights_hbm(v, self._sets[self._live])
             _tracing.record_complete("decode/swap", t_swap,
@@ -822,6 +839,10 @@ class DecodeEngine:
             # not resumable) and the engine keeps serving
             try:
                 _faults.fault_point("decode_step", active=n_active)
+                # CN003 probe: the engine must never enter the step or
+                # window replay holding the admission lock (off = one
+                # module-global read)
+                _locktrace.note_dispatch("decode/step")
                 with _tracing.span("decode/step", active=n_active,
                                    version=self._version):
                     io = self._io[K]

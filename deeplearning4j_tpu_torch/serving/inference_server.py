@@ -70,7 +70,6 @@ import math
 import queue as _queue
 import time
 import urllib.parse
-import zipfile
 from typing import Optional, Sequence
 
 import numpy as np
@@ -94,40 +93,9 @@ from deeplearning4j_tpu_torch.utils import tenancy as _tenancy
 from deeplearning4j_tpu_torch.utils import tracing as _tracing
 from deeplearning4j_tpu_torch.utils.jsonhttp import JsonHttpServer, json_response
 from deeplearning4j_tpu_torch.utils.latency import LatencyTracker
+from deeplearning4j_tpu_torch.utils.model_serializer import guess_and_load_model
 
 logger = logging.getLogger("deeplearning4j_tpu_torch")
-
-
-def guess_and_load_model(path: str, device="cuda"):
-    """Load a model file onto `device` ("cuda" by default; raises without
-    a GPU unless the caller passes device="cpu"), dispatching on its
-    container format (reference: core util/ModelGuesser.java): a Keras
-    .h5/.hdf5 archive, a reference-format DL4J zip, or this framework's
-    model zip (which alone carries meta.json)."""
-    if path.endswith((".h5", ".hdf5")):
-        from deeplearning4j_tpu_torch.modelimport.keras import (
-            import_keras_model_and_weights,
-        )
-
-        return import_keras_model_and_weights(path, device=device)
-    with zipfile.ZipFile(path) as zf:
-        names = set(zf.namelist())
-        conf = (json.loads(zf.read("configuration.json"))
-                if "configuration.json" in names else None)
-    # both formats carry configuration.json + coefficients.bin; only this
-    # framework's zips have meta.json (utils/model_serializer)
-    if "coefficients.bin" in names and "meta.json" not in names:
-        from deeplearning4j_tpu_torch.modelimport.dl4j import (
-            import_dl4j_computation_graph,
-            import_dl4j_multilayer,
-        )
-
-        if conf is not None and "networkInputs" in conf:
-            return import_dl4j_computation_graph(path, device=device)
-        return import_dl4j_multilayer(path, device=device)
-    from deeplearning4j_tpu_torch.utils.model_serializer import load_model
-
-    return load_model(path, device=device)
 
 
 class InferenceServer:

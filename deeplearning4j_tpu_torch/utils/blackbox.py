@@ -38,10 +38,11 @@ right after the step; at snapshot time a score is resolved to a float
 only when that event's `query()` says the step has finished, else
 reported as "pending" — which is itself forensic signal (the last
 dispatched step never completed). The port of the JAX package's
-utils/blackbox.py, OOM forensics included; its dumps have no lock-audit
-section yet (utils/locktrace is not ported) and no resource-meter
-tenants section (utils/resourcemeter is ported, but the snapshot does
-not read it yet).
+utils/blackbox.py, OOM forensics included. Every dump carries the JAX
+dump's keys: `tenants` (utils/resourcemeter's snapshot, the chip-budget
+view at crash time) and `locks` (utils/locktrace's ownership and
+wait-graph forensics, None unless the DL4J_LOCKCHECK sanitizer is
+armed).
 """
 
 from __future__ import annotations
@@ -238,6 +239,23 @@ class FlightRecorder:
             health = get_health().status()
         except Exception:
             health = None
+        try:
+            # the chip-budget view at crash time: who was spending what
+            # when the process died (books always; spend when metered)
+            from deeplearning4j_tpu_torch.utils import resourcemeter
+
+            tenants = resourcemeter.snapshot()
+        except Exception:
+            tenants = None
+        try:
+            # who holds what and who waits on whom (None unless the
+            # DL4J_LOCKCHECK sanitizer is armed): a watchdog-caught hang
+            # dumps as a NAMED wait-graph cycle, not a stack soup
+            from deeplearning4j_tpu_torch.utils import locktrace
+
+            locks = locktrace.forensics()
+        except Exception:
+            locks = None
         return {
             "reason": reason,
             "ts": round(time.time(), 3),
@@ -249,6 +267,8 @@ class FlightRecorder:
             "events": events,
             "metrics_deltas": deltas,
             "health": health,
+            "tenants": tenants,
+            "locks": locks,
             "threads": thread_stacks(),
         }
 
@@ -498,6 +518,52 @@ def render_dump(doc: dict, max_steps: int = 32,
                 note = (f"  stalled {d.get('stalled_for_seconds')}s"
                         f" threads={d.get('stalled_threads')}")
             lines.append(f"  {name}: {d.get('status')}{note}")
+    tenants_doc = doc.get("tenants") or {}
+    tenant_rows = tenants_doc.get("tenants") or {}
+    if tenant_rows:
+        cons = tenants_doc.get("conservation") or {}
+        lines.append("")
+        lines.append(f"tenant chip budget (books_ok={cons.get('books_ok')} "
+                     f"spend_ok={cons.get('spend_ok')}):")
+        for t in sorted(tenant_rows):
+            rec = tenant_rows[t] or {}
+            dev = rec.get("device_seconds") or {}
+            parts = []
+            if dev:
+                parts.append("dev[s] " + " ".join(
+                    f"{tier}={s:.4g}" for tier, s in sorted(dev.items())))
+            b = rec.get("books")
+            if b:
+                parts.append(f"adm={b.get('admitted', 0)} "
+                             f"done={b.get('completed', 0)} "
+                             f"shed={b.get('shed', 0)} "
+                             f"fail={b.get('failed', 0)}")
+            lines.append(f"  {t}: " + ("  ".join(parts) if parts
+                                       else "(idle)"))
+    locks_doc = doc.get("locks") or {}
+    if locks_doc.get("enabled"):
+        lines.append("")
+        held = locks_doc.get("held") or {}
+        waiting = locks_doc.get("waiting") or []
+        cycles = locks_doc.get("deadlock_cycles") or []
+        lines.append(f"lock forensics (DL4J_LOCKCHECK): "
+                     f"{sum(len(v) for v in held.values())} held, "
+                     f"{len(waiting)} waiting, {len(cycles)} deadlock "
+                     f"cycle(s)")
+        for tname in sorted(held):
+            locks_held = ", ".join(
+                f"{h['site']}" + (f" x{h['depth']}" if h.get("depth", 1) > 1
+                                  else "")
+                for h in held[tname])
+            lines.append(f"  {tname} holds: {locks_held}")
+        for w in waiting:
+            lines.append(f"  {w['thread']} waiting {w['waited_s']}s "
+                         f"for {w['waits_for']}")
+        for cyc in cycles:
+            lines.append("  DEADLOCK CYCLE:")
+            for e in cyc:
+                lines.append(f"    {e['thread']} waits for "
+                             f"{e['waits_for']} held by {e['held_by']}")
     threads = doc.get("threads") or []
     if threads:
         lines.append("")

@@ -350,6 +350,38 @@ def load_model(path: Union[str, os.PathLike], load_updater: bool = True, *,
     return net
 
 
+def guess_and_load_model(path: str, device="cuda"):
+    """Load a model file onto `device` ("cuda" by default; raises without
+    a GPU unless the caller passes device="cpu"), dispatching on its
+    container format (reference: core util/ModelGuesser.java): a Keras
+    .h5/.hdf5 archive, a reference-format DL4J zip, or this framework's
+    model zip (which alone carries meta.json). The CLI and the inference
+    server both load through it (the JAX package keeps it in its cli.py;
+    here the server, a lower layer, need not import the CLI)."""
+    if path.endswith((".h5", ".hdf5")):
+        from deeplearning4j_tpu_torch.modelimport.keras import (
+            import_keras_model_and_weights,
+        )
+
+        return import_keras_model_and_weights(path, device=device)
+    with zipfile.ZipFile(path) as zf:
+        names = set(zf.namelist())
+        conf = (json.loads(zf.read("configuration.json"))
+                if "configuration.json" in names else None)
+    # both formats carry configuration.json + coefficients.bin; only this
+    # framework's zips have meta.json (utils/model_serializer)
+    if "coefficients.bin" in names and "meta.json" not in names:
+        from deeplearning4j_tpu_torch.modelimport.dl4j import (
+            import_dl4j_computation_graph,
+            import_dl4j_multilayer,
+        )
+
+        if conf is not None and "networkInputs" in conf:
+            return import_dl4j_computation_graph(path, device=device)
+        return import_dl4j_multilayer(path, device=device)
+    return load_model(path, device=device)
+
+
 def verify_checkpoint(path: Union[str, os.PathLike]) -> dict:
     """Integrity check of a model/checkpoint zip against its per-entry
     SHA-256 manifest. Returns

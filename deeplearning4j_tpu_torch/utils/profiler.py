@@ -10,7 +10,8 @@ iterations (`ProfilerListener`), and reduces the capture to
 names: the port's own kernels K1–K8 by name, the library's conv and GEMM
 kernels (cuDNN, CUTLASS, cuBLAS), and the elementwise, reduction and
 copy kernels. `roofline_columns` puts each family's measured time beside
-its static cost-model bound (analysis/costmodel), and
+a bound: a port conv/BN kernel's own work (analysis/kernelcoverage), any
+other family's static cost-model group (analysis/costmodel); and
 `write_profile_json` writes the whole as one JSON artifact.
 
 Device activity only, on the card: with CPU activity on, key_averages()
@@ -195,35 +196,47 @@ def family_summary(rows: List[Tuple[str, float]]) -> List[Tuple[str, float]]:
 
 
 def roofline_columns(families_ms: dict, cost_model: Optional[dict],
-                     steps: int = 1) -> dict:
-    """Each measured family's ms beside its cost-model bound: the FLOPs
-    and bytes of the cost model's side of the family (the conv or the
-    product family by name; elementwise, reduction and copy by the kind
-    of op), for `steps` steps, and the least time the card could take for
-    them (`bound_ms`, the larger of FLOPs over the peak and bytes over
-    the memory rate; the H100 SXM figures off the card). A family that
-    maps to none stays time-only. `cost_model` is CostModel.to_dict()."""
-    if not cost_model:
+                     steps: int = 1, kernel_costs: Optional[dict] = None) -> dict:
+    """Each measured family's ms beside a bound for `steps` steps: the
+    least time the card could take for the FLOPs and bytes behind it
+    (`bound_ms`, the larger of FLOPs over the peak and bytes over the
+    memory rate; the H100 SXM figures off the card).
+
+    A port kernel named in `kernel_costs` (the launch-counter name after
+    its "K<n> " tag; analysis/kernelcoverage.kernel_costs, one step) is
+    held to its own work: `bound_of` "kernel", a time it cannot beat. Any
+    other family is held to its side of `cost_model` (CostModel.to_dict()
+    of one step): the conv or the product family by name, elementwise,
+    reduction and copy by the kind of op. That bound covers every op of
+    the group, whichever kernel ran it (`bound_of` "family group"), so a
+    kernel's time may lie under it. A family that maps to neither stays
+    time-only."""
+    if not cost_model and not kernel_costs:
         return {name: {"ms": ms} for name, ms in families_ms.items()}
     from deeplearning4j_tpu_torch.analysis.costmodel import _peak
 
     peak, bw = _peak()
-    fams = cost_model.get("families") or {}
+    fams = (cost_model or {}).get("families") or {}
     out = {}
     for name, ms in families_ms.items():
         row = {"ms": ms}
+        own = (kernel_costs or {}).get(name.split(" ", 1)[-1])
         group = _COST_GROUP.get(name)
-        if group is not None:
+        if own is not None and own.get("launches"):
+            flops, nbytes = steps * own["flops"], steps * own["bytes"]
+            row.update(flops=flops, bytes=nbytes, bound_of="kernel",
+                       launches=steps * own["launches"],
+                       bound_ms=max(flops / peak, nbytes / bw) * 1e3)
+        elif group is not None:
             how, key = group
             picked = {n: fc for n, fc in fams.items()
                       if (n == key if how == "family" else fc.get("kind") == key)}
             if picked:
                 flops = steps * sum(fc.get("flops", 0.0) for fc in picked.values())
                 nbytes = steps * sum(fc.get("bytes", 0.0) for fc in picked.values())
-                row["flops"] = flops
-                row["bytes"] = nbytes
-                row["cost_model_family"] = key
-                row["bound_ms"] = max(flops / peak, nbytes / bw) * 1e3
+                row.update(flops=flops, bytes=nbytes, bound_of="family group",
+                           cost_model_family=key,
+                           bound_ms=max(flops / peak, nbytes / bw) * 1e3)
         out[name] = row
     return out
 
@@ -231,9 +244,11 @@ def roofline_columns(families_ms: dict, cost_model: Optional[dict],
 def write_profile_json(log_dir: str, path: str, top_ops: int = 40,
                        meta: Optional[dict] = None,
                        cost_model: Optional[dict] = None,
-                       steps: int = 1) -> dict:
+                       steps: int = 1,
+                       kernel_costs: Optional[dict] = None) -> dict:
     """Export the family aggregation of the newest capture in log_dir as a
-    JSON artifact. With `cost_model` (CostModel.to_dict() of one step) the
+    JSON artifact. With `cost_model` (CostModel.to_dict() of one step)
+    and/or `kernel_costs` (kernelcoverage.kernel_costs, one step) the
     export carries each family's roofline columns for `steps` steps.
     Returns the payload (families empty when log_dir holds no capture)."""
     rows, device = _read_summary(log_dir)
@@ -250,7 +265,11 @@ def write_profile_json(log_dir: str, path: str, top_ops: int = 40,
     }
     if cost_model is not None:
         payload["cost_model"] = cost_model
-        payload["families"] = roofline_columns(families_ms, cost_model, steps)
+    if kernel_costs is not None:
+        payload["kernel_costs"] = kernel_costs
+    if cost_model is not None or kernel_costs is not None:
+        payload["families"] = roofline_columns(families_ms, cost_model, steps,
+                                               kernel_costs)
     with open(path, "w") as f:
         json.dump(payload, f, indent=2)
     logger.info("profile JSON written to %s (%d families)", path, len(fams))

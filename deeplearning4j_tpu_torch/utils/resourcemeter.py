@@ -39,8 +39,11 @@ beyond that one read.
 
 from __future__ import annotations
 
+import argparse
+import json
 import math
 import re
+import sys
 import threading
 import weakref
 from typing import Dict, List, Optional, Tuple
@@ -494,3 +497,94 @@ def conservation(values: Dict[str, float],
         "device_seconds_by_tier": proc,
         "tenant_device_seconds_by_tier": per_tier_sum,
     }
+
+
+# -- t1 smoke -----------------------------------------------------------------
+
+def smoke(device=None) -> dict:
+    """Own-interpreter tier-1 gate: two tenants through the decode smoke
+    plus one metered fit, then asserts cross-tier conservation holds
+    non-vacuously and that `cli tenants` renders the in-process view with
+    exit 0. Runs on `device` ("cuda" when None; pass "cpu" for the CPU)."""
+    import numpy as np
+
+    enable()
+    from deeplearning4j_tpu_torch.serving import decode as _decode
+
+    dec = _decode.smoke(device=device)
+    # one metered fit under a named tenant: training spend lands next to
+    # the decode tenants' in the same vocabulary
+    from deeplearning4j_tpu_torch.nn.conf import (
+        DenseLayer,
+        NeuralNetConfiguration,
+        OutputLayer,
+    )
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.utils import devprof as _devprof
+
+    conf = (NeuralNetConfiguration.builder().seed(7)
+            .learning_rate(0.05).weight_init("xavier").list()
+            .layer(DenseLayer(n_in=8, n_out=8, activation="tanh"))
+            .layer(OutputLayer(n_in=8, n_out=4, activation="softmax",
+                               loss="mcxent"))
+            .build())
+    net = MultiLayerNetwork(conf, device=device).init().set_tenant("trainer")
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((32, 8)).astype(np.float32)
+    y = np.eye(4, dtype=np.float32)[rng.integers(0, 4, 32)]
+    prof = _devprof.get_profiler()
+    prev_sample_every = prof.sample_every
+    prof.sample_every = 1  # every step measures a device window
+    try:
+        with _tenancy.tenant_scope("trainer"):
+            net.fit(x, y, batch_size=8, epochs=3, async_prefetch=False)
+            prof.sample_now(net)
+    finally:
+        prof.sample_every = prev_sample_every
+
+    values = _metrics.get_registry().scalar_values()
+    cons = conservation(values)
+    table = spend_table(values)
+    trainer_sec = table.get("trainer", _empty_spend())[
+        "device_seconds"].get(TIER_TRAINING, 0.0)
+    decode_tenants = {t for t, rec in table.items()
+                      if rec["device_seconds"].get(TIER_DECODE, 0.0) > 0}
+    # non-vacuous: both decode tenants AND the metered fit actually spent
+    moved = trainer_sec > 0 and {"a", "b"} <= decode_tenants
+    from deeplearning4j_tpu_torch.cli import main as cli_main
+
+    cli_rc = cli_main(["--device", str(device or "cuda"), "tenants"])
+    return {
+        "decode_ok": bool(dec.get("ok")),
+        "conservation": cons,
+        "trainer_device_seconds": trainer_sec,
+        "decode_tenants": sorted(decode_tenants),
+        "moved": moved,
+        "cli_tenants_rc": cli_rc,
+        "ok": bool(dec.get("ok") and cons["ok"] and moved
+                   and cli_rc == 0),
+    }
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(
+        description="tenant resource-meter smoke (tier-1 gate)")
+    ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--device", default="cuda",
+                    help="torch device (default cuda; raises without a GPU "
+                         "unless given cpu)")
+    args = ap.parse_args(argv)
+    if not args.smoke:
+        ap.error("nothing to do (pass --smoke)")
+    report = smoke(device=args.device)
+    sys.stdout.write(json.dumps(report, indent=1, default=str) + "\n")
+    return 0 if report["ok"] else 1
+
+
+if __name__ == "__main__":
+    # `python -m` would otherwise run a SECOND copy of this module (as
+    # __main__) whose _METER/_BOOKS globals are disjoint from the ones
+    # decode/cli import — the smoke must arm the canonical instance
+    from deeplearning4j_tpu_torch.utils import resourcemeter as _canonical
+
+    sys.exit(_canonical.main())

@@ -159,10 +159,11 @@ def test_zip_loaders_refuse_to_run_on_cpu_silently(monkeypatch, tmp_path):
 
 
 def test_server_loader_refuses_to_run_on_cpu_silently(monkeypatch, tmp_path):
-    """The inference server's model loader (its copy of the JAX CLI's
-    guess_and_load_model) defaults to "cuda" and raises without a GPU,
-    for the port's zip and a reference-format DL4J zip alike; device="cpu"
-    loads on the CPU. The server's main() takes the same default."""
+    """The inference server's model loader (the JAX CLI's
+    guess_and_load_model, kept beside the port's serializer) defaults to
+    "cuda" and raises without a GPU, for the port's zip and a
+    reference-format DL4J zip alike; device="cpu" loads on the CPU. The
+    server's main() takes the same default."""
     from deeplearning4j_tpu_torch.modelimport.dl4j import export_dl4j_zip
     from deeplearning4j_tpu_torch.models.charlstm import char_lstm_network
     from deeplearning4j_tpu_torch.serving import inference_server as srv

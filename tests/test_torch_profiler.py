@@ -100,6 +100,104 @@ def test_roofline_columns_map_families_to_the_cost_model():
     assert P.roofline_columns(fams, None)["K6 bn_apply"] == {"ms": 0.5}
 
 
+def _one_conv_bn_graph(relu: bool):
+    """input 8x8x3 -> 3x3 SAME conv (4 out, no bias) -> BN [-> relu] -> out."""
+    from deeplearning4j_tpu_torch.nn.conf import NeuralNetConfiguration
+    from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
+    from deeplearning4j_tpu_torch.nn.conf.layers import (
+        ActivationLayer,
+        BatchNormalization,
+        ConvolutionLayer,
+        GlobalPoolingLayer,
+        OutputLayer,
+    )
+
+    gb = (NeuralNetConfiguration.builder().seed(1).graph_builder()
+          .add_inputs("input").set_input_types(InputType.convolutional(8, 8, 3)))
+    gb.add_layer("c", ConvolutionLayer(kernel_size=(3, 3), stride=(1, 1), n_out=4,
+                                       convolution_mode="same", has_bias=False,
+                                       activation="identity"), "input")
+    gb.add_layer("bn", BatchNormalization(), "c")
+    last = "bn"
+    if relu:
+        gb.add_layer("act", ActivationLayer(activation="relu"), "bn")
+        last = "act"
+    gb.add_layer("pool", GlobalPoolingLayer(pooling_type="avg"), last)
+    gb.add_layer("out", OutputLayer(n_out=2, activation="softmax", loss="mcxent"), "pool")
+    gb.set_outputs("out")
+    return gb.build()
+
+
+@pytest.mark.parametrize("relu", [False, True])
+def test_kernel_costs_count_one_conv_bn_by_hand(relu):
+    """kernelcoverage.kernel_costs on one 3x3 conv -> BN at batch 2, bf16:
+    K5 reads x (2x8x8x3) and w (3x3x3x4) and writes y (2x8x8x4) plus two
+    f32 [4] statistics; its FLOPs are 2*n*cout*cin over the 22x22 valid
+    SAME taps; K6 reads and writes y; K7 reads g and y, K8 reads g and y
+    and writes dx, each one tensor more when the BN applies the ReLU."""
+    from deeplearning4j_tpu_torch.analysis.kernelcoverage import kernel_costs
+
+    kc = kernel_costs(_one_conv_bn_graph(relu), batch=2, itemsize=2)
+    mc, gate = 2 * 8 * 8 * 4, int(relu)
+    assert kc["conv_kxk_stats"] == {"flops": 2.0 * 2 * 4 * 3 * 22 * 22,
+                                    "bytes": 2 * (384 + 108 + mc) + 8 * 4, "launches": 1}
+    assert kc["conv1x1_stats"]["launches"] == 0
+    assert kc["bn_apply"] == {"flops": 3.0 * mc, "bytes": 2 * 2 * mc + 12 * 4,
+                              "launches": 1}
+    assert kc["bn_backward_reduce"]["bytes"] == 2 * (2 + gate) * mc + 8 * 4
+    assert kc["bn_backward_apply"]["bytes"] == 2 * (3 + gate) * mc + 12 * 4
+
+
+def test_kernel_costs_launches_match_the_resnet50_routing():
+    """ResNet-50 at b128: the instances priced are the ones the process
+    routes to K4-K8 (36 1x1, 17 kxk, a BN pass of each kind per conv),
+    and 33 of the 53 BNs (the stem's, every block's _a and _b) apply the
+    ReLU, so K7 moves 33 [M, C] reads more than its ungated floor."""
+    from deeplearning4j_tpu_torch.analysis import kernelcoverage as kc
+    from deeplearning4j_tpu_torch.analysis.costmodel import conv_instance_cost
+    from deeplearning4j_tpu_torch.models.resnet import resnet50_conf
+
+    conf = resnet50_conf()
+    costs = kc.kernel_costs(conf, batch=128, itemsize=2)
+    per_step = kc.launches_per_step(kc.coverage_table(conf, batch=128, planning=False))
+    assert {k: costs[k]["launches"] for k in per_step} == per_step
+    assert costs["bn_backward_reduce"]["launches"] == 53
+    assert costs["bn_backward_apply"]["launches"] == 53
+    outs = {name: conv_instance_cost(kernel=c["kernel"], stride=c["stride"],
+                                     x_shape=c["x_shape"], n_out=c["n_out"],
+                                     itemsize=2)["out_shape"]
+            for name, c in kc.conv_instances(conf, batch=128)}
+    mc = {name: s[0] * s[1] * s[2] * s[3] for name, s in outs.items()}
+    gated = [n for n in mc if n.endswith(("_a_conv", "_b_conv")) or n == "stem_conv"]
+    assert len(gated) == 33
+    chans = sum(s[3] for s in outs.values())
+    assert costs["bn_backward_reduce"]["bytes"] == (
+        2 * 2 * sum(mc.values()) + 2 * sum(mc[n] for n in gated) + 8 * chans)
+
+
+def test_roofline_columns_hold_port_kernels_to_their_own_work():
+    """With kernel_costs, K4-K8 are held to their own instances' work
+    (bound_of "kernel", the launches it covers); a family without its own
+    count keeps its cost-model group's bound and says so."""
+    m = costmodel.train_step_cost(_lstm(), batch_size=2, timesteps=12).to_dict()
+    own = {"conv1x1_stats": {"flops": 4e12, "bytes": 1e9, "launches": 36},
+           "bn_apply": {"flops": 3e9, "bytes": 6.7e9, "launches": 53},
+           "conv_kxk_stats": {"flops": 0.0, "bytes": 0.0, "launches": 0}}
+    fams = {"K4 conv1x1_stats": 9.0, "K6 bn_apply": 4.0, "K5 conv_kxk_stats": 1.0,
+            "K1 lstm_sequence": 1.0, "other": 0.3}
+    cols = P.roofline_columns(fams, m, steps=2, kernel_costs=own)
+    k4 = cols["K4 conv1x1_stats"]
+    assert (k4["bound_of"], k4["launches"], k4["flops"]) == ("kernel", 72, 8e12)
+    assert k4["bound_ms"] == pytest.approx(8e12 / 989e12 * 1e3)
+    assert cols["K6 bn_apply"]["bound_ms"] == pytest.approx(2 * 6.7e9 / 3.35e12 * 1e3)
+    assert cols["K1 lstm_sequence"]["bound_of"] == "family group"
+    assert "bound_ms" not in cols["K5 conv_kxk_stats"]  # none routed, no conv priced
+    assert cols["other"] == {"ms": 0.3}
+    only = P.roofline_columns(fams, None, steps=1, kernel_costs=own)
+    assert only["K4 conv1x1_stats"]["bound_of"] == "kernel"
+    assert only["K1 lstm_sequence"] == {"ms": 1.0}
+
+
 def test_trace_writes_a_summary_and_profile_json(tmp_path):
     a = torch.randn(64, 64)
     with P.trace(str(tmp_path)):

@@ -13,10 +13,13 @@ leaves' gradient norm (taken while a sentinel is attached).
 Against the JAX package: the same verdicts at the same iterations, the
 same quarantine records, the same rollback checkpoint, and final
 parameters within f32 rtol 1e-5 / atol 1e-7, both started from one zip.
-Three tests of the JAX file wait for unported modules (ROADMAP):
-`test_cli_resume_integrity_preflight` and
-`test_chaos_divergence_preset_loop` (cli.py) and
-`test_slo_default_pack_grad_norm_precursor` (analysis/slo.py).
+Every test of the JAX file has its counterpart here, the last three on
+the port's cli.py and analysis/slo.py: `cli resume`'s integrity
+preflight (the same exit codes and verdicts as the JAX CLI on the same
+directories), the divergence chaos preset's loop (recovered across two
+seeds, each replayed to the same event log, and the JAX CLI's verdict
+and events for the same seed), and the default SLO pack's grad-norm
+precursor rule (the same rule and transitions as the JAX pack's).
 """
 
 import glob
@@ -625,3 +628,125 @@ def test_frozen_leaves_enter_the_norm_only_while_a_sentinel_is_attached(
                                rtol=1e-5)
     assert all(torch.equal(a, b) for a, b in zip(tnet.params(), tnet2.params()))
     torch_parity.assert_params_close(jnet, tnet, "f32_step")
+
+
+def test_cli_resume_integrity_preflight(tmp_path, capsys):
+    """`cli resume <dir>`: per-entry digest report, exit 1 on a
+    corrupted newest checkpoint, exit 0 (with a note) on pre-digest
+    legacy checkpoints — the JAX CLI, reading the same directories,
+    gives the same exit codes."""
+    from deeplearning4j_tpu.cli import main as jax_cli_main
+    from deeplearning4j_tpu_torch.cli import main as port_main
+
+    def both(path):
+        rc = port_main(["--device", "cpu", "resume", path])
+        out = capsys.readouterr().out
+        assert jax_cli_main(["resume", path]) == rc
+        capsys.readouterr()
+        return rc, out
+
+    ckdir = str(tmp_path / "ck")
+    _fit_with_checkpoints(ckdir)
+    rc, out = both(ckdir)
+    assert rc == 0 and "integrity: ok" in out
+
+    cks = scan_checkpoints(ckdir)
+    # legacy directory: manifest stripped from a good zip (taken before
+    # the newest is corrupted below)
+    legacy_dir = str(tmp_path / "legacy")
+    os.makedirs(legacy_dir)
+    src = os.path.join(ckdir, cks[-2][1])
+    dst = os.path.join(legacy_dir, cks[-2][1])
+    with zipfile.ZipFile(src) as zin, zipfile.ZipFile(dst, "w") as zout:
+        for name in zin.namelist():
+            if name != "manifest.json":
+                zout.writestr(name, zin.read(name))
+
+    corrupt_zip_entry(os.path.join(ckdir, cks[-1][1]))
+    rc, out = both(ckdir)
+    assert rc == 1
+    assert "integrity: FAILED" in out
+    assert "unreadable" in out or "mismatch" in out
+
+    rc, out = both(legacy_dir)
+    assert rc == 0 and "no digest manifest" in out
+
+
+def test_slo_default_pack_grad_norm_precursor():
+    """The default pack carries a rate-of-change rule on the sentinel's
+    train_grad_norm gauge; a fast ramp fires it (warning), absence of
+    the series never alerts — the same rule and transitions as the JAX
+    package's pack."""
+    from deeplearning4j_tpu.analysis import slo as jax_slo
+    from deeplearning4j_tpu_torch.analysis import slo
+
+    def run(mod):
+        rules = mod.default_rule_pack(sample_every=1.0)
+        rule = next(r for r in rules
+                    if r.name == "grad_norm_divergence_precursor")
+        assert rule.kind == "rate_of_change"
+        assert rule.severity == "warning"
+        rs = mod.SLORuleSet([rule])
+        # no series -> never violated
+        assert rs.evaluate(0.0, {}) == []
+        # ramp at 100/s for > for_seconds -> fires
+        transitions = []
+        for i in range(6):
+            transitions += rs.evaluate(
+                float(i), {"train_grad_norm": 100.0 * i})
+        assert any(t["to"] == "firing" for t in transitions)
+        return rule.to_dict(), transitions
+
+    assert run(slo) == run(jax_slo)
+
+
+def test_chaos_divergence_preset_loop(tmp_path, capsys):
+    """The chaos-loop gate: the divergence preset recovers (exit 0)
+    across two seeds, two runs of the same seed produce the same event
+    log (replay determinism at the CLI surface), and the JAX CLI gives
+    the same verdict and events for seed 0. A vacuous plan (the NaN
+    never fires) must FAIL the gate."""
+    import json
+
+    from deeplearning4j_tpu.cli import main as jax_cli_main
+    from deeplearning4j_tpu_torch.cli import main as port_main
+
+    def cli(*argv):
+        return port_main(["--device", "cpu", *argv])
+
+    reports = {}
+    for seed in (0, 1):
+        for rep in range(2):
+            out = str(tmp_path / f"r{seed}_{rep}.json")
+            rc = cli("chaos", "--preset", "divergence", "--steps", "16",
+                     "--seed", str(seed), "--json", out)
+            capsys.readouterr()
+            assert rc == 0, f"divergence chaos seed={seed} failed"
+            with open(out) as f:
+                reports[seed, rep] = json.load(f)
+    for seed in (0, 1):
+        assert reports[seed, 0]["events"] == reports[seed, 1]["events"]
+    for rep in reports.values():
+        assert rep["outcome"] == "recovered"
+        assert rep["final_score_finite"] is True
+        assert rep["loop_exercised"] is True
+        assert rep["sentinel"]["quarantined"] >= 1
+    out = str(tmp_path / "jax0.json")
+    assert jax_cli_main(["chaos", "--preset", "divergence", "--steps", "16",
+                         "--seed", "0", "--json", out]) == 0
+    capsys.readouterr()
+    with open(out) as f:
+        ref = json.load(f)
+    got = reports[0, 0]
+    assert ref["verdict"] == got["verdict"] == "ok"
+    assert ref["events"] == got["events"]
+    assert ref["invocations"] == got["invocations"]
+    assert ref["sentinel"]["quarantine_records"] == got["sentinel"]["quarantine_records"]
+    plan_path = str(tmp_path / "vacuous.json")
+    with open(plan_path, "w") as f:
+        f.write(fp.FaultPlan(seed=0).add(
+            "train_step", "nan", between=(999, 999)).to_json())
+    rc = cli("chaos", "--preset", "divergence", "--steps", "6",
+             "--plan", plan_path)
+    capsys.readouterr()
+    assert rc == 1
