@@ -2,6 +2,8 @@
 """Drive the PyTorch/CUDA port on one NVIDIA GPU and check it end to end.
 
     python3 chip_smoke.py [--seed N] [--out chiprun_out/chip_smoke.json]
+    python3 chip_smoke.py --only 18     # phase 1's build, then phase 18 alone
+    python3 chip_smoke.py --only 18a    # phase 1's build, then 18a over every visible card
 
 Phases; any failure raises and the script exits non-zero without its
 result lines:
@@ -384,6 +386,27 @@ result lines:
    each with one seed: verdict ok, equal events, and `cli trace` renders
    each export. Phase 17's numbers are a JSON line before the last
    three.
+18. ParallelInference over several devices of one process and the scan
+   over identical blocks (parallel/inference.py `devices=`, nn/
+   compgraph.py `set_block_scan`). 18a: phase 3's char-LSTM behind
+   ParallelInference(max_batch_size=16), SHARD_REQUESTS requests of 1-16
+   rows (weighted 1/n) from SERVE_CLIENTS threads, with the default
+   devices (one shard on the card), split over SHARD_DEVICES (two shards
+   on the one card, each on its own stream) and, where the process sees
+   several cards, over every card; the arms alternate SHARD_ROUNDS times.
+   Every row within SHARD_RTOL/SHARD_ATOL of that request's own output(),
+   K1 launching layers x shards x groups times, `output_compile_count`
+   equal to the JAX package's `_expected_traces(buckets, shards)`, and
+   after a set_params a request served with the new parameters;
+   requests/s, p50, p99 of each arm and round. 18b: ResNet-50 bf16 b128
+   unrolled against scanned runs: output() and SCAN_FUSED_K eager steps
+   bit-equal (params, Nesterovs v, BN statistics; cudnn.deterministic),
+   K4-K8 launches equal and as the coverage table says,
+   `compile_total{kind="graph_block"}` 12 against 4; then set_fused_steps(4)
+   over SCAN_GROUPS groups (warm-up, capture, replay) bit-equal with equal
+   launches; each arm's eager and graphed step p50/p99 over SCAN_ROUNDS
+   alternating rounds (24 steps and 24 replays an arm).
+   Phase 18's numbers are a JSON line before the last three.
 The last three lines of standard output are the kernels JSON line, the
 card line, and {"ok": true, "device": {...}}. Imports nothing of JAX.
 """
@@ -8047,6 +8070,276 @@ def cli_locks_summary(p17, card) -> dict:
             "launches": p17["launches"], "seconds": p17["seconds"]}
 
 
+SHARD_DEVICES = ("cuda:0", "cuda:0")  # 18a: two shards on the one card
+SHARD_MAX_BATCH = 16       # 18a: buckets 1, 2, 4, 8, 16; requests of 1-16 rows
+SHARD_REQUESTS = 1024      # 18a: requests in each arm's round
+SHARD_ROUNDS = 2           # 18a: the arms alternate, default then sharded, this many times
+SHARD_RTOL, SHARD_ATOL = 1e-5, 1e-6  # 18a: a served row against its own output()
+SCAN_FUSED_K = 4           # 18b: batches, eager steps before the holds; set_fused_steps(4) ...
+SCAN_GROUPS = 3            # ... warm-up, capture + replay, replay: the held groups
+SCAN_ROUNDS = 2            # 18b: the timed arms alternate, unrolled then scanned, this many times
+SCAN_EAGER_EPOCHS = 3      # ... each round SCAN_FUSED_K x this eager steps timed (24 an arm)
+SCAN_TIMED_GROUPS = 12     # ... each round this many graphed groups timed (24 replays an arm)
+SCAN_BODIES = (12, 4)      # 18b: graph_block, ResNet-50 unrolled and scanned
+
+
+def expected_traces(buckets, n_shards) -> int:
+    """Distinct forward shapes once every bucket is padded to a multiple of
+    the shard count (the JAX package's serving test's `_expected_traces`)."""
+    return len({b + (-b) % n_shards for b in buckets})
+
+
+def shard_arm(torch, counts, devices, sizes, tokens, seed, card):
+    """One arm of 18a: a fresh full-width char-LSTM behind ParallelInference
+    with `devices`, warmed, then every request from SERVE_CLIENTS threads;
+    then the model's parameters change (set_params) and one request must
+    read the new ones on every shard."""
+    from deeplearning4j_tpu_torch.models.charlstm import char_lstm_network
+    from deeplearning4j_tpu_torch.parallel import ParallelInference
+
+    net = char_lstm_network(vocab_size=VOCAB, hidden=HIDDEN, layers=LAYERS, seed=seed)
+    eye = np.eye(VOCAB, dtype=np.float32)
+    xs = [eye[t] for t in tokens]
+    pi = ParallelInference(net, max_batch_size=SHARD_MAX_BATCH, devices=devices)
+    lat = [None] * len(xs)
+    try:
+        pi.warmup((SERVE_T, VOCAB))
+        warm = net.output_compile_count
+        torch.cuda.synchronize()
+        counts.reset()
+
+        def call(i):
+            t = time.perf_counter()
+            out = pi.output(xs[i])
+            lat[i] = time.perf_counter() - t
+            return out
+
+        outs, wall = run_clients(SERVE_CLIENTS, list(range(len(xs))), call)
+        torch.cuda.synchronize()
+        launches = counts.read()
+        m = pi.metrics()
+        after = net.output_compile_count
+        n_shards = pi.n_shards
+        big = int(np.argmax(sizes))
+        net.set_params(net.params() * 0.5)
+        changed = pi.output(xs[big])
+    finally:
+        pi.shutdown()
+    bad = [repr(o) for o in outs if isinstance(o, Exception)]
+    check(not bad, f"18a: requests failed: {bad[:3]}")
+    want = expected_traces(pi.buckets, n_shards)
+    check(warm == want and after == warm,
+          f"18a: {n_shards} shards: {warm} forward-cache entries at warm-up, {after} after "
+          f"traffic, expected {want}")
+    check(launches["lstm_sequence"] == LAYERS * n_shards * m["batches"],
+          f"18a: {launches['lstm_sequence']} K1 launches for {m['batches']} groups of "
+          f"{n_shards} shards x {LAYERS} layers")
+
+    def excess_and_err(out, x):
+        ref = net.output(x).float().cpu().numpy()
+        return (float((np.abs(out - ref) - SHARD_ATOL - SHARD_RTOL * np.abs(ref)).max()),
+                float(np.abs(out - ref).max()))
+
+    changed_excess, changed_err = excess_and_err(changed, xs[big])
+    check(changed_excess <= 0,
+          f"18a: {n_shards} shards: after set_params a request differs from output() by "
+          f"{changed_err}: a shard served the old parameters")
+    net.set_params(net.params() * 2.0)
+    excess, err = 0.0, 0.0
+    for x, out in zip(xs, outs):
+        e, a = excess_and_err(out, x)
+        excess, err = max(excess, e), max(err, a)
+    check(excess <= 0, f"18a: {n_shards} shards: a row differs from its own output() by "
+                       f"{err} (beyond rtol {SHARD_RTOL}, atol {SHARD_ATOL})")
+    rec = {"devices": [str(d) for d in pi.devices], "n_shards": n_shards,
+           "forward_compiles": warm, "expected_traces": want,
+           "batches": m["batches"], "bucket_hits": m["bucket_hits"],
+           "k1_launches": launches["lstm_sequence"], "launches": launches,
+           "max_abs_err": err, "after_set_params_err": changed_err,
+           **latency_stats(lat, wall, sum(len(x) for x in xs))}
+    print(f"  18a {n_shards} shard(s) on {rec['devices']}: {len(xs)} requests "
+          f"({rec['examples']} rows) from {SERVE_CLIENTS} threads, {wall:.3f} s: "
+          f"{rec['requests_per_s']:.1f} requests/s, p50 {rec['p50_ms']:.2f} ms p99 "
+          f"{rec['p99_ms']:.2f} ms; K1 {rec['k1_launches']} = {LAYERS} layers x {n_shards} x "
+          f"{m['batches']} groups; output_compile_count {warm} = _expected_traces "
+          f"{want}; rows vs own output() max abs {err:.3e}, after set_params "
+          f"{changed_err:.3e} (tolerance rtol {SHARD_RTOL}, atol {SHARD_ATOL}) on {card}")
+    del net
+    return rec
+
+
+def shard_arms(torch) -> list:
+    """18a's arms: the default (one shard), two shards on the one card and,
+    where the process sees several cards, one shard on each."""
+    arms = [("default", None), ("sharded", list(SHARD_DEVICES))]
+    n = torch.cuda.device_count()
+    if n > 1:
+        arms.append(("cards", [f"cuda:{i}" for i in range(n)]))
+    return arms
+
+
+def shards_phase(torch, counts, seed, card):
+    """18a: the full-width char-LSTM behind ParallelInference split over two
+    shards of the one card (and over every card, where there are several),
+    against the default (one shard); the arms alternate SHARD_ROUNDS times."""
+    rng = np.random.default_rng(seed + 18)
+    sizes = request_sizes(rng, SHARD_REQUESTS, top=SHARD_MAX_BATCH)
+    tokens = [rng.integers(0, VOCAB, (n, SERVE_T)) for n in sizes]
+    arms = shard_arms(torch)
+    out = {arm: [] for arm, _ in arms}
+    for _ in range(SHARD_ROUNDS):
+        for arm, devices in arms:
+            out[arm].append(shard_arm(torch, counts, devices, sizes, tokens, seed, card))
+            torch.cuda.empty_cache()
+    shards = {arm: {r["n_shards"] for r in rounds} for arm, rounds in out.items()}
+    check(shards["default"] == {1} and shards["sharded"] == {2},
+          f"18a: shards {shards}")
+    return out
+
+
+def graph_block_count(metrics) -> float:
+    return metrics.get_registry().counter(
+        "compile_total", "forward-cache insertions (new shapes)",
+        ("kind",)).labels("graph_block").value
+
+
+def block_scan_phase(torch, F, counts, metrics, seed, card):
+    """18b: ResNet-50 bf16 at batch 128, unrolled against scanned runs, eager
+    and graphed (set_fused_steps(4))."""
+    from deeplearning4j_tpu_torch.data import DataSet, DataSetIterator, ExistingDataSetIterator
+    from deeplearning4j_tpu_torch.models.resnet import resnet50_network
+
+    data = resnet_batches(torch, F, DataSet, seed + 180, SCAN_FUSED_K, RESNET_BATCH)
+    per_step = resnet_per_step(RESNET_BATCH)
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+
+    def network(mode, k=1):
+        return resnet50_network(precision="bf16", seed=seed,
+                                learning_rate=RESNET_LR).set_block_scan(mode).set_fused_steps(k)
+
+    def timed(nets, epochs, per):
+        """Each arm's synced step seconds, the arms alternating SCAN_ROUNDS
+        times, `epochs` passes over the batches a round."""
+        steps = {mode: [] for mode in nets}
+        for _ in range(SCAN_ROUNDS):
+            for mode, net in nets.items():
+                clock = SyncClock(torch, DataSetIterator, data, epochs)
+                net.fit(clock.it, async_prefetch=False)
+                steps[mode] += [t / per for t in dispatch_times(clock, per)]
+        return {mode: quantiles(ts) for mode, ts in steps.items()}
+
+    rec = {}
+    try:
+        nets, eager = {}, {}
+        for mode in ("unroll", "scan"):
+            net = nets[mode] = network(mode)
+            with torch.no_grad():
+                out = net.output(data[0].features)
+            torch.cuda.synchronize()
+            c0 = graph_block_count(metrics)
+            counts.reset()
+            net.fit(ExistingDataSetIterator(data), async_prefetch=False)
+            torch.cuda.synchronize()
+            eager[mode] = {"output": out, "launches": counts.read(),
+                           "graph_block": graph_block_count(metrics) - c0}
+        u, s = eager["unroll"], eager["scan"]
+        same = nets_equal(torch, nets["unroll"], nets["scan"])
+        check(torch.equal(u["output"], s["output"]),
+              "18b: output() differs between the unrolled and the scanned ResNet-50")
+        check(same, "18b: eager steps differ between unrolled and scanned (params, Nesterovs "
+                    "v or BN statistics)")
+        want = {n: v * len(data) for n, v in per_step.items()}
+        for mode in ("unroll", "scan"):
+            got = {n: eager[mode]["launches"][n] for n in K4_K8}
+            check(got == want, f"18b: {mode} eager K4-K8 launches {got}, expected {want}")
+        check((u["graph_block"], s["graph_block"]) == SCAN_BODIES,
+              f"18b: graph_block {u['graph_block']} unrolled, {s['graph_block']} scanned, "
+              f"expected {SCAN_BODIES}")
+        rec["eager"] = {"bit_equal": same, "launches": want,
+                        "graph_block": {"unroll": u["graph_block"], "scan": s["graph_block"]}}
+        rec["launches"] = {"block_scan": s["launches"]}
+        print(f"  18b eager: {len(data)} steps, output() and params/Nesterovs v/BN statistics "
+              f"bit-equal {same}; K4-K8 launches {want} in both; graph_block "
+              f"{u['graph_block']:.0f} unrolled, {s['graph_block']:.0f} scanned, on {card}")
+        rec["eager"]["step_s"] = timed(nets, SCAN_EAGER_EPOCHS, 1)
+        q = rec["eager"]["step_s"]
+        print(f"  18b eager step p50 {q['unroll']['p50'] * 1e3:.2f} ms unrolled, "
+              f"{q['scan']['p50'] * 1e3:.2f} ms scanned; p99 {q['unroll']['p99'] * 1e3:.2f} / "
+              f"{q['scan']['p99'] * 1e3:.2f} ms ({q['scan']['n']} synced steps an arm, "
+              f"{SCAN_ROUNDS} alternating rounds) on {card}")
+        del nets, eager, u, s
+        torch.cuda.empty_cache()
+        k = SCAN_FUSED_K
+        nets, launches = {}, {}
+        for mode in ("unroll", "scan"):
+            net = nets[mode] = network(mode, k)
+            counts.reset()
+            net.fit(ExistingDataSetIterator(data * SCAN_GROUPS), async_prefetch=False)
+            torch.cuda.synchronize()
+            launches[mode] = counts.read()
+            prog = list(net._programs.values())
+            check(len(prog) == 1 and prog[0].replays == SCAN_GROUPS - 1,
+                  f"18b: {mode} graphed programs {[(p.key, p.replays) for p in prog]}")
+        same = nets_equal(torch, nets["unroll"], nets["scan"])
+        want = {n: v * k * SCAN_GROUPS for n, v in per_step.items()}
+        check(same, "18b: graphed steps differ between unrolled and scanned")
+        got = {m: {n: launches[m][n] for n in K4_K8} for m in launches}
+        check(got["unroll"] == got["scan"] == want,
+              f"18b: graphed K4-K8 launches {got}, expected {want}")
+        rec["graphed"] = {"bit_equal": same, "launches": want}
+        rec["launches"]["block_scan_graphed"] = launches["scan"]
+        rec["graphed"]["step_s"] = timed(nets, SCAN_TIMED_GROUPS, k)
+        for mode, net in nets.items():
+            rec["graphed"][f"{mode}_pool_bytes"] = sum(g["pool_bytes"]
+                                                       for g in net.fit_graphs())
+        q = rec["graphed"]["step_s"]
+        print(f"  18b graphed (set_fused_steps({k}), {SCAN_GROUPS} groups: warm-up, capture, "
+              f"replay): bit-equal {same}; K4-K8 launches {want} in both; step p50 "
+              f"{q['unroll']['p50'] * 1e3:.3f} ms unrolled, {q['scan']['p50'] * 1e3:.3f} ms "
+              f"scanned, p99 {q['unroll']['p99'] * 1e3:.3f} / {q['scan']['p99'] * 1e3:.3f} ms "
+              f"({q['scan']['n']} replays an arm, {SCAN_ROUNDS} alternating rounds, host clock "
+              f"synced a group); graph pools "
+              f"{rec['graphed']['unroll_pool_bytes'] / 2 ** 30:.2f} / "
+              f"{rec['graphed']['scan_pool_bytes'] / 2 ** 30:.2f} GiB on {card}")
+        del nets
+    finally:
+        torch.backends.cudnn.deterministic = det
+    return rec
+
+
+def gaps_phase(torch, F, counts, metrics, seed, card, only_shards=False):
+    t0 = time.perf_counter()
+    out = {"shards": shards_phase(torch, counts, seed, card)}
+    torch.cuda.empty_cache()
+    out["launches"] = {"sharded_serving": out["shards"]["sharded"][0]["launches"]}
+    if not only_shards:
+        out["block_scan"] = block_scan_phase(torch, F, counts, metrics, seed, card)
+        torch.cuda.empty_cache()
+        out["launches"].update(out["block_scan"]["launches"])
+    out["seconds"] = time.perf_counter() - t0
+    print(f"  phase 18: {out['seconds']:.1f} s")
+    return out
+
+
+def gaps_summary(p18, card) -> dict:
+    keys = ("devices", "n_shards", "forward_compiles", "expected_traces", "k1_launches",
+            "requests", "seconds", "requests_per_s", "p50_ms", "p99_ms", "max_abs_err",
+            "after_set_params_err")
+    out = {"card": card,
+           "18a": {arm: [{k: r[k] for k in keys} for r in rounds]
+                   for arm, rounds in p18["shards"].items()},
+           "launches": p18["launches"], "seconds": p18["seconds"]}
+    bs = p18.get("block_scan")
+    if bs is not None:
+        out["18b_graph_block"] = bs["eager"]["graph_block"]
+        for kind in ("eager", "graphed"):
+            out[f"18b_{kind}_step_ms"] = {
+                m: {k: (v * 1e3 if k != "n" else v) for k, v in q.items()}
+                for m, q in bs[kind]["step_s"].items()}
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -8057,6 +8350,10 @@ def main(argv=None) -> int:
     ap.add_argument("--ckpt-dir", default=None, help="the child's checkpoint directory")
     ap.add_argument("--model-path", default=None, help="the server child's model zip")
     ap.add_argument("--port", type=int, default=None, help="the server child's port")
+    ap.add_argument("--only", choices=["18", "18a"], default=None,
+                    help="build the kernels, then run this phase (or 18a, the sharded "
+                         "serving, over every visible card) alone and print its JSON "
+                         "line (not the result lines)")
     args = ap.parse_args(argv)
     if args.child == "charlstm":
         return charlstm_child(args.ckpt_dir, args.seed)
@@ -8106,6 +8403,11 @@ def main(argv=None) -> int:
             elif "registers" in line or "spill" in line:
                 print(f"  {name} {fn}: {line.split(':', 1)[-1].strip()}")
     hgmma = tensor_core_check(cuda_build)
+    if args.only is not None:
+        p18 = gaps_phase(torch, F, LaunchCounts(fl, fcb), metrics, args.seed, card,
+                         only_shards=args.only == "18a")
+        print(json.dumps({"gaps": gaps_summary(p18, card)}))
+        return 0
 
     print(f"[2] kernels vs plain versions (tolerance: f32 {F32_ATOL} abs; "
           f"bf16 {BF16_ULP}*max(1, |plain|))")
@@ -8251,6 +8553,13 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     p17 = cli_locks_phase(torch, counts, p13, p15, args.seed, card)
 
+    print(f"[18] ParallelInference over several devices and the scan over identical blocks: "
+          f"the char-LSTM split over {SHARD_DEVICES} against one shard, ResNet-50 bf16 "
+          f"b{RESNET_BATCH} unrolled against looped runs, eager and set_fused_steps("
+          f"{SCAN_FUSED_K})")
+    torch.cuda.empty_cache()
+    p18 = gaps_phase(torch, F, counts, metrics, args.seed, card)
+
     # each main path's count, read just after it ran from zero
     by_path = {"output": sl["launches"], "serve": sv["launches"],
                "train": tr["launches"], "train_resnet": rn["launches"],
@@ -8267,7 +8576,7 @@ def main(argv=None) -> int:
                "recsys": p14["launches"],
                "ledger_serving": p14["ledger_serving"]["launches"],
                "observability": p15["launches"], "ui": p16["launches"],
-               **p17["launches"]}
+               **p17["launches"], **p18["launches"]}
     main_launches = {name: sum(c.get(name, 0) for c in by_path.values())
                      for name in rows}
     meta = {
@@ -8318,6 +8627,7 @@ def main(argv=None) -> int:
               "phase15": p15,
               "phase16": p16,
               "phase17": p17,
+              "phase18": p18,
               "build": {k: v["seconds"] for k, v in info.items()},
               "ptxas": {k: v["log"] for k, v in info.items() if k not in cuda_build.SOURCES},
               "seconds": time.perf_counter() - t_start}
@@ -8331,6 +8641,7 @@ def main(argv=None) -> int:
     print(json.dumps({"observability": observability_summary(p15, card)}))
     print(json.dumps({"ui": ui_summary(p16, card)}))
     print(json.dumps({"cli_locks": cli_locks_summary(p17, card)}))
+    print(json.dumps({"gaps": gaps_summary(p18, card)}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

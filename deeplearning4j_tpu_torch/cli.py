@@ -169,6 +169,8 @@ def cmd_inference_server(args) -> int:
         argv += ["--warmupShape", args.warmup_shape]
     if args.replicas != 1:
         argv += ["--replicas", str(args.replicas)]
+    if args.devices:
+        argv += ["--devices", args.devices]
     if args.decode_slots:
         argv += ["--decodeSlots", str(args.decode_slots)]
         if args.decode_eos is not None:
@@ -1889,6 +1891,9 @@ def main(argv=None) -> int:
                    help="feature shape to precompile, e.g. 784 or 28,28,1")
     i.add_argument("--replicas", type=int, default=1,
                    help=">=2 serves through a self-healing ReplicaPool")
+    i.add_argument("--devices", default=None,
+                   help="comma-separated torch devices each request group "
+                        "is split over (default: the model's device alone)")
     i.add_argument("--decode-slots", type=int, default=0,
                    help=">0 mounts the continuous-batching decode "
                         "engine (POST /generate) with this many slots")

@@ -40,12 +40,26 @@ Streaming inference (`rnn_time_step`) carries each recurrent layer's
 `optimization_algo` trains by SGD: the JAX package's graph never reads
 it (the line-search solvers are the sequential network's).
 
-Not ported yet: the scan over identical blocks (`set_block_scan`).
+`set_block_scan` is the JAX package's scan over runs of
+identically-configured, chain-connected units (ResNet-50's identity
+blocks: 4 runs of 2, 3, 5 and 2), detected by the same configuration
+analysis. PyTorch runs eagerly, so a scanned run walks its units one by
+one as the unrolled graph does, and outputs, gradients and states are
+bit-identical. What the scan changes is what it changes outside the
+JAX package's compiled program: `feed_forward` reports only each run's
+exit activation (the interior ones leave the walk's dict as the run
+ends), and `compile_total{kind="graph_block"}` counts one body per run
+whose units keep the carried shape against one per unit unrolled, at
+each new forward-cache entry or step signature. A unit that changes the
+carried shape, which the JAX scan refuses, counts and reports as
+unrolled.
 """
 
 from __future__ import annotations
 
 import copy
+import json
+import os
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
@@ -62,8 +76,13 @@ from deeplearning4j_tpu_torch.data.iterators import (
 from deeplearning4j_tpu_torch.nn.conf import layers as L
 from deeplearning4j_tpu_torch.nn.conf.graph import (
     ComputationGraphConfiguration,
+    ElementWiseVertex,
     LayerVertex,
+    MergeVertex,
+    ScaleVertex,
+    ShiftVertex,
 )
+from deeplearning4j_tpu_torch.nn.conf.serde import config_to_dict
 from deeplearning4j_tpu_torch.nn.layers.core import apply_dropout, center_loss_term
 from deeplearning4j_tpu_torch.nn.layers.registry import (
     LayerContext,
@@ -87,6 +106,128 @@ from deeplearning4j_tpu_torch.train.evaluation import (
     RegressionEvaluation,
 )
 from deeplearning4j_tpu_torch.train.updaters import updater_from_conf
+
+
+# -- runs of identical blocks ---------------------------------------------------
+
+
+def _vertex_signature(v):
+    """Structural identity of a vertex conf: (type, canonical-JSON config),
+    or None when the vertex cannot join a run (a preprocessor, a
+    recurrent or output layer, a vertex type outside the pointwise set)."""
+    if isinstance(v, LayerVertex):
+        lc = v.layer
+        if v.preprocessor is not None:
+            return None
+        if _is_recurrent(lc) or isinstance(lc, _OUTPUT_LAYER_TYPES):
+            return None
+        body = lc
+    elif isinstance(v, (ElementWiseVertex, MergeVertex, ScaleVertex,
+                        ShiftVertex)):
+        body = v
+    else:
+        return None
+    try:
+        return (type(v).__name__,
+                json.dumps(config_to_dict(body), sort_keys=True))
+    except Exception:
+        return None
+
+
+def _detect_block_runs(conf, topo, pidx_map):
+    """Maximal runs of >= 2 consecutive identical units in the topo order.
+    A unit of period p starting at topo index s repeats at s+p, s+2p, ...
+    when each repeated vertex has the same signature and the same
+    *relative* input offsets, every offset d at local position q is
+    internal (d <= q) or the previous unit's exit (d == q+1), no vertex
+    but the run's exit is consumed outside the run, and each unit holds
+    at least one layer. Returns the run records `_forward` walks."""
+    index = {n: i for i, n in enumerate(topo)}
+    n = len(topo)
+    sigs = [None] * n
+    offsets = [None] * n
+    for i, name in enumerate(topo):
+        v = conf.vertices.get(name)
+        if v is None:  # a graph input
+            continue
+        sigs[i] = _vertex_signature(v)
+        offsets[i] = tuple(i - index[src] for src in conf.vertex_inputs[name])
+
+    consumers: Dict[str, List[str]] = {}
+    for name, ins in conf.vertex_inputs.items():
+        for src in ins:
+            consumers.setdefault(src, []).append(name)
+
+    def unit_ok(s, p):
+        """Template unit [s, s+p): signable, chain-connected."""
+        for q in range(p):
+            i = s + q
+            if sigs[i] is None or offsets[i] is None:
+                return False
+            for d in offsets[i]:
+                if not (1 <= d <= q + 1):
+                    return False
+        return any(isinstance(conf.vertices[topo[s + q]], LayerVertex)
+                   for q in range(p))
+
+    def repeats(s, p):
+        k = 1
+        while s + (k + 1) * p <= n:
+            base = s + k * p
+            if all(sigs[base + q] == sigs[s + q]
+                   and offsets[base + q] == offsets[s + q] for q in range(p)):
+                k += 1
+            else:
+                break
+        return k
+
+    def run_ok(s, p, k):
+        lo, hi = s, s + p * k
+        for i in range(lo, hi - 1):
+            name = topo[i]
+            if name in conf.outputs:
+                return False
+            for c in consumers.get(name, ()):
+                if not (lo <= index[c] < hi):
+                    return False
+        return True
+
+    runs = []
+    i = len(conf.inputs)
+    while i < n:
+        found = None
+        for p in range(1, (n - i) // 2 + 1):
+            if not unit_ok(i, p):
+                continue
+            k = repeats(i, p)
+            if k >= 2 and run_ok(i, p, k):
+                found = (p, k)
+                break  # smallest period = most units collapsed
+        if found is None:
+            i += 1
+            continue
+        p, k = found
+        unit_names = topo[i:i + p]
+        layer_slots = [q for q in range(p)
+                       if isinstance(conf.vertices[unit_names[q]], LayerVertex)]
+        runs.append({
+            "start": i,
+            "period": p,
+            "count": k,
+            "entry": topo[i - 1],
+            "exit": topo[i + p * k - 1],
+            "unit_names": unit_names,
+            "offsets": [offsets[i + q] for q in range(p)],
+            "layer_slots": layer_slots,
+            "pidx_rows": [[pidx_map[topo[i + u * p + q]] for q in layer_slots]
+                          for u in range(k)],
+        })
+        i += p * k
+    return runs
+
+
+def _signature(xs) -> tuple:
+    return tuple((tuple(x.shape), str(x.dtype)) for x in xs)
 
 
 def _as_multidataset(ds) -> MultiDataSet:
@@ -148,9 +289,52 @@ class ComputationGraph(NetworkBase):
             conf.vertices[n].layer for n in self.layer_vertex_names]
         self.relu_fused_bn = relu_fused_bn_vertices(conf)
         self._relu_passed = frozenset(self.relu_fused_bn.values())
+        self._block_scan = None  # None = DL4J_BLOCK_SCAN decides
+        self._block_runs_cache = None
+        # the forward signatures whose runs were counted in graph_block
+        self._block_noted = frozenset()
 
     def _ordered_layer_confs(self):
         return self._layer_confs
+
+    # -- runs of identical blocks ----------------------------------------------
+
+    def set_block_scan(self, mode=True) -> "ComputationGraph":
+        """Treat each run of identically-configured blocks as ONE scanned
+        unit body instead of one body per block (True/"scan" on,
+        False/"unroll" off, None = the DL4J_BLOCK_SCAN environment
+        variable). Outputs and training are bit-identical;
+        `compile_total{kind="graph_block"}` counts one body per run
+        instead of one per block, and feed_forward() reports only each
+        run's exit activation, as in the JAX package. Drops the forward
+        cache and the fused steps' programs (a CUDA graph is captured
+        again, so the counter is noted anew)."""
+        if mode not in (True, False, None, "scan", "unroll"):
+            raise ValueError(
+                f"set_block_scan: expected True/'scan', False/'unroll' or "
+                f"None, got {mode!r}")
+        self._block_scan = mode
+        self._block_runs_cache = None
+        self._block_noted = frozenset()
+        with self._output_cache_lock:
+            self._output_fn = None
+        self._reset_step_programs()
+        return self
+
+    def _block_scan_enabled(self) -> bool:
+        mode = self._block_scan
+        if mode is None:
+            mode = os.environ.get("DL4J_BLOCK_SCAN", "0")
+        return mode in (True, "1", "scan", "on")
+
+    def _block_runs(self):
+        """The detected identical-unit runs (cached; pure configuration
+        analysis, so computed with the scan off too: the unrolled walk
+        counts its `graph_block` bodies by them)."""
+        if self._block_runs_cache is None:
+            self._block_runs_cache = _detect_block_runs(
+                self.conf, self.topo, self._pidx)
+        return self._block_runs_cache
 
     # -- init ----------------------------------------------------------------
 
@@ -171,12 +355,18 @@ class ComputationGraph(NetworkBase):
     # -- forward -------------------------------------------------------------
 
     def _forward(self, params, states, inputs: Sequence, *, training, rng,
-                 input_masks: Optional[Sequence] = None, preout_outputs=False):
+                 input_masks: Optional[Sequence] = None, preout_outputs=False,
+                 note_key=None):
         """Forward over the cached topo order. Returns (activations dict,
         new_states list). With `preout_outputs` the loss-head vertices
         return their pre-activation, for the loss, and record their
         post-dropout input features under "<name>__features" (the center
-        loss reads them)."""
+        loss reads them). With the block scan on, a run of identical
+        blocks whose units keep the carried shape leaves only its exit
+        activation in the dict once it ends, as the JAX scan does.
+        `note_key` names the forward-cache entry or step signature this
+        walk serves: the first walk under a key counts its run bodies in
+        `compile_total{kind="graph_block"}`."""
         conf = self.conf
         acts: Dict[str, torch.Tensor] = dict(zip(conf.inputs, inputs))
         masks: Dict[str, torch.Tensor] = {}
@@ -187,40 +377,69 @@ class ComputationGraph(NetworkBase):
         sole_mask = next(iter(masks.values())) if len(masks) == 1 else None
         new_states: List[Optional[dict]] = [None] * len(self.layer_vertex_names)
         env = {"activations": acts, "input_masks": masks}
-        for name in self.topo:
+        scan_on = self._block_scan_enabled()
+        runs = self._block_runs()
+        first_unit_ends = {r["start"] + r["period"] - 1: r for r in runs}
+        run_ends = {r["start"] + r["period"] * r["count"] - 1: r for r in runs}
+        scanned = set()  # starts of the runs whose units keep the carry
+        note = False
+        if note_key is not None and runs:
+            note_key = (note_key, scan_on)
+            note = note_key not in self._block_noted
+            # rebound, not mutated: a shallow copy of the net (the cost
+            # model's fake-tensor clone) keeps its own set
+            self._block_noted = self._block_noted | {note_key}
+        for pos, name in enumerate(self.topo):
             if name in acts:
                 continue
             v = conf.vertices[name]
             xs = [acts[i] for i in conf.vertex_inputs[name]]
             if training and name in self._relu_passed:
                 acts[name] = xs[0]  # its BN applied the ReLU
-                continue
-            if not isinstance(v, LayerVertex):
+            elif not isinstance(v, LayerVertex):
                 acts[name] = v.forward(xs, env)
-                continue
-            x = xs[0]
-            timesteps = x.shape[1] if x.dim() == 3 else None
-            if v.preprocessor is not None:
-                x = v.preprocessor(x, {"timesteps": timesteps})
-                if x.dim() == 3:
-                    timesteps = x.shape[1]
-            pidx = self._pidx[name]
-            lc = v.layer
-            ctx = LayerContext(
-                training=training, rng=rng,
-                mask=sole_mask if x.dim() == 3 else None,
-                timesteps=timesteps, state=states[pidx],
-                fuse_relu=training and name in self.relu_fused_bn)
-            if (preout_outputs and name in conf.outputs
-                    and isinstance(lc, _OUTPUT_LAYER_TYPES)):
-                x = apply_dropout(x, lc.dropout, ctx)
-                acts[name + "__features"] = x
-                x = _preout_of_output_layer(lc, params[pidx], x)
-                ns = None
             else:
-                x, ns = forward_layer(lc, params[pidx], x, ctx)
-            new_states[pidx] = ns
-            acts[name] = x
+                x = xs[0]
+                timesteps = x.shape[1] if x.dim() == 3 else None
+                if v.preprocessor is not None:
+                    x = v.preprocessor(x, {"timesteps": timesteps})
+                    if x.dim() == 3:
+                        timesteps = x.shape[1]
+                pidx = self._pidx[name]
+                lc = v.layer
+                ctx = LayerContext(
+                    training=training, rng=rng,
+                    mask=sole_mask if x.dim() == 3 else None,
+                    timesteps=timesteps, state=states[pidx],
+                    fuse_relu=training and name in self.relu_fused_bn)
+                if (preout_outputs and name in conf.outputs
+                        and isinstance(lc, _OUTPUT_LAYER_TYPES)):
+                    x = apply_dropout(x, lc.dropout, ctx)
+                    acts[name + "__features"] = x
+                    x = _preout_of_output_layer(lc, params[pidx], x)
+                    ns = None
+                else:
+                    x, ns = forward_layer(lc, params[pidx], x, ctx)
+                new_states[pidx] = ns
+                acts[name] = x
+            r = first_unit_ends.get(pos)
+            if scan_on and r is not None:
+                # the scan's carry contract: a unit keeps the entry
+                # activation's shape and dtype (a strided unit does not)
+                entry = acts[r["entry"]]
+                if (acts[name].shape == entry.shape
+                        and acts[name].dtype == entry.dtype):
+                    scanned.add(r["start"])
+            r = run_ends.get(pos)
+            if r is not None:
+                if r["start"] in scanned:
+                    for inner in self.topo[r["start"]:pos]:
+                        del acts[inner]
+                if note:
+                    # one body per unit unrolled, one per run scanned
+                    bodies = 1 if r["start"] in scanned else r["count"]
+                    for _ in range(bodies):
+                        self._note_compile("graph_block", r["exit"])
         return acts, new_states
 
     def _merge_states(self, old, new):
@@ -228,12 +447,13 @@ class ComputationGraph(NetworkBase):
 
     # -- loss ----------------------------------------------------------------
 
-    def _loss(self, params, states, xs, ys, f_masks, l_masks, rng, training=True):
+    def _loss(self, params, states, xs, ys, f_masks, l_masks, rng, training=True,
+              note_key=None):
         conf = self.conf
         xs = [self.policy.cast_input(x) for x in xs]
         acts, new_states = self._forward(
             params, states, xs, training=training, rng=rng,
-            input_masks=f_masks, preout_outputs=True)
+            input_masks=f_masks, preout_outputs=True, note_key=note_key)
         score = 0.0
         n_heads = 0
         for i, name in enumerate(conf.outputs):
@@ -266,7 +486,8 @@ class ComputationGraph(NetworkBase):
     def _std_loss_builder(self):
         def loss_builder(p, states, data, rng):
             xs, ys, fms, lms = data
-            return self._loss(p, states, xs, ys, fms, lms, rng)
+            return self._loss(p, states, xs, ys, fms, lms, rng,
+                              note_key=("step", _signature(xs)))
 
         return loss_builder
 
@@ -284,9 +505,11 @@ class ComputationGraph(NetworkBase):
         def loss_builder(p, states, data, rng):
             xsA, ysA, fmsA, lmsA, xsB, ysB, fmsB, lmsB = data
             with torch.no_grad():
-                lossA, statesA = self._loss(p, states, xsA, ysA, fmsA, lmsA, rng)
+                lossA, statesA = self._loss(p, states, xsA, ysA, fmsA, lmsA, rng,
+                                            note_key=("step_a", _signature(xsA)))
             carried = self._merge_states(states, statesA)
-            lossB, statesB = self._loss(p, carried, xsB, ysB, fmsB, lmsB, rng)
+            lossB, statesB = self._loss(p, carried, xsB, ysB, fmsB, lmsB, rng,
+                                        note_key=("step_b", _signature(xsB)))
             nA = max(x.shape[1] for x in xsA if x.dim() == 3)
             nB = max(x.shape[1] for x in xsB if x.dim() == 3)
             score = (lossA * nA + lossB * nB) / (nA + nB)
@@ -430,6 +653,14 @@ class ComputationGraph(NetworkBase):
                     f"graph has {len(self.conf.inputs)} inputs "
                     f"({self.conf.inputs}); pass one mask (or None) per input")
             masks = [None if m is None else self._as_input(m) for m in input_masks]
+        fn = self._output_program(xs, masks)
+        with torch.no_grad():
+            outs = fn(self.params_list, self.state_list, xs, masks)
+        return outs[0] if len(outs) == 1 else outs
+
+    def _output_program(self, xs, masks=None):
+        """output()'s forward-cache entry for these inputs' and masks'
+        shapes and dtypes: fn(params, states, xs, masks) -> output list."""
         key = (tuple((tuple(x.shape), str(x.dtype)) for x in xs),
                None if masks is None else tuple(
                    None if m is None else (tuple(m.shape), str(m.dtype)) for m in masks))
@@ -438,15 +669,27 @@ class ComputationGraph(NetworkBase):
             def fwd(params, states, xs, masks):
                 xs = [self.policy.cast_input(x) for x in xs]
                 acts, _ = self._forward(params, states, xs, training=False,
-                                        rng=None, input_masks=masks)
+                                        rng=None, input_masks=masks,
+                                        note_key=("output",) + key)
                 return [self.policy.cast_output(acts[n]) for n in self.conf.outputs]
 
             return fwd
 
-        fn = self._cached_output_fn(key, make_fn)
-        with torch.no_grad():
-            outs = fn(self.params_list, self.state_list, xs, masks)
-        return outs[0] if len(outs) == 1 else outs
+        return self._cached_output_fn(key, make_fn)
+
+    def _output_fn_for(self, xx):
+        """The inference forward of output() for a one-input batch shaped
+        like `xx`, as fn(params, states, x) on any rows of it (one tensor,
+        or a list for several outputs): the sharded serving path
+        (parallel/inference.py) runs it per block, one cache entry per
+        whole batch shape."""
+        fn = self._output_program([xx])
+
+        def run(params, states, x):
+            outs = fn(params, states, [x], None)
+            return outs[0] if len(outs) == 1 else outs
+
+        return run
 
     def feed_forward(self, *inputs):
         """All vertex activations as a dict — the inspection path."""

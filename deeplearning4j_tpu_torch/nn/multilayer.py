@@ -512,6 +512,17 @@ class MultiLayerNetwork(NetworkBase):
         network's device."""
         self._require_init()
         xx = self._as_input(x)
+        fn = self._output_program(xx, training)
+        rng = None
+        if training:
+            rng = torch.Generator(device=self.device).manual_seed(
+                self.net_conf.seed ^ 0xD0)
+        with torch.no_grad():
+            return fn(self.params_list, self.state_list, xx, rng)
+
+    def _output_program(self, xx, training: bool = False):
+        """output()'s forward-cache entry for `xx`'s shape and dtype:
+        fn(params, states, x, rng)."""
 
         def make_fn():
             def fwd(params, states, xx, rng):
@@ -522,14 +533,16 @@ class MultiLayerNetwork(NetworkBase):
 
             return fwd
 
-        fn = self._cached_output_fn(
+        return self._cached_output_fn(
             (training, tuple(xx.shape), str(xx.dtype)), make_fn)
-        rng = None
-        if training:
-            rng = torch.Generator(device=self.device).manual_seed(
-                self.net_conf.seed ^ 0xD0)
-        with torch.no_grad():
-            return fn(self.params_list, self.state_list, xx, rng)
+
+    def _output_fn_for(self, xx):
+        """The inference forward of output() for a batch shaped like `xx`,
+        as fn(params, states, x) on any rows of it: the sharded serving
+        path (parallel/inference.py) runs it per block, one cache entry
+        per whole batch shape."""
+        fn = self._output_program(xx)
+        return lambda params, states, x: fn(params, states, x, None)
 
     def feed_forward(self, x):
         """Per-layer activations list (reference: feedForward family)."""

@@ -52,13 +52,31 @@ carries over from the reference; the serving mechanisms beyond it:
   parentage across the pipeline threads. Off by default; every hook is
   one flag check when disabled.
 
+* **Sharding over the devices of this process** — `devices=` names the
+  torch devices a group is split over, the counterpart of the JAX
+  package's local mesh. It is opt-in: None serves on the model's device
+  alone, where the JAX package defaults to every local device. A
+  bucket-padded group is wrap-padded again to a multiple of the shard
+  count and split into that many equal contiguous blocks, block i
+  running on `devices[i]`. On the model's device a block reads the
+  model's own tensors; every other device holds one replica of the
+  parameters and states per model, shared by every pipeline serving
+  that model (a ReplicaPool's replicas too), copied at construction and
+  again at the first group after the model's tensors change (a fit
+  step, `set_params`, a restore), as the JAX pipeline reads
+  `model.params_list` at every forward. Each shard runs on its own CUDA
+  stream, every block is launched before any is read back, and the
+  blocks are concatenated in order. The forward cache keys on the whole padded
+  shape, so `output_compile_count` counts distinct shard-padded buckets
+  as the JAX package's trace count does.
+
 The device forward (`_forward_padded`): the padded host batch becomes a
 tensor on `model.device` inside the thread that runs the forward, with
 `torch.no_grad()` and that device current there; `model.output()` runs
-it, and the readback to a host float32 array (bf16/f16 outputs widened)
-is the sync. A mesh whose data axis has more than one rank is refused:
-the port's `Mesh` joins processes, one device each, where the JAX
-package's mesh shards a group over the devices of one process.
+it (one shard), and the readback to a host float32 array (bf16/f16
+outputs widened) is the sync. A mesh whose data axis has more than one
+rank is refused: the port's `Mesh` joins processes, one device each, and
+a group is sharded over the devices of this process with `devices=`.
 """
 
 from __future__ import annotations
@@ -218,6 +236,88 @@ def _device_scope(device: Optional[torch.device]):
     return nullcontext()
 
 
+def _concrete(device) -> Optional[torch.device]:
+    """`device` as a torch device with its CUDA index: a bare "cuda" is
+    the device current when this runs (construction), not wherever a
+    later forward's thread has made another one current."""
+    if device is None:
+        return None
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
+def _home_device(model, declared: Optional[torch.device]) -> Optional[torch.device]:
+    """The device the model's tensors live on (its first parameter's), else
+    its declared device."""
+    for p in getattr(model, "params_list", None) or ():
+        for v in (p or {}).values():
+            return v.device
+    return _concrete(declared)
+
+
+def _same_device(a: Optional[torch.device], b: Optional[torch.device]) -> bool:
+    """Whether a block on `a` reads tensors on `b` in place (both concrete)."""
+    return a == b
+
+
+def _shard_devices(model_device: Optional[torch.device],
+                  devices: Optional[Sequence] = None) -> List[Optional[torch.device]]:
+    """The devices a group is split over, each with its CUDA index:
+    `devices`, or by default the model's device alone (None for a model
+    without one)."""
+    if devices is None:
+        return [_concrete(model_device)]
+    out = [_concrete(d) for d in devices]
+    if not out:
+        raise ValueError("devices= must name at least one device")
+    return out
+
+
+def _leaves(model) -> list:
+    return [v for tree in (model.params_list, model.state_list)
+            for p in tree if p is not None for v in p.values()]
+
+
+# model -> {device string: (source marks, replica)}: one replica of a
+# model's parameters and states per other device, shared by every
+# pipeline that serves the model
+_REPLICAS: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+_REPLICAS_LOCK = threading.Lock()
+
+
+def _replica(model, device: torch.device):
+    """(params, states) of `model` on `device`, copied again when the
+    model's tensors changed since the last copy: a new step count (a CUDA
+    graph's replay writes the tensors without bumping their version
+    counters), a replaced tensor (`set_params`, a restore) or an in-place
+    edit (its version counter). The marks hold weak references, so a
+    replaced tensor's id cannot be reused under them."""
+    leaves = _leaves(model)
+    with _REPLICAS_LOCK:
+        per_model = _REPLICAS.setdefault(model, {})
+        held = per_model.get(str(device))
+    if held is not None:
+        step, marks = held[0]
+        if (step == getattr(model, "iteration", None)
+                and len(marks) == len(leaves)
+                and all(ref() is v and ver == v._version
+                        for (ref, ver), v in zip(marks, leaves))):
+            return held[1]
+    marks = [(weakref.ref(v), v._version) for v in leaves]
+
+    def to(tree):
+        return [None if p is None else
+                {k: v.to(device, copy=True) for k, v in p.items()} for p in tree]
+
+    replica = (to(model.params_list), to(model.state_list))
+    with _REPLICAS_LOCK:
+        per_model[str(device)] = ((getattr(model, "iteration", None), marks),
+                                  replica)
+    return replica
+
+
 def _to_host(out) -> np.ndarray:
     """A forward's output as a host array: half-precision outputs widen
     to float32, so the JSON path only ever sees f32 or wider numbers."""
@@ -255,19 +355,21 @@ class ParallelInference:
         queue_capacity: int = 1024,
         default_deadline_ms: Optional[float] = None,
         run_ledger=None,
+        devices: Optional[Sequence] = None,
     ):
+        # a one-rank mesh (or none) serves in this process; a data axis
+        # over several processes would be one group split across
+        # processes, which this single-process pipeline cannot run
+        if mesh is not None and data_shards(mesh) > 1:
+            raise ValueError(
+                f"ParallelInference serves in one process; this mesh's data "
+                f"axis has {data_shards(mesh)} ranks (the port's Mesh joins "
+                f"processes): shard a group over this process's devices "
+                f"with devices=[...]")
         # run-ledger opt-in: a path's ledger is closed by shutdown(), a
         # given one is detached by it and left open for its owner
         self._ledgers = _runledger.attach_scoped(run_ledger)
         self.model = model
-        # a one-rank mesh (or none) serves on the model's device; a data
-        # axis over several processes would be one group split across
-        # processes, which this single-process pipeline cannot run
-        if mesh is not None and data_shards(mesh) > 1:
-            raise ValueError(
-                f"ParallelInference serves on one device; this mesh's data "
-                f"axis has {data_shards(mesh)} ranks (sharding a group over "
-                f"the GPUs of one process is not ported)")
         self.mesh = mesh
         self.mode = inference_mode
         self.max_batch_size = int(max_batch_size)
@@ -298,10 +400,28 @@ class ParallelInference:
         # the model's device; None for a model without one (a host stub)
         dev = getattr(model, "device", None)
         self.device = None if dev is None else torch.device(dev)
+        # the shards: block i of every padded group runs on devices[i]
+        self.devices = _shard_devices(self.device, devices)
+        # where the model's own tensors are: a block there reads them
+        self._home = _home_device(model, self.device)
+        self.n_shards = len(self.devices)
+        # the model's own output() serves one shard on its own device
+        self._sharded = (self.n_shards > 1
+                         or not _same_device(self.devices[0], self._home))
+        # one stream per CUDA shard; the replicas on other devices than
+        # the model's are copied here, so a first group does not pay it
+        self._streams: List[Optional["torch.cuda.Stream"]] = []
+        if self._sharded:
+            for d in self.devices:
+                self._streams.append(
+                    torch.cuda.Stream(d) if d.type == "cuda" else None)
+                if not _same_device(d, self._home):
+                    _replica(model, d)
         # the kernels build before any heartbeat arms: a first forward
         # that built them inside the dispatcher's busy slot could outlast
         # `health_stall_after` and read as a wedged replica
-        _build_kernels(self.device)
+        for d in self.devices:
+            _build_kernels(d)
         # one lock guards admission (shutdown flag + expected shape) and
         # the stats counters; device work happens outside it
         self._lock = threading.Lock()
@@ -918,14 +1038,18 @@ class ParallelInference:
         return None
 
     def _pad(self, batch: np.ndarray):
-        """Bucket-pad. Returns (padded, n, bucket). The post-padding shape
-        is the forward cache's key, so the distinct entry count is
-        len(buckets) at most, not the number of distinct request/group
-        sizes. An oversized request (no bucket) runs at its own size."""
+        """Bucket-pad, then shard-pad. Returns (padded, n, bucket). The
+        post-padding shape is the forward cache's key, so the distinct
+        entry count is len({shard-padded bucket sizes}), not the number
+        of distinct request/group sizes. An oversized request (no bucket)
+        runs at its own size, shard-padded."""
         n = batch.shape[0]
         b = self._bucket_for(n)
         if b is not None:
             batch = pad_wrap(batch, b)
+        # wrap-padded to equal blocks, as the JAX package pads to its
+        # mesh's shard count
+        batch = pad_wrap(batch, self.n_shards)
         return batch, n, b
 
     def _count_batch(self, b: Optional[int]):
@@ -958,17 +1082,21 @@ class ParallelInference:
             # `hang` is the wedged-dispatcher scenario the watchdog and
             # eviction path exist for
             _faults.fault_point("replica_forward", bucket=b, rows=n)
-            with _tracing.span("serve/forward", bucket=b, rows=n), \
-                    torch.no_grad(), _device_scope(self.device):
+            with _tracing.span("serve/forward", bucket=b, rows=n,
+                               shards=self.n_shards), torch.no_grad():
                 # float64 arrives as float32, as jnp.asarray gives it to the
                 # JAX package: one forward-cache entry per bucket, whatever
                 # the caller's float width
                 if padded.dtype == np.float64:
                     padded = padded.astype(np.float32)
                 xt = torch.from_numpy(np.ascontiguousarray(padded))
-                if self.device is not None:
-                    xt = xt.to(self.device)
-                out = self.model.output(xt)
+                if self._sharded:
+                    out = self._forward_shards(xt)
+                else:
+                    with _device_scope(self.device):
+                        if self.device is not None:
+                            xt = xt.to(self.device)
+                        out = self.model.output(xt)
                 if isinstance(out, (list, tuple)):
                     out = [_to_host(o)[:n] for o in out]
                 else:
@@ -1004,6 +1132,49 @@ class ParallelInference:
             self._last_forward_mono = time.monotonic()
             self._count_batch(b)
         return out
+
+    def _forward_shards(self, xt: torch.Tensor):
+        """The padded host batch `xt` split into `n_shards` equal
+        contiguous blocks, block i forwarded on `devices[i]` with that
+        device's replica (`_replica`; the model's own tensors on its
+        device) and on shard i's stream. Every block is launched
+        (input copy, forward, widening, copy back to pinned host memory)
+        before any is waited on; the host arrays are then joined in
+        order, per output for a multi-output graph. One forward-cache
+        entry per whole padded shape (`model._output_fn_for`)."""
+        model = self.model
+        run = model._output_fn_for(xt)
+        if any(d.type == "cuda" for d in self.devices):
+            xt = xt.pin_memory()
+        launched, as_list = [], False
+        for block, dev, stream in zip(xt.chunk(self.n_shards), self.devices,
+                                      self._streams):
+            done = None
+            with _device_scope(dev):
+                params, states = ((model.params_list, model.state_list)
+                                  if _same_device(dev, self._home)
+                                  else _replica(model, dev))
+                if stream is not None:
+                    # the replica was last written on the device's stream
+                    stream.wait_stream(torch.cuda.current_stream(dev))
+                with nullcontext() if stream is None else torch.cuda.stream(stream):
+                    out = run(params, states, block.to(dev, non_blocking=True))
+                    as_list = isinstance(out, (list, tuple))
+                    outs = out if as_list else [out]
+                    host = [(o.float() if o.dtype in (torch.bfloat16, torch.float16)
+                             else o).to("cpu", non_blocking=True) for o in outs]
+                    if stream is not None:
+                        done = torch.cuda.Event()
+                        done.record(stream)
+            # the tensors stay referenced until the stream has read them
+            launched.append((host, done, params, states))
+        parts = []
+        for host, done, _, _ in launched:
+            if done is not None:
+                done.synchronize()
+            parts.append(host)
+        joined = [torch.cat(col) for col in zip(*parts)]
+        return joined if as_list else joined[0]
 
     @staticmethod
     def _rows(out, start: int, stop: int):
@@ -1269,7 +1440,8 @@ class ReplicaPool:
 
     `model_factory` (optional) builds a fresh model per spawn — without
     it every replica shares `model` (one set of parameters on the device:
-    what multiplies is the serving pipeline, not the weights)."""
+    what multiplies is the serving pipeline, not the weights). `devices`
+    goes to every replica: each shards its groups over those devices."""
 
     def __init__(
         self,
@@ -1289,6 +1461,7 @@ class ReplicaPool:
         retry_budget: int = 4,
         queue_capacity: int = 1024,
         default_deadline_ms: Optional[float] = None,
+        devices: Optional[Sequence] = None,
     ):
         if model is None and model_factory is None:
             raise ValueError("ReplicaPool needs a model or a model_factory")
@@ -1304,7 +1477,7 @@ class ReplicaPool:
         self._factory = (model_factory if model_factory is not None
                          else (lambda: model))
         self._pi_kwargs = dict(
-            mesh=mesh, inference_mode=inference_mode,
+            mesh=mesh, devices=devices, inference_mode=inference_mode,
             max_batch_size=int(max_batch_size),
             batch_timeout_ms=float(batch_timeout_ms), buckets=buckets,
             handoff_capacity=handoff_capacity,

@@ -120,6 +120,7 @@ class InferenceServer:
         decode_max_tokens: int = 64,
         decode_tenant_weights: Optional[dict] = None,
         decode_queue_capacity: int = 256,
+        devices: Optional[Sequence] = None,
     ):
         # n_replicas >= 2 turns on the self-healing pool: each replica's
         # collector/dispatcher heartbeats are watched separately, an
@@ -131,7 +132,7 @@ class InferenceServer:
         if int(n_replicas) > 1:
             self.inference = ReplicaPool(
                 model, n_replicas=int(n_replicas), mesh=mesh,
-                inference_mode=inference_mode,
+                devices=devices, inference_mode=inference_mode,
                 max_batch_size=max_batch_size,
                 batch_timeout_ms=batch_timeout_ms, buckets=buckets,
                 health_stall_after=health_stall_after,
@@ -145,6 +146,7 @@ class InferenceServer:
                 health_stall_after=health_stall_after,
                 queue_capacity=queue_capacity,
                 default_deadline_ms=default_deadline_ms,
+                devices=devices,
             )
         if warmup_shape is not None:
             self.inference.warmup(warmup_shape)
@@ -565,6 +567,10 @@ def main(argv=None):
                     help="torch device to serve on (default cuda; the "
                          "server refuses to start without a GPU unless "
                          "given cpu)")
+    ap.add_argument("--devices", default=None,
+                    help="comma-separated torch devices each request group "
+                         "is split over, e.g. cuda:0,cuda:1 (default: the "
+                         "model's device alone)")
     args = ap.parse_args(argv)
     if args.meter:
         _resourcemeter.enable()
@@ -584,6 +590,7 @@ def main(argv=None):
         decode_slots=args.decodeSlots,
         decode_eos_token=args.decodeEos,
         decode_max_tokens=args.decodeMaxTokens,
+        devices=None if args.devices is None else args.devices.split(","),
     )
     # operator surface: opt in to real log output, then announce through
     # the package logger (library code never prints)
