@@ -6806,8 +6806,8 @@ def observability_phase(torch, F, fcb, helpers, cuda_build, counts, fu, seed, ca
                       "flops_per_second": sv.get('step_flops_per_second{source="costmodel"}'),
                       "device_memory_bytes": mems}
     print(f"  15c: ResNet-50 bf16 b{RESNET_BATCH}, {OBS_DEVPROF_STEPS} steps, sample_every "
-          f"{OBS_SAMPLE_EVERY}: step_device_seconds {step_dev * 1e3:.2f} ms (the last window, "
-          f"one synchronize a window) vs {synced * 1e3:.2f} ms a step between the CUDA events "
+          f"{OBS_SAMPLE_EVERY}: step_device_seconds {step_dev * 1e3:.2f} ms (the last resolved "
+          f"window, on the dispatch timeline's events) vs {synced * 1e3:.2f} ms a step between the CUDA events "
           f"recorded after the same steps, rel {rel:.3f}; step_mfu{{costmodel}} {mfu}; "
           f"device_memory_bytes {mems}; on {card}")
     check(out["devprof"]["samples"] >= OBS_DEVPROF_STEPS // OBS_SAMPLE_EVERY - 1,

@@ -18,6 +18,7 @@ from typing import Iterable, Iterator, List, Optional
 import numpy as np
 
 from deeplearning4j_tpu_torch.data.dataset import DataSet
+from deeplearning4j_tpu_torch.utils import tracing as _tracing
 
 # Every background thread the input pipeline starts carries this name
 # prefix, so a test can assert that none outlives its fit.
@@ -243,8 +244,9 @@ class MultiDataSetIterator:
 class AsyncDataSetIterator(DataSetIterator):
     """Background-thread prefetch with a bounded queue (reference:
     AsyncDataSetIterator, queue capacity = the prefetch buffer): a worker
-    thread pulls host batches while the device runs the previous step;
-    exceptions reach the consumer. Breaking out of an epoch, or an
+    thread pulls host batches while the device runs the previous step
+    (each pull a `prefetch/host_next` span); exceptions reach the
+    consumer. Breaking out of an epoch, or an
     exception unwinding the consumer, closes that epoch's worker (the
     generator's `finally`); `close()` tears down any still alive."""
 
@@ -260,8 +262,11 @@ class AsyncDataSetIterator(DataSetIterator):
 
         def worker():
             try:
-                for ds in self.base:
-                    if not _put_abortable(q, ds, stop):
+                it = iter(self.base)
+                while True:
+                    with _tracing.span("prefetch/host_next"):
+                        ds = next(it, _SENTINEL)
+                    if ds is _SENTINEL or not _put_abortable(q, ds, stop):
                         return
             except BaseException as e:  # reaches the consumer
                 err.append(e)

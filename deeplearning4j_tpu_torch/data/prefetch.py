@@ -18,8 +18,12 @@ under async_prefetch (nn/netbase._stage_input_pipeline):
   there, and records one event per batch; the consumer's stream waits on
   the event, and every staged tensor is `record_stream`ed on it so the
   caching allocator does not reuse its memory while the step still reads
-  it. Batches come out marked `_pipeline_staged`: the fit loop applies
-  no transform of its own to them.
+  it. The wait sits between two timing events (utils/devprof
+  `timed_wait`), which the batch carries as `_input_events` to the
+  dispatch it joins: its input stall on the card. Batches come out
+  marked `_pipeline_staged`: the fit loop applies no transform of its
+  own to them. Spans: `prefetch/stage` over `prefetch/pin` and
+  `prefetch/copy` in the worker.
 
 Every stage reports batches, bytes, stalls and queue depth as
 `input_pipeline_*{stage=...}` in the shared registry. Shutdown: ending,
@@ -46,6 +50,7 @@ from deeplearning4j_tpu_torch.data.iterators import (
     _get_abortable,
     _put_abortable,
 )
+from deeplearning4j_tpu_torch.utils import devprof as _devprof
 from deeplearning4j_tpu_torch.utils import faultpoints as _faults
 from deeplearning4j_tpu_torch.utils import health as _health
 from deeplearning4j_tpu_torch.utils import metrics as _metrics
@@ -107,32 +112,52 @@ def _carry_metadata(src, dst):
     return dst
 
 
+def _as_tensor(a) -> torch.Tensor:
+    return a if torch.is_tensor(a) else torch.from_numpy(np.ascontiguousarray(a))
+
+
+def _map_dataset(ds, put):
+    """A DataSet/MultiDataSet with `put` applied to each array (None
+    stays None), its bookkeeping carried over."""
+    p = lambda a: None if a is None else put(a)
+    if isinstance(ds, MultiDataSet):
+        out = MultiDataSet(
+            [p(f) for f in ds.features], [p(y) for y in ds.labels],
+            None if ds.features_masks is None else [p(m) for m in ds.features_masks],
+            None if ds.labels_masks is None else [p(m) for m in ds.labels_masks])
+    else:
+        out = DataSet(p(ds.features), p(ds.labels),
+                      p(ds.features_mask), p(ds.labels_mask))
+    return _carry_metadata(ds, out)
+
+
+def _pin_dataset(ds):
+    """Every host array of a DataSet/MultiDataSet as a tensor in pinned
+    host memory, the first half of staging it to a CUDA device; device
+    tensors pass through."""
+    def pin(a):
+        t = _as_tensor(a)
+        return t.pin_memory() if t.device.type == "cpu" else t
+
+    return _map_dataset(ds, pin)
+
+
 def place_dataset(ds, device):
     """Every array of a DataSet/MultiDataSet as a tensor on `device`.
-    Host arrays bound for a CUDA device go through pinned memory with a
-    non-blocking copy on the current stream; tensors already there pass
-    through."""
+    Host arrays bound for a CUDA device go through pinned memory (kept
+    where `_pin_dataset` pinned them) with a non-blocking copy on the
+    current stream; tensors already there pass through."""
     device = torch.device(device)
 
     def put(a):
-        if a is None:
-            return None
-        t = a if torch.is_tensor(a) else torch.from_numpy(np.ascontiguousarray(a))
+        t = _as_tensor(a)
         if t.device == device:
             return t
         if device.type == "cuda" and t.device.type == "cpu":
             return t.pin_memory().to(device, non_blocking=True)
         return t.to(device)
 
-    if isinstance(ds, MultiDataSet):
-        out = MultiDataSet(
-            [put(f) for f in ds.features], [put(y) for y in ds.labels],
-            None if ds.features_masks is None else [put(m) for m in ds.features_masks],
-            None if ds.labels_masks is None else [put(m) for m in ds.labels_masks])
-    else:
-        out = DataSet(put(ds.features), put(ds.labels),
-                      put(ds.features_mask), put(ds.labels_mask))
-    return _carry_metadata(ds, out)
+    return _map_dataset(ds, put)
 
 
 class ParallelDataSetIterator(DataSetIterator):
@@ -323,7 +348,9 @@ class DevicePrefetchIterator(DataSetIterator):
                 out = _carry_metadata(out, self.transform(out))
             event = None
         else:
-            with torch.cuda.stream(stream):
+            with _tracing.span("prefetch/pin"):
+                ds = _pin_dataset(ds)
+            with _tracing.span("prefetch/copy"), torch.cuda.stream(stream):
                 out = place_dataset(ds, self.device)
                 if self.transform is not None:
                     out = _carry_metadata(out, self.transform(out))
@@ -388,7 +415,8 @@ class DevicePrefetchIterator(DataSetIterator):
                 staged, event = item
                 if event is not None:
                     cur = torch.cuda.current_stream(self.device)
-                    cur.wait_event(event)
+                    staged._input_events = _devprof.get_profiler().timed_wait(
+                        cur, event, self.device)
                     for a in _ds_arrays(staged):
                         if torch.is_tensor(a) and a.is_cuda:
                             a.record_stream(cur)

@@ -26,11 +26,19 @@ its loss is its share of the global-batch loss, and its gradients and
 score are summed over the data axis right after autograd. `fit(run_ledger=)`
 attaches a run ledger (utils/runledger) for the fit's duration, and each
 dispatch notes its step to it (one module-global read with none
-attached). Each dispatch also reaches the sampled device profiler
-(utils/devprof: two integer ops, one device synchronize every
-`sample_every`-th dispatch), and a device out-of-memory error escaping
-the fit gets its forensics (the largest live tensors beside the static
-estimate, in a flight-recorder dump) before it propagates.
+attached). Each dispatch also reaches the device profiler
+(utils/devprof): on a CUDA net it is bracketed by two timing events and
+its batches carry the input pipeline's, which later dispatches resolve
+without waiting into the card's time, input stall and host gap a
+dispatch; the fit loop synchronizes nothing, with the tracer off or on,
+but where a fused program's graph is captured (once a program).
+A device out-of-memory error escaping the fit gets its forensics (the
+largest live tensors beside the static estimate, in a flight-recorder
+dump) before it propagates. The loop's phases are spans (utils/tracing,
+named to any active torch.profiler capture even with the tracer off):
+`fit/data_wait` (a batch's pull), then `fit/step` over `fit/dispatch`
+(`fit/stage_inputs`, `fit/launch` with its `mode`, `fit/collect`) and
+`fit/books` (everything the loop records after the dispatch).
 `attach_cost_model` adopts a step cost model (analysis/costmodel) as the
 net's FLOP and memory accounting, and `doctor()` runs the static
 analysis (analysis/shapeflow and the step audit).
@@ -73,6 +81,8 @@ from deeplearning4j_tpu_torch.utils import sigchain as _sigchain
 from deeplearning4j_tpu_torch.utils import tracing as _tracing
 
 logger = logging.getLogger("deeplearning4j_tpu_torch")
+
+_END = object()  # an exhausted iterator's pull
 
 
 def _regularizable(name: str) -> bool:
@@ -253,6 +263,8 @@ class NetworkBase:
         self._step_diag = None
         # the fit instruments, resolved from the registry once per network
         self._fit_instruments = None
+        # a CUDA net's dispatch timing records (utils/devprof)
+        self._dispatch_timeline = None
         # forward functions built by `output()` / `rnn_time_step` so far,
         # one per (kind, input shape, dtype) key. PyTorch runs eagerly, so
         # an entry is a closure, not a compiled program; the count keeps
@@ -521,10 +533,12 @@ class NetworkBase:
 
     def _run_step(self, loss_builder, data, stateful_states=None):
         """One eager optimizer step at `self.iteration`."""
-        clock = self._host_clock(1).to(self.device, non_blocking=True)
+        with _tracing.span("fit/stage_inputs"):
+            clock = self._host_clock(1).to(self.device, non_blocking=True)
         states = stateful_states if stateful_states is not None else self.state_list
-        states, score = self._step(loss_builder, states, data, clock[0, 0],
-                                   clock[1, 0], self._step_rng(self.iteration))
+        with _tracing.span("fit/launch", mode="eager"):
+            states, score = self._step(loss_builder, states, data, clock[0, 0],
+                                       clock[1, 0], self._step_rng(self.iteration))
         self._score = score
         self.iteration += 1
         return states, score
@@ -640,7 +654,7 @@ class NetworkBase:
         package's rule). A sentinel judges the fused batch once, on
         [last loss, largest norm]; under the loop it judges the last
         segment's diagnostic, as the JAX package does."""
-        n_seg = (None if self.listeners or self._collect_stats
+        n_seg = (None if self._step_listeners() or self._collect_stats
                  else self._tbptt_fusable(data))
         if n_seg is None:
             self._fit_tbptt_loop(ds, data)
@@ -674,7 +688,8 @@ class NetworkBase:
         groups of a step whose collectives cannot be captured (a gloo mesh:
         `{reason="collective"}`; NCCL's are captured once its communicator
         is warm, after the eager warm-up). A capture or a replay that fails
-        raises."""
+        raises. Spans: `fit/stage_inputs`, `fit/launch` (`mode` eager,
+        capture or replay), `fit/collect`."""
         cuda = self.device.type == "cuda"
         prog = self._programs.get(key)
         if prog is None:
@@ -688,38 +703,45 @@ class NetworkBase:
                   if cuda else None}
             prog = self._programs[key] = _Program(key, io)
         io = prog.io
-        io["clock"].copy_(self._host_clock(n_steps), non_blocking=True)
-        if cuda:
-            for static, b in zip(io["data"], batches):
-                for dst, src in zip(_tensor_leaves(static),
-                                    _tensor_leaves(_map_arrays(self._as_data, b))):
-                    dst.copy_(src)
-            dev_batches = io["data"]
-        else:
-            dev_batches = [_map_arrays(self._as_data, b) for b in batches]
+        with _tracing.span("fit/stage_inputs"):
+            io["clock"].copy_(self._host_clock(n_steps), non_blocking=True)
+            if cuda:
+                for static, b in zip(io["data"], batches):
+                    for dst, src in zip(_tensor_leaves(static),
+                                        _tensor_leaves(_map_arrays(self._as_data, b))):
+                        dst.copy_(src)
+                dev_batches = io["data"]
+            else:
+                dev_batches = [_map_arrays(self._as_data, b) for b in batches]
         rngs = [self._step_rng(self.iteration + j) for j in range(n_steps)]
 
         def run():
             self._program_body(io, dev_batches, rngs, per_batch)
 
-        if not cuda:
-            run()
-        elif rngs[0] is not None:
-            self._fit_obs()["graph_declined_rng"].inc()
-            run()
-        elif self._mesh_plan is not None and not self._mesh_plan.capturable():
-            # gloo collectives cannot be captured in a CUDA graph
-            self._fit_obs()["graph_declined_collective"].inc()
-            run()
-        else:
-            self._graph_dispatch(prog, run)
-        # cloned out before the next replay overwrites the buffer (the
-        # black box keeps `_score` as a device tensor)
-        out = io["out"].clone()
-        self._fused_scores = out[:n_steps]
-        self._score = out[n_steps - 1]
-        self._step_diag = out[n_steps:]
-        self.iteration += n_steps
+        graphed, mode = False, "eager"
+        if cuda:
+            if rngs[0] is not None:
+                self._fit_obs()["graph_declined_rng"].inc()
+            elif self._mesh_plan is not None and not self._mesh_plan.capturable():
+                # gloo collectives cannot be captured in a CUDA graph
+                self._fit_obs()["graph_declined_collective"].inc()
+            else:
+                graphed, mode = True, self._graph_mode(prog)
+        with _tracing.span("fit/launch", mode=mode):
+            if graphed:
+                self._graph_dispatch(prog, run)
+            else:
+                run()
+        with _tracing.span("fit/collect"):
+            if mode != "eager":
+                self._graph_tally(prog)
+            # cloned out before the next replay overwrites the buffer (the
+            # black box keeps `_score` as a device tensor)
+            out = io["out"].clone()
+            self._fused_scores = out[:n_steps]
+            self._score = out[n_steps - 1]
+            self._step_diag = out[n_steps:]
+            self.iteration += n_steps
 
     def _static_like(self, a) -> torch.Tensor:
         t = a if torch.is_tensor(a) else torch.as_tensor(np.asarray(a))
@@ -763,15 +785,27 @@ class NetworkBase:
         return tuple(t.data_ptr() for t in _tensor_leaves(
             (self.params_list, self.upd_state, self.state_list)))
 
-    def _graph_dispatch(self, prog: _Program, run) -> None:
-        """Warm up, capture or replay `prog` on the card (see _run_fused)."""
-        ins = self._fit_obs()
+    def _graph_mode(self, prog: _Program) -> str:
+        """What `_graph_dispatch` will do with `prog` now: "eager" (the
+        warm-up), "capture" (capture, then replay) or "replay". A graph
+        whose network's tensors were rebound since its capture is
+        dropped first."""
         if prog.graph is not None and prog.addresses != self._state_addresses():
             # parameters, updater state or layer state were rebound since
             # the capture: the graph would read the old tensors
             logger.info("fused program %s: the network's tensors moved since "
                         "its capture; capturing again", prog.key)
             prog.graph, prog.warm = None, False
+        if prog.graph is not None:
+            return "replay"
+        return "capture" if prog.warm else "eager"
+
+    def _graph_dispatch(self, prog: _Program, run) -> None:
+        """Warm up, capture or replay `prog` on the card, as `_graph_mode`
+        said (see _run_fused). Everything it launches ends on the current
+        stream: the replay launches there, and a warm-up or a capture on
+        the side stream is joined back to it."""
+        ins = self._fit_obs()
         cur = torch.cuda.current_stream(self.device)
         side = self._side_stream()
         if prog.graph is None and not prog.warm:
@@ -805,11 +839,15 @@ class NetworkBase:
             ins["graph_captures"].inc()
             self._note_compile("fit_graph", prog.key)
         prog.graph.replay()
+
+    def _graph_tally(self, prog: _Program) -> None:
+        """A replay's books: the kernel launches and helper events its
+        graph holds, and the replay counters."""
         _fused_lstm.add_launches(prog.lstm_launches)
         _fused_conv_bn.add_launches(prog.conv_launches)
         _helpers.replay_events(prog.events)
         prog.replays += 1
-        ins["graph_replays"].inc()
+        self._fit_obs()["graph_replays"].inc()
 
     def _reset_step_programs(self) -> None:
         """Drop every fused program and its captured graph: the tensors
@@ -901,8 +939,10 @@ class NetworkBase:
         dispatch: a plain loop of the same steps on the CPU, one CUDA
         graph on the card — same math, same per-step lr, t and iteration
         bookkeeping. Fusion engages only when it is observationally
-        equivalent to the per-step loop: no listeners (each callback must
-        see its iteration's parameters) and the subclass supports it
+        equivalent to the per-step loop: no listeners that read each
+        step (each callback must see its iteration's parameters; one
+        marked `fusion_safe`, as TracingListener is, hears of whole
+        dispatches) and the subclass supports it
         (`_fused_fit_supported`); a smaller group (a signature change or
         the epoch's end) runs batch by batch."""
         self._fused_k = max(1, int(k))
@@ -981,6 +1021,12 @@ class NetworkBase:
         self.listeners.append(listener)
         return self
 
+    def _step_listeners(self) -> list:
+        """The listeners that read each optimizer step, and so keep a fit
+        off the fused path: all but those marked `fusion_safe`."""
+        return [lst for lst in self.listeners
+                if not getattr(lst, "fusion_safe", False)]
+
     def _notify(self, batch_size, ds=None):
         # a consistent point: the whole optimizer step is committed, so a
         # held SIGTERM (the preemption save) may run here
@@ -1018,13 +1064,7 @@ class NetworkBase:
                     "dispatch").labels(),
                 "dispatch": reg.histogram(
                     "fit_dispatch_seconds",
-                    "host time in the train-step call (launches; "
-                    "excludes device sync)").labels(),
-                "sync": reg.histogram(
-                    "fit_device_sync_seconds",
-                    "device sync after the step — measured only while "
-                    "tracing is enabled, so the default fit path never "
-                    "adds blocking syncs").labels(),
+                    "host time in the train-step call (launches)").labels(),
                 "graph_captures": reg.counter(
                     "fit_graph_captures_total",
                     "fused fit programs captured as CUDA graphs").labels(),
@@ -1064,17 +1104,19 @@ class NetworkBase:
     def _timed_fit(self, fit_fn, data_wait: float, n_examples: int,
                    n_batches: int = 1, batches=None):
         """Run one dispatch (a `_fit_dataset` or a fused group of
-        `n_batches`) under the step-phase timers: data wait,
-        dispatch and (with tracing on) device sync, each a histogram in
-        the shared registry and a span when tracing is on, plus the step
-        and example counters, a flight-recorder step record and the fit
-        heartbeat. PyTorch returns before the device finishes, so the
-        dispatch time is host time, as in the JAX package; the device is
-        synchronised only while tracing is enabled. `batches` names the
-        DataSet(s) behind this dispatch for the `nan` fault kind."""
+        `n_batches`) under the step-phase timers: the data wait and the
+        dispatch's host time, each a histogram in the shared registry,
+        the `fit/step` span over `fit/dispatch` and `fit/books`, the
+        step and example counters, a flight-recorder step record and the
+        fit heartbeat. PyTorch returns before the device finishes, so the
+        dispatch time is host time, as in the JAX package; on a CUDA net
+        the device profiler brackets the dispatch with timing events
+        (utils/devprof), resolved at later dispatches. Nothing here waits
+        on the device. `batches` names the DataSet(s) behind this
+        dispatch for the `nan` fault kind and their input timing."""
         ins = self._fit_obs()
+        prof = ins["devprof"]
         it0 = self.iteration
-        sync = None
         # resume bookkeeping BEFORE the dispatch: a checkpoint listener
         # firing inside it (post-step _notify) must record this batch as
         # consumed — the snapshot's params already include its update.
@@ -1093,7 +1135,7 @@ class NetworkBase:
         # that make an anomalous step's update undoable
         pre = _sentinel.pre_step(self)
         t0 = time.perf_counter()
-        with _tracing.span("fit/step", data_wait_ms=round(data_wait * 1e3, 3)):
+        with _tracing.span("fit/step"):
             with _tracing.span("fit/dispatch"):
                 # chaos hook: an `oom` fault here unwinds the fit as a
                 # device allocator failure would; a `nan` fault taints
@@ -1105,15 +1147,15 @@ class NetworkBase:
                 # CN003 probe (DL4J_LOCKCHECK): a step or graph replay
                 # entered with a traced lock held; one global read when off
                 _locktrace.note_dispatch("fit/dispatch")
+                timing = prof.begin_dispatch(self, batches)
                 fit_fn()
+                prof.end_dispatch(self, timing, n_examples)
             dispatch = time.perf_counter() - t0
-            if _tracing.is_enabled() and self._score is not None:
-                t1 = time.perf_counter()
-                with _tracing.span("fit/device_sync"):
-                    if self._score.is_cuda:
-                        torch.cuda.current_stream(self._score.device).synchronize()
-                sync = time.perf_counter() - t1
-                ins["sync"].observe(sync)
+            with _tracing.span("fit/books"):
+                self._books(ins, it0, data_wait, dispatch, n_examples, pre, batches)
+
+    def _books(self, ins, it0, data_wait, dispatch, n_examples, pre, batches):
+        """What the fit loop records after a dispatch."""
         n_steps = max(1, self.iteration - it0)
         ins["steps"].inc(n_steps)
         ins["examples"].inc(n_examples)
@@ -1133,11 +1175,15 @@ class NetworkBase:
         # black box: one ring append, the score kept as a device tensor
         # (resolved only at dump time, never synced here)
         ins["recorder"].record_step(self.iteration - 1, score=self._score,
-                                    data_wait=data_wait, dispatch=dispatch,
-                                    sync=sync)
-        # device-side accounting: two integer ops on unsampled steps, one
-        # device synchronize every sample_every-th (utils/devprof)
+                                    data_wait=data_wait, dispatch=dispatch)
+        # device-side accounting: the dispatch timeline's completed
+        # records (CUDA), the sampled host clock (CPU)
         ins["devprof"].on_step(self, n_examples, self._score)
+        # listeners that hear of whole dispatches (TracingListener)
+        for lst in self.listeners:
+            hook = getattr(lst, "dispatch_done", None)
+            if hook is not None:
+                hook(self, it0, n_steps)
         # run-ledger hook: ONE module-global read with no ledger attached
         # (the off-by-default overhead contract); on the host, after the
         # dispatch, so never inside a captured graph
@@ -1199,13 +1245,13 @@ class NetworkBase:
                 if staged is not iterator:
                     iterator = owned = staged
             # fusion engages only where it is observationally equivalent to
-            # the per-step loop: no listeners, no stats collection, no
-            # sentinel (quarantine discards ONE step's update, not a
-            # group's), and the subclass supports it. The mesh's batch
-            # sharding and the input transform run on each batch before
-            # grouping, so they leave fusion on.
+            # the per-step loop: no listeners that read each step, no stats
+            # collection, no sentinel (quarantine discards ONE step's
+            # update, not a group's), and the subclass supports it. The
+            # mesh's batch sharding and the input transform run on each
+            # batch before grouping, so they leave fusion on.
             fuse_k = self._fused_k if (
-                self._fused_k > 1 and not self.listeners
+                self._fused_k > 1 and not self._step_listeners()
                 and not self._collect_stats and self._sentinel is None
                 and self._fused_fit_supported()) else 1
             if self._sentinel is not None:
@@ -1255,8 +1301,10 @@ class NetworkBase:
                 self._fit_heartbeat = None
                 # the devprof sampling window dies with the fit: a stale
                 # last-sample time would make the NEXT fit's first window
-                # span the idle gap between fits
+                # span the idle gap between fits; the dispatch timeline
+                # resolves what has completed and keeps the rest
                 self._devprof_state = None
+                _devprof.get_profiler().end_fit(self)
                 # resume coordinates die with the fit: a preemption save
                 # AFTER a completed fit must record a clean epoch boundary
                 self._train_state = None
@@ -1527,55 +1575,71 @@ class NetworkBase:
                                 batches=group)
                 buf.clear()
 
-            for ds in iterator:
-                wait = time.perf_counter() - t_etl
-                self._last_etl_ms = wait * 1e3
-                if self._mesh_plan is not None:
-                    # prefetch off: this rank's rows, inline (a no-op on a
-                    # batch the pipeline already sharded)
-                    ds = self._mesh_plan.shard_batch(ds)
-                if not getattr(ds, "_pipeline_staged", False) and \
-                        self._input_transform is not None:
-                    # prefetch off: the staging work runs inline (the same
-                    # ops in the same order as the pipeline's worker)
-                    ds = self._input_transform(ds)
-                if skip > 0:
-                    # mid-epoch replay: this batch was trained before the
-                    # checkpoint — consumed from the iterator (and
-                    # transformed, so every stage's step counter advances
-                    # as in the original run), not dispatched (its update
-                    # is in the restored params)
-                    skip -= 1
-                    self._train_state["batch_in_epoch"] += 1
+            # the pulls are spans of their own (`fit/data_wait`, with a
+            # prefetch-off batch's inline staging); the generator is
+            # closed on the way out, so an epoch that raises closes its
+            # pipeline workers at once
+            pulls = iter(iterator)
+            try:
+                while True:
+                    with _tracing.span("fit/data_wait"):
+                        ds = next(pulls, _END)
+                        if ds is _END:
+                            break
+                        wait = time.perf_counter() - t_etl
+                        self._last_etl_ms = wait * 1e3
+                        if self._mesh_plan is not None:
+                            # prefetch off: this rank's rows, inline (a
+                            # no-op on a batch the pipeline already sharded)
+                            ds = self._mesh_plan.shard_batch(ds)
+                        if not getattr(ds, "_pipeline_staged", False) and \
+                                self._input_transform is not None:
+                            # prefetch off: the staging work runs inline
+                            # (the same ops in the same order as the
+                            # pipeline's worker)
+                            ds = self._input_transform(ds)
+                    if skip > 0:
+                        # mid-epoch replay: this batch was trained before
+                        # the checkpoint — consumed from the iterator (and
+                        # transformed, so every stage's step counter
+                        # advances as in the original run), not dispatched
+                        # (its update is in the restored params)
+                        skip -= 1
+                        self._train_state["batch_in_epoch"] += 1
+                        t_etl = time.perf_counter()
+                        continue
+                    if (self._sentinel is not None
+                            and self._sentinel.should_skip_batch(self, ds)):
+                        # a quarantined batch met again (the replay after
+                        # a rollback, or the next epoch's pass): consumed,
+                        # not dispatched, since it would diverge again
+                        self._train_state["batch_in_epoch"] += 1
+                        t_etl = time.perf_counter()
+                        continue
+                    # every batch counted so far is trained: a
+                    # consistent point
+                    _sigchain.safe_point()
+                    if fuse_k > 1:
+                        s = self._ds_signature(ds)
+                        if buf and s != sig:
+                            # flush BEFORE charging this batch's wait: it
+                            # belongs to the group this batch starts
+                            flush()
+                            wait_accum = 0.0
+                        wait_accum += wait
+                        sig = s
+                        buf.append(ds)
+                        if len(buf) == fuse_k:
+                            flush()
+                            wait_accum = 0.0
+                    else:
+                        self._timed_fit(lambda: self._fit_dataset(ds), wait,
+                                        _examples_of(ds), batches=[ds])
                     t_etl = time.perf_counter()
-                    continue
-                if (self._sentinel is not None
-                        and self._sentinel.should_skip_batch(self, ds)):
-                    # a quarantined batch met again (the replay after a
-                    # rollback, or the next epoch's pass): consumed, not
-                    # dispatched, since it would diverge again
-                    self._train_state["batch_in_epoch"] += 1
-                    t_etl = time.perf_counter()
-                    continue
-                # every batch counted so far is trained: a consistent point
-                _sigchain.safe_point()
-                if fuse_k > 1:
-                    s = self._ds_signature(ds)
-                    if buf and s != sig:
-                        # flush BEFORE charging this batch's wait: it
-                        # belongs to the group this batch starts
-                        flush()
-                        wait_accum = 0.0
-                    wait_accum += wait
-                    sig = s
-                    buf.append(ds)
-                    if len(buf) == fuse_k:
-                        flush()
-                        wait_accum = 0.0
-                else:
-                    self._timed_fit(lambda: self._fit_dataset(ds), wait,
-                                    _examples_of(ds), batches=[ds])
-                t_etl = time.perf_counter()
+            finally:
+                close = getattr(pulls, "close", None)
+                if close is not None:
+                    close()
             if buf:
                 flush()
             if skip > 0:

@@ -26,8 +26,18 @@ logger = logging.getLogger("deeplearning4j_tpu_torch")
 class IterationListener:
     """SPI (reference: optimize/api/IterationListener.java)."""
 
+    # a listener that reads no step's parameters sets this: a fit with it
+    # keeps the fused path, where `iteration_done` is not called and
+    # `dispatch_done` is
+    fusion_safe = False
+
     def iteration_done(self, model, iteration: int, info: dict) -> None:
         raise NotImplementedError
+
+    def dispatch_done(self, model, first_iteration: int, steps: int) -> None:
+        """After every fit dispatch, fused or not: its first iteration and
+        its optimizer steps."""
+        pass
 
     def on_epoch_start(self, model, epoch: int) -> None:
         pass
@@ -177,18 +187,23 @@ class TracingListener(IterationListener):
     visibility as serving (`InferenceServer GET /trace`), through the
     listener SPI instead of an HTTP route.
 
-    With tracing enabled, the fit loop itself emits the `fit/step` /
-    `fit/dispatch` / `fit/device_sync` spans (nn/netbase.py, each also a
-    `torch.profiler.record_function` range); this
-    listener adds an `iteration` instant per step (iteration number +
-    batch size) and writes `jsonl_path` / `chrome_path` after each epoch
-    so a killed run still leaves a trace artifact behind.
+    With tracing enabled, the fit loop itself emits its spans
+    (`fit/data_wait`, `fit/step` over `fit/dispatch` and `fit/books`;
+    nn/netbase.py, each also a torch.profiler range);
+    this listener adds an `iteration` instant per dispatch (the
+    dispatch's first iteration and its optimizer steps) and writes
+    `jsonl_path` / `chrome_path` after each epoch so a killed run still
+    leaves a trace artifact behind. It reads no step's parameters, so
+    it is `fusion_safe`: a fit with it keeps the fused path (one CUDA
+    graph a group) that it runs without it.
 
     Tracing is enabled at each epoch start and restored to its prior
     state at each epoch end (pass restore_on_epoch_end=False to leave it
     on between/after epochs). Construction alone changes nothing — the
-    tracing flag is process-global and flipping it permanently would
-    impose the per-step device sync on every OTHER net in the process."""
+    tracing flag is process-global, and flipping it permanently would
+    make every OTHER net in the process record spans."""
+
+    fusion_safe = True
 
     def __init__(self, jsonl_path: Optional[str] = None,
                  chrome_path: Optional[str] = None,
@@ -202,8 +217,11 @@ class TracingListener(IterationListener):
         self._was_enabled: Optional[bool] = None
 
     def iteration_done(self, model, iteration, info):
-        self._tracing.instant("iteration", iteration=iteration,
-                              batch_size=info.get("batch_size"))
+        pass  # one instant a dispatch (dispatch_done)
+
+    def dispatch_done(self, model, first_iteration, steps):
+        self._tracing.instant("iteration", iteration=first_iteration,
+                              steps=steps)
 
     def on_epoch_start(self, model, epoch):
         if self._was_enabled is None:  # prior state, captured at run start
@@ -223,7 +241,7 @@ class TracingListener(IterationListener):
         # runs in the fit loop's finally: a fit that raises mid-epoch
         # must still restore the process-global flag (and leave the
         # artifacts covering what WAS captured) — otherwise every other
-        # net in the process inherits per-step device syncs forever
+        # net in the process records spans forever
         if self._was_enabled is None:
             return  # fit never started an epoch
         if self.jsonl_path:

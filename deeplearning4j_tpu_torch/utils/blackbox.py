@@ -416,16 +416,14 @@ def render_dump(doc: dict, max_steps: int = 32,
         lines.append("")
         lines.append(f"final {min(len(steps), max_steps)} steps "
                      "(ms; score 'pending' = dispatched, never completed):")
-        lines.append("      step       score  data_wait   dispatch"
-                     "       sync")
+        lines.append("      step       score  data_wait   dispatch")
         for rec in steps[-max_steps:]:
             score = rec.get("score")
             s = (f"{score:11.6g}" if isinstance(score, (int, float))
                  else f"{score or '':>11}")
             lines.append(
                 f"  {rec.get('step', '?'):>8} {s} "
-                f"{_fmt_ms(rec, 'data_wait')}  {_fmt_ms(rec, 'dispatch')}  "
-                f"{_fmt_ms(rec, 'sync')}")
+                f"{_fmt_ms(rec, 'data_wait')}  {_fmt_ms(rec, 'dispatch')}")
     events = doc.get("events") or []
     if events:
         lines.append("")

@@ -22,22 +22,37 @@ serving process never grows without bound) and export two ways:
 * JSONL — one span per line, newest last (`InferenceServer GET /trace`,
   `TracingListener(jsonl_path=...)`); greppable, tail-able.
 * Chrome trace event JSON — load the dict from `to_chrome_trace()` into
-  chrome://tracing / Perfetto and the host timeline sits next to the
-  device xplane timeline captured by utils/profiler.py.
+  chrome://tracing / Perfetto.
 
-Device correlation: when enabled, each span also enters
-`torch.profiler.record_function(name)`, so the SAME names show up inside
-a `torch.profiler.profile()` capture — the profiler's op tables and host
-spans line up by name. (The port of the JAX package's utils/tracing.py,
-which enters `jax.profiler.TraceAnnotation` there.)
+Both exports stamp `ts` in Unix microseconds, the clock torch.profiler
+(Kineto) stamps its host events on: the tracer reads the offset between
+`time.time_ns()` and `time.perf_counter_ns()` once, at its epoch, and
+shifts every perf_counter reading by it. So a tracer export and a
+profiler export of the same run merge into one timeline.
+
+Device correlation: when enabled, each span also enters a profiler
+range of its name (`_RecordFunctionFast`, function-scoped as an op's
+range is), so the SAME names show up inside a `torch.profiler.profile()`
+capture — the profiler's op tables and host spans line up by name. A
+user-scoped `record_function` would be mirrored onto the card's
+timeline as a `gpu_user_annotation` interval over every kernel it
+launched, which a reader of the capture's device events would count as
+busy time; a function-scoped range stays on the host. With the tracer
+off, `span()` still names its section to an active profiler capture: it
+returns a bare range, which records nothing into the ring buffer and
+mints no ids. So an operator's own torch.profiler run (and a
+benchmark's profiled window) sees the fit loop's and the input
+pipeline's phases with no switch thrown. (The port of the JAX package's
+utils/tracing.py, which enters `jax.profiler.TraceAnnotation` there.)
 
 Overhead contract: tracing is OFF by default and every propagation entry
 point — `span()`, `instant()`, `attach()`/`detach()`,
 `current_context()`, `current_traceparent()`, `record_complete()` —
-degrades to one flag check on the disabled path: no allocation, no lock,
-no clock read, no id minting. The fit loop's phase timers and the
-serving/jsonhttp hot paths depend on this (the <10µs-per-call guard in
-tests covers span creation AND the context hooks).
+degrades to one flag check on the disabled path (`span()`: the flag and
+the profiler's module flag): no allocation, no lock, no clock read, no
+id minting. The fit loop's phase timers and the serving/jsonhttp hot
+paths depend on this (the <10µs-per-call guard in tests covers span
+creation AND the context hooks).
 """
 
 from __future__ import annotations
@@ -49,6 +64,9 @@ import threading
 import time
 from collections import deque
 from typing import List, Optional
+
+import torch
+import torch.autograd.profiler as _autograd_profiler
 
 from deeplearning4j_tpu_torch.utils import tenancy as _tenancy
 
@@ -210,12 +228,14 @@ class _Span:
         return False
 
 
-def _trace_annotation(name: str):
-    """torch.profiler.record_function(name): a no-op outside a profiler
-    capture, a named range inside one."""
-    import torch.profiler
+# a profiler range on the host only (see the module docstring)
+_HostRange = torch._C._profiler._RecordFunctionFast
 
-    return torch.profiler.record_function(name)
+
+def _trace_annotation(name: str):
+    """A profiler range of `name`: a no-op outside a profiler capture, a
+    named host range inside one."""
+    return _HostRange(name)
 
 
 class Tracer:
@@ -226,9 +246,10 @@ class Tracer:
         self.annotate_device = annotate_device
         self._lock = threading.Lock()
         self._events: deque = deque(maxlen=int(capacity))
-        # perf_counter origin so exported timestamps are relative to
-        # tracer creation (chrome trace wants microseconds, any epoch)
-        self._epoch = time.perf_counter()
+        # the epoch on both clocks, read back to back: spans time with
+        # perf_counter and export on the Unix clock the profiler uses
+        self._epoch = time.perf_counter_ns() * 1e-9
+        self._epoch_unix_us = time.time_ns() * 1e-3
 
     # -- recording -----------------------------------------------------------
 
@@ -288,7 +309,8 @@ class Tracer:
         ev = {
             "name": name,
             "ph": phase,
-            "ts": round((t0 - self._epoch) * 1e6, 3),  # microseconds
+            # Unix microseconds
+            "ts": round((t0 - self._epoch) * 1e6 + self._epoch_unix_us, 3),
             "dur": round(dur * 1e6, 3),
             "id": span_id,
             "parent": parent,
@@ -375,8 +397,12 @@ def is_enabled() -> bool:
 
 
 def span(name: str, **args):
-    """Module-level shortcut: `with tracing.span("fit/step"): ...`."""
+    """Module-level shortcut: `with tracing.span("fit/step"): ...`. With
+    the tracer off and a torch.profiler capture on, a bare profiler
+    range (the profiler sees the section; the ring buffer does not)."""
     if not _TRACER.enabled:
+        if _autograd_profiler._is_profiler_enabled:
+            return _HostRange(name)
         return NULL_SPAN
     return _TRACER.span(name, **args)
 

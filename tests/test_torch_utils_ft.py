@@ -270,8 +270,10 @@ def test_tracing_is_off_by_default_and_the_fit_spans_appear_when_on(tmp_path):
     net.fit(x, y, batch_size=10)
     assert not tracing.is_enabled()  # restored at the fit's end
     names = [json.loads(l)["name"] for l in open(jsonl)]
-    for want in ("fit/step", "fit/dispatch", "fit/device_sync", "iteration"):
+    for want in ("fit/data_wait", "fit/step", "fit/dispatch", "fit/stage_inputs",
+                 "fit/launch", "fit/books", "iteration"):
         assert want in names
+    assert "fit/device_sync" not in names  # the fit loop synchronizes nothing
 
 
 # -- listeners --------------------------------------------------------------------
