@@ -4,6 +4,7 @@
     python3 chip_smoke.py [--seed N] [--out chiprun_out/chip_smoke.json]
     python3 chip_smoke.py --only 18     # phase 1's build, then phase 18 alone
     python3 chip_smoke.py --only 18a    # phase 1's build, then 18a over every visible card
+    python3 chip_smoke.py --only 19     # phase 1's build, then phase 19 alone
 
 Phases; any failure raises and the script exits non-zero without its
 result lines:
@@ -407,6 +408,22 @@ result lines:
    launches; each arm's eager and graphed step p50/p99 over SCAN_ROUNDS
    alternating rounds (24 steps and 24 replays an arm).
    Phase 18's numbers are a JSON line before the last three.
+19. The fused optimizer tail (ops/fused_updater.py, csrc/updater_apply.cu)
+   at the main path's leaves. 19a: ResNet-50's 161 (bf16 net, f32
+   leaves; Nesterovs, L2 1e-4 on the conv and classifier weights) and the
+   char-LSTM's 14 (RMSProp, L2 1e-3), each with its L2 and with none:
+   UPDATER_STEPS steps of `apply_updater` against `apply_updater_reference`
+   on the same inputs (parameters and state bit-equal at L2 0, within
+   UPDATER_RTOL otherwise; the diagnostic within UPDATER_RTOL), the
+   launches `plan_launches` predicts, each kernel's device time beside
+   the plain version's and the bytes bound. 19b: a graphed fit of each
+   (ResNet-50 b32 under set_fused_steps(2), the char-LSTM's fused TBPTT
+   at T 200), captured then replayed, its `updater_apply` and
+   `updater_finish` launches counted from zero just before: steps x the
+   table's launches and steps, no step declined. The record also keeps
+   the updater launches of phases 2-18, every main path the script
+   drives. Its rows join the kernels line; its numbers are a JSON line
+   before the last three.
 The last three lines of standard output are the kernels JSON line, the
 card line, and {"ok": true, "device": {...}}. Imports nothing of JAX.
 """
@@ -4892,11 +4909,11 @@ def split_step(torch, net, ds, parts=SCALE_RANKS):
     x, y = ds.features, ds.labels
     b = x.shape[0] // parts
 
-    def builder(p, states, data, rng):
+    def builder(p, states, data, rng, l2_in_tail=False):
         total = 0.0
         for i in range(parts):
             loss, st = net._loss(p, states, x[i * b:(i + 1) * b], y[i * b:(i + 1) * b],
-                                 None, None, rng)
+                                 None, None, rng, l2_in_tail=l2_in_tail)
             total = total + loss / parts
         return total, st
 
@@ -8340,6 +8357,163 @@ def gaps_summary(p18, card) -> dict:
     return out
 
 
+# Phase 19: the fused optimizer tail (ops/fused_updater.py) at the main
+# path's leaves: ResNet-50's 161 (Nesterovs, L2 1e-4 on the conv and
+# classifier weights, as the benchmark's adapter sets it) and the
+# char-LSTM's 14 (RMSProp, L2 1e-3), three steps of the kernel against its
+# plain version on the same inputs; then a graphed fit of each, its
+# launches counted from zero.
+UPDATER_STEPS = 3
+UPDATER_RTOL = 1e-6     # the L2 gradient and the sums round in another order
+UPDATER_FIT = {"resnet50": (4, 32, 2), "charlstm": (2, 200, None)}  # batches, B or T, K
+
+
+def updater_nets(torch, resnet50_network, char_lstm_network, seed):
+    """The two main-path nets with their source's L2, by name."""
+    rn = resnet50_network(precision="bf16", seed=seed, learning_rate=RESNET_LR)
+    for v in rn.conf.vertices.values():
+        if hasattr(getattr(v, "layer", None), "l2"):
+            v.layer.l2 = 1e-4
+    lstm = char_lstm_network(vocab_size=VOCAB, hidden=HIDDEN, layers=LAYERS,
+                             tbptt_length=TBPTT, seed=seed, learning_rate=TRAIN_LR)
+    for layer in lstm.conf.layers:
+        layer.l2 = 1e-3
+    return {"resnet50": rn, "charlstm": lstm}
+
+
+def updater_kernel_case(torch, fu, net, l2_on, seed):
+    """The kernel and its plain version, UPDATER_STEPS steps each from the
+    same copies of `net`'s trainable leaves, random gradients and zero
+    state: (bit-equal, largest relative gap of params/state, of the
+    diagnostic, the kernel's launches, (apply, finish) ms, the plain
+    version's ms, the leaves' floats)."""
+    keys = net._trainable_keys()
+    at, l2, mult = net._tail_coefficients(keys)
+    if not l2_on:
+        l2 = [0.0] * len(l2)
+    g = torch.Generator(device="cuda").manual_seed(seed + 19)
+    base = [net.params_list[i][k] for i, k in at]
+    grads = [torch.randn(p.shape, generator=g, device="cuda") * 1e-2 for p in base]
+    upd = net.updater_def
+    lr = torch.tensor(RESNET_LR, device="cuda")
+    t = torch.tensor(0.0, device="cuda")
+    loss = torch.tensor(2.5, device="cuda")
+
+    def copies():
+        ps = [p.clone() for p in base]
+        return ps, [upd.init(p) for p in ps]
+
+    runs = []
+    for step in (fu.apply_updater_reference, fu.apply_updater):
+        ps, states = copies()
+        before = fu.launch_counts()
+        diags = torch.stack([step(upd, ps, grads, states, l2, mult, lr, t, loss)
+                             for _ in range(UPDATER_STEPS)])
+        torch.cuda.synchronize()
+        launches = {n: v - before[n] for n, v in fu.launch_counts().items()}
+        runs.append((ps, states, diags, launches))
+    (rp, rs, rd, _), (kp, ks, kd, launches) = runs
+    pairs = list(zip(rp, kp)) + [(a[n], b[n]) for a, b in zip(rs, ks) for n in a]
+    same = all(torch.equal(a, b) for a, b in pairs)
+    gap = max(float(((b - a).abs() / a.abs().clamp_min(1e-30)).max()) for a, b in pairs)
+    diag_gap = float(((kd - rd).abs() / rd.abs()).max())
+    ps, states = copies()
+    by = device_by_kernel(torch, lambda: fu.apply_updater(upd, ps, grads, states, l2, mult,
+                                                          lr, t, loss))
+    plain = device_ms(torch, lambda: fu.apply_updater_reference(upd, ps, grads, states, l2,
+                                                                mult, lr, t, loss))
+    ms = (by.get("updater_apply_kernel"), by.get("updater_finish_kernel"))
+    return same, gap, diag_gap, launches, ms, plain, sum(p.numel() for p in base)
+
+
+def updater_fit_case(torch, F, fu, metrics, netbase, DataSet, ExistingDataSetIterator,
+                     name, net, seed):
+    """A graphed fit of `net` (ResNet-50 under set_fused_steps, the
+    char-LSTM's fused TBPTT), twice: the first captures, the second
+    replays. Returns the steps and the updater launches and declined
+    steps of both fits, counted from zero just before."""
+    n, size, k = UPDATER_FIT[name]
+    if name == "resnet50":
+        data = resnet_batches(torch, F, DataSet, seed + 19, n, size)
+        net.set_fused_steps(k)
+    else:
+        data = corpus_batches(DataSet, seed + 19, n)
+        data = [DataSet(d.features[:, :size], d.labels[:, :size]) for d in data]
+    counter = metrics.get_registry().counter("fit_updater_declined_total", "", ("reason",))
+
+    def declined():
+        return sum(counter.labels(r).value for r in netbase.UPDATER_DECLINE_REASONS)
+
+    d0, it0 = declined(), net.iteration
+    fu.reset_launch_counts()
+    for _ in range(2):
+        net.fit(ExistingDataSetIterator(data), async_prefetch=False)
+    torch.cuda.synchronize()
+    return net.iteration - it0, fu.launch_counts(), declined() - d0, net.fit_graphs()
+
+
+def updater_phase(torch, F, fu, metrics, netbase, resnet50_network, char_lstm_network,
+                  DataSet, ExistingDataSetIterator, seed, card):
+    """Phase 19; returns its record with the kernels-line rows."""
+    nets = updater_nets(torch, resnet50_network, char_lstm_network, seed)
+    rec = {"cases": {}, "fits": {}}
+    for name, net in nets.items():
+        leaves = tuple(net.params_list[i][k].numel()
+                       for i, k in net._tail_coefficients(net._trainable_keys())[0])
+        per_step = len(fu.plan_launches(leaves))
+        for l2_on in (False, True):
+            same, gap, diag_gap, launches, ms, plain, floats = updater_kernel_case(
+                torch, fu, net, l2_on, seed)
+            tag = f"19a: {name} {net.updater_def.name} L2 {'on' if l2_on else '0'}"
+            if l2_on:
+                check(gap <= UPDATER_RTOL, f"{tag}: params/state {gap:.3g} from the plain "
+                                           f"version, over rtol {UPDATER_RTOL}")
+            else:
+                check(same, f"{tag}: params/state not bit-equal to the plain version")
+            check(diag_gap <= UPDATER_RTOL, f"{tag}: diagnostic {diag_gap:.3g} from the "
+                                            f"plain version")
+            want = {"updater_apply": UPDATER_STEPS * per_step, "updater_finish": UPDATER_STEPS}
+            check(launches == want, f"{tag}: launches {launches}, expected {want}")
+            nbytes = 20 * floats  # read w, g and the state, write w and the state
+            b_ms, b_by = bound(nbytes, 0.0)
+            rec["cases"][f"{name}.l2_{'on' if l2_on else 'off'}"] = {
+                "leaves": len(leaves), "floats": floats, "bit_equal": same, "rel_gap": gap,
+                "diag_rel_gap": diag_gap, "launches_per_step": per_step,
+                "apply_ms": ms[0], "finish_ms": ms[1], "plain_ms": plain,
+                "bound_ms": b_ms, "bound_by": b_by}
+            print(f"  {tag}: {len(leaves)} leaves, {floats} floats; bit-equal {same}, "
+                  f"largest rel gap {gap:.3g}, diagnostic {diag_gap:.3g}; {per_step} + 1 "
+                  f"launches a step; updater_apply {opt(ms[0])} ms + updater_finish "
+                  f"{opt(ms[1])} ms (bound {b_ms:.4f} ms by {b_by}), plain version "
+                  f"{opt(plain)} ms (profiler, device time a step)")
+        steps, launches, declined, graphs = updater_fit_case(
+            torch, F, fu, metrics, netbase, DataSet, ExistingDataSetIterator, name, net, seed)
+        want = {"updater_apply": steps * per_step, "updater_finish": steps}
+        tag = f"19b: {name} graphed fit"
+        check(launches == want, f"{tag}: launches {launches}, expected {want}")
+        check(declined == 0, f"{tag}: {declined} steps declined the fused tail")
+        check(sum(gr["replays"] for gr in graphs) >= 1, f"{tag}: no graph replayed")
+        rec["fits"][name] = {"steps": steps, "launches": launches, "declined": declined,
+                             "replays": sum(gr["replays"] for gr in graphs)}
+        print(f"  {tag}: {steps} steps, launches {launches} (expected {want}), declined "
+              f"{declined}, replays {rec['fits'][name]['replays']}, on {card}")
+        del net
+        nets[name] = None
+        torch.cuda.empty_cache()
+    rn = rec["cases"]["resnet50.l2_on"]
+    rec["launches"] = {n: sum(f["launches"][n] for f in rec["fits"].values())
+                       for n in ("updater_apply", "updater_finish")}
+    common = {"err_f32": rn["rel_gap"], "err_bf16": None, "plain_ms": rn["plain_ms"],
+              "library_ms": None, "ms_source": "profiler",
+              "shape": {"leaves": rn["leaves"], "floats": rn["floats"]}}
+    rec["rows"] = {
+        "updater_apply": {**common, "ms": rn["apply_ms"], "bound_ms": rn["bound_ms"],
+                          "bound_by": rn["bound_by"]},
+        "updater_finish": {**common, "ms": rn["finish_ms"],
+                           "bound_ms": None, "bound_by": "one block over the partials"}}
+    return rec
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -8350,7 +8524,7 @@ def main(argv=None) -> int:
     ap.add_argument("--ckpt-dir", default=None, help="the child's checkpoint directory")
     ap.add_argument("--model-path", default=None, help="the server child's model zip")
     ap.add_argument("--port", type=int, default=None, help="the server child's port")
-    ap.add_argument("--only", choices=["18", "18a"], default=None,
+    ap.add_argument("--only", choices=["18", "18a", "19"], default=None,
                     help="build the kernels, then run this phase (or 18a, the sharded "
                          "serving, over every visible card) alone and print its JSON "
                          "line (not the result lines)")
@@ -8378,6 +8552,8 @@ def main(argv=None) -> int:
     from deeplearning4j_tpu_torch.ops import cuda_build, helpers
     from deeplearning4j_tpu_torch.ops import fused_conv_bn as fcb
     from deeplearning4j_tpu_torch.ops import fused_lstm as fl
+    from deeplearning4j_tpu_torch.ops import fused_updater as fup
+    from deeplearning4j_tpu_torch.nn import netbase
     from deeplearning4j_tpu_torch.serving.decode import DecodeEngine
     from deeplearning4j_tpu_torch.train.listeners import IterationListener
     from deeplearning4j_tpu_torch.utils import metrics
@@ -8403,12 +8579,26 @@ def main(argv=None) -> int:
             elif "registers" in line or "spill" in line:
                 print(f"  {name} {fn}: {line.split(':', 1)[-1].strip()}")
     hgmma = tensor_core_check(cuda_build)
+
+    def updater_tail():
+        print("[19] the fused optimizer tail at ResNet-50's and the char-LSTM's leaves, and "
+              "a graphed fit of each")
+        torch.cuda.empty_cache()
+        return updater_phase(torch, F, fup, metrics, netbase, resnet50_network,
+                             char_lstm_network, DataSet, ExistingDataSetIterator, args.seed,
+                             card)
+
+    if args.only == "19":
+        p19 = updater_tail()
+        print(json.dumps({"updater": {k: p19[k] for k in ("cases", "fits")}}))
+        return 0
     if args.only is not None:
         p18 = gaps_phase(torch, F, LaunchCounts(fl, fcb), metrics, args.seed, card,
                          only_shards=args.only == "18a")
         print(json.dumps({"gaps": gaps_summary(p18, card)}))
         return 0
 
+    fup.reset_launch_counts()  # phases 2-18's updater launches, read before phase 19
     print(f"[2] kernels vs plain versions (tolerance: f32 {F32_ATOL} abs; "
           f"bf16 {BF16_ULP}*max(1, |plain|))")
     print("  LSTM kernels at char-LSTM's widths")
@@ -8559,6 +8749,11 @@ def main(argv=None) -> int:
           f"{SCAN_FUSED_K})")
     torch.cuda.empty_cache()
     p18 = gaps_phase(torch, F, counts, metrics, args.seed, card)
+    torch.cuda.synchronize()
+    earlier = fup.launch_counts()
+    p19 = updater_tail()
+    p19["launches_phases_2_18"] = earlier
+    rows.update(p19["rows"])
 
     # each main path's count, read just after it ran from zero
     by_path = {"output": sl["launches"], "serve": sv["launches"],
@@ -8576,7 +8771,7 @@ def main(argv=None) -> int:
                "recsys": p14["launches"],
                "ledger_serving": p14["ledger_serving"]["launches"],
                "observability": p15["launches"], "ui": p16["launches"],
-               **p17["launches"], **p18["launches"]}
+               **p17["launches"], **p18["launches"], "updater_tail": p19["launches"]}
     main_launches = {name: sum(c.get(name, 0) for c in by_path.values())
                      for name in rows}
     meta = {
@@ -8597,6 +8792,10 @@ def main(argv=None) -> int:
                                "deeplearning4j_tpu/ops/pallas_conv_bn.py:479"),
         "bn_backward_apply": ("deeplearning4j_tpu_torch/csrc/bn_backward.cu",
                               "deeplearning4j_tpu/ops/pallas_conv_bn.py:502"),
+        "updater_apply": ("deeplearning4j_tpu_torch/csrc/updater_apply.cu",
+                          "none (port-only: XLA fuses the JAX package's optimizer tail)"),
+        "updater_finish": ("deeplearning4j_tpu_torch/csrc/updater_apply.cu",
+                           "none (port-only: XLA fuses the JAX package's optimizer tail)"),
     }
     kernels = [{
         "name": name, "route": "cuda", "source": meta[name][0],
@@ -8628,6 +8827,7 @@ def main(argv=None) -> int:
               "phase16": p16,
               "phase17": p17,
               "phase18": p18,
+              "phase19": {k: v for k, v in p19.items() if k != "rows"},
               "build": {k: v["seconds"] for k, v in info.items()},
               "ptxas": {k: v["log"] for k, v in info.items() if k not in cuda_build.SOURCES},
               "seconds": time.perf_counter() - t_start}
@@ -8642,6 +8842,8 @@ def main(argv=None) -> int:
     print(json.dumps({"ui": ui_summary(p16, card)}))
     print(json.dumps({"cli_locks": cli_locks_summary(p17, card)}))
     print(json.dumps({"gaps": gaps_summary(p18, card)}))
+    print(json.dumps({"updater": {k: p19[k] for k in ("cases", "fits",
+                                                      "launches_phases_2_18")}}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

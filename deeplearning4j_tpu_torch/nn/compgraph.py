@@ -99,6 +99,7 @@ from deeplearning4j_tpu_torch.nn.netbase import (
     _examples_of,
     _is_recurrent,
     _layer_seed,
+    _slice_b_weight,
 )
 from deeplearning4j_tpu_torch.ops.losses import loss_value, masked_example_mean
 from deeplearning4j_tpu_torch.train.evaluation import (
@@ -448,7 +449,7 @@ class ComputationGraph(NetworkBase):
     # -- loss ----------------------------------------------------------------
 
     def _loss(self, params, states, xs, ys, f_masks, l_masks, rng, training=True,
-              note_key=None):
+              note_key=None, l2_in_tail=False):
         conf = self.conf
         xs = [self.policy.cast_input(x) for x in xs]
         acts, new_states = self._forward(
@@ -479,15 +480,15 @@ class ComputationGraph(NetworkBase):
             raise ValueError(
                 "no output vertex is a loss head (OutputLayer/RnnOutputLayer/"
                 "LossLayer) — cannot compute a training loss")
-        return score + self._reg_penalty(params), new_states
+        return score + self._reg_penalty(params, l2_in_tail), new_states
 
     # -- train step ----------------------------------------------------------
 
     def _std_loss_builder(self):
-        def loss_builder(p, states, data, rng):
+        def loss_builder(p, states, data, rng, l2_in_tail=False):
             xs, ys, fms, lms = data
             return self._loss(p, states, xs, ys, fms, lms, rng,
-                              note_key=("step", _signature(xs)))
+                              note_key=("step", _signature(xs)), l2_in_tail=l2_in_tail)
 
         return loss_builder
 
@@ -500,21 +501,28 @@ class ComputationGraph(NetworkBase):
         """TBPTT loss with tbptt_bwd_length < tbptt_fwd_length, as
         MultiLayerNetwork's: slice A advances the state under
         torch.no_grad() (its loss counts in the score, no gradient), slice
-        B backpropagates; over input and label lists."""
+        B backpropagates; over input and label lists. The L2 term's
+        gradient enters by slice B's weight (`l2_grad_share`)."""
 
-        def loss_builder(p, states, data, rng):
+        def lengths(data):
+            return (max(x.shape[1] for x in data[0] if x.dim() == 3),
+                    max(x.shape[1] for x in data[4] if x.dim() == 3))
+
+        def loss_builder(p, states, data, rng, l2_in_tail=False):
             xsA, ysA, fmsA, lmsA, xsB, ysB, fmsB, lmsB = data
             with torch.no_grad():
                 lossA, statesA = self._loss(p, states, xsA, ysA, fmsA, lmsA, rng,
-                                            note_key=("step_a", _signature(xsA)))
+                                            note_key=("step_a", _signature(xsA)),
+                                            l2_in_tail=l2_in_tail)
             carried = self._merge_states(states, statesA)
             lossB, statesB = self._loss(p, carried, xsB, ysB, fmsB, lmsB, rng,
-                                        note_key=("step_b", _signature(xsB)))
-            nA = max(x.shape[1] for x in xsA if x.dim() == 3)
-            nB = max(x.shape[1] for x in xsB if x.dim() == 3)
+                                        note_key=("step_b", _signature(xsB)),
+                                        l2_in_tail=l2_in_tail)
+            nA, nB = lengths(data)
             score = (lossA * nA + lossB * nB) / (nA + nB)
             return score, self._merge_states(carried, statesB)
 
+        loss_builder.l2_grad_share = lambda data: _slice_b_weight(*lengths(data))
         return loss_builder
 
     def _fit_step(self, xs, ys, f_masks, l_masks):

@@ -67,6 +67,7 @@ from deeplearning4j_tpu_torch.nn.netbase import (
     _examples_of,
     _is_recurrent,
     _layer_seed,
+    _slice_b_weight,
 )
 from deeplearning4j_tpu_torch.ops.losses import loss_value, masked_example_mean
 from deeplearning4j_tpu_torch.train.evaluation import (
@@ -172,7 +173,8 @@ class MultiLayerNetwork(NetworkBase):
 
     # -- loss ----------------------------------------------------------------
 
-    def _loss(self, params, states, x, y, f_mask, l_mask, rng, training=True):
+    def _loss(self, params, states, x, y, f_mask, l_mask, rng, training=True,
+              l2_in_tail=False):
         last = self.layer_confs[-1]
         if not isinstance(last, _OUTPUT_LAYER_TYPES):
             raise ValueError(
@@ -189,7 +191,7 @@ class MultiLayerNetwork(NetworkBase):
             preout = self.policy.cast_output(preout)
             per_ex = loss_value(last.loss, y, preout, last.activation, l_mask)
             score = masked_example_mean(per_ex, l_mask)
-        return score + self._reg_penalty(params), new_states
+        return score + self._reg_penalty(params, l2_in_tail), new_states
 
     def _center_loss(self, params, states, x, y, f_mask, l_mask, rng, training):
         """Center loss (reference: CenterLossOutputLayer.java): the base
@@ -215,9 +217,10 @@ class MultiLayerNetwork(NetworkBase):
     # -- train step ----------------------------------------------------------
 
     def _std_loss_builder(self):
-        def loss_builder(p, states, data, rng):
+        def loss_builder(p, states, data, rng, l2_in_tail=False):
             x, y, f_mask, l_mask = data
-            return self._loss(p, states, x, y, f_mask, l_mask, rng)
+            return self._loss(p, states, x, y, f_mask, l_mask, rng,
+                              l2_in_tail=l2_in_tail)
 
         return loss_builder
 
@@ -226,18 +229,26 @@ class MultiLayerNetwork(NetworkBase):
         segment's leading (fwd - bwd) timesteps run under torch.no_grad()
         (the JAX package's stop_gradient): the state advances and their
         loss counts in the score, but no gradient flows back through them
-        (reference: tBPTTBackwardLength, MultiLayerNetwork.java:1333)."""
+        (reference: tBPTTBackwardLength, MultiLayerNetwork.java:1333).
+        So the L2 term enters the score whole but its gradient only by
+        slice B's weight, which the builder's `l2_grad_share` gives."""
 
-        def loss_builder(p, states, data, rng):
+        def lengths(data):
+            return data[0].shape[1], data[4].shape[1]
+
+        def loss_builder(p, states, data, rng, l2_in_tail=False):
             xA, yA, fmA, lmA, xB, yB, fmB, lmB = data
             with torch.no_grad():
-                lossA, statesA = self._loss(p, states, xA, yA, fmA, lmA, rng)
+                lossA, statesA = self._loss(p, states, xA, yA, fmA, lmA, rng,
+                                            l2_in_tail=l2_in_tail)
             carried = self._merge_states(states, statesA)
-            lossB, statesB = self._loss(p, carried, xB, yB, fmB, lmB, rng)
-            nA, nB = xA.shape[1], xB.shape[1]
+            lossB, statesB = self._loss(p, carried, xB, yB, fmB, lmB, rng,
+                                        l2_in_tail=l2_in_tail)
+            nA, nB = lengths(data)
             score = (lossA * nA + lossB * nB) / (nA + nB)
             return score, self._merge_states(carried, statesB)
 
+        loss_builder.l2_grad_share = lambda data: _slice_b_weight(*lengths(data))
         return loss_builder
 
     def _fit_step(self, x, y, f_mask, l_mask, stateful_states=None):

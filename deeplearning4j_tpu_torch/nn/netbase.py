@@ -64,6 +64,7 @@ from deeplearning4j_tpu_torch.nn.params import (
 )
 from deeplearning4j_tpu_torch.ops import fused_conv_bn as _fused_conv_bn
 from deeplearning4j_tpu_torch.ops import fused_lstm as _fused_lstm
+from deeplearning4j_tpu_torch.ops import fused_updater as _fused_updater
 from deeplearning4j_tpu_torch.ops import helpers as _helpers
 from deeplearning4j_tpu_torch.ops.activations import sign_abs
 from deeplearning4j_tpu_torch.parallel import mesh as _pmesh
@@ -85,12 +86,32 @@ logger = logging.getLogger("deeplearning4j_tpu_torch")
 _END = object()  # an exhausted iterator's pull
 
 
+# why a CUDA step ran the per-leaf updater tail (`NetworkBase._tail_decline`)
+UPDATER_DECLINE_REASONS = ("updater", "normalization", "l1", "stats", "mesh",
+                           "frozen_norm", "dtype")
+
+
 def _regularizable(name: str) -> bool:
     """Weight-style params get l1/l2; biases and batchnorm affine params do
     not (reference: each ParamInitializer flags regularizable params)."""
     if name in ("gamma", "beta"):
         return False
     return name.rsplit("_", 1)[-1] in ("W", "RW", "pI", "pF", "pO")
+
+
+def _slice_b_weight(n_a: int, n_b: int) -> float:
+    """The weight by which a truncated TBPTT score, (lossA * nA + lossB *
+    nB) / (nA + nB) with slice A under no_grad, passes the gradient of a
+    term that both losses hold (the L2 penalty) to the weights: in f32,
+    as autograd rounds it (1 / (nA + nB), then times nB)."""
+    return float(np.float32(1.0) / np.float32(n_a + n_b) * np.float32(n_b))
+
+
+def _l2_grad_share(loss_builder, data) -> float:
+    """How much of the L2 term's gradient `loss_builder`'s score passes to
+    the weights: its `l2_grad_share(data)` where it has one, else all."""
+    share = getattr(loss_builder, "l2_grad_share", None)
+    return 1.0 if share is None else share(data)
 
 
 def _detached(states):
@@ -198,6 +219,8 @@ class _Program:
         self.graph = None
         self.lstm_launches: Dict[str, int] = {}
         self.conv_launches: Dict[str, int] = {}
+        self.updater_launches: Dict[str, int] = {}
+        self.tail_declines: Dict[str, int] = {}
         self.events: list = []
         self.addresses = None
         self.capture_seconds = None
@@ -261,6 +284,9 @@ class NetworkBase:
         self._hang_dump_path = None
         # [loss, raw global gradient norm] of the last optimizer step
         self._step_diag = None
+        # per reason, the steps that declined the fused tail while a graph
+        # captured (added back on every replay); None outside a capture
+        self._tail_declines = None
         # the fit instruments, resolved from the registry once per network
         self._fit_instruments = None
         # a CUDA net's dispatch timing records (utils/devprof)
@@ -400,11 +426,15 @@ class NetworkBase:
 
     # -- the optimizer step --------------------------------------------------
 
-    def _reg_penalty(self, params):
+    def _reg_penalty(self, params, l2_in_tail=False):
         """L1/L2 penalties (reference: BaseLayer.calcL1/calcL2 added to the
-        score; their gradients come from differentiating this expression)."""
+        score; their gradients come from differentiating this expression).
+        `l2_in_tail`: the step's fused tail adds the trainable layers' L2
+        terms and gradients, so only the frozen layers' terms are here."""
         reg = 0.0
         for conf, p in zip(self._ordered_layer_confs(), params):
+            if l2_in_tail and not isinstance(conf, L.FrozenLayer):
+                continue
             inner = conf.inner if isinstance(conf, L.FrozenLayer) else conf
             l1 = getattr(inner, "l1", 0.0) or 0.0
             l2 = getattr(inner, "l2", 0.0) or 0.0
@@ -459,6 +489,61 @@ class NetworkBase:
             return self._trainable_keys()
         return [list(p) for p in self.params_list]
 
+    def _tail_decline(self, keys, norm_keys) -> Optional[str]:
+        """Why this step's optimizer tail cannot run as ops/fused_updater's
+        kernel, as a `fit_updater_declined_total` reason, or None: an
+        updater it does not run, gradient normalization, an l1 penalty,
+        `set_collect_stats`, a data-parallel or tensor-parallel split, a
+        sentinel's norm over frozen leaves the step must not update, or a
+        trainable leaf or state that is not contiguous f32."""
+        if self.updater_def.name not in _fused_updater.KINDS:
+            return "updater"
+        if self.net_conf.gradient_normalization not in (None, "none"):
+            return "normalization"
+        for conf in self._ordered_layer_confs():
+            inner = conf.inner if isinstance(conf, L.FrozenLayer) else conf
+            if getattr(inner, "l1", 0.0):
+                return "l1"
+        if self._collect_stats:
+            return "stats"
+        plan = self._mesh_plan
+        if (plan is not None and plan.n_data_shards > 1) or self._tp_specs is not None:
+            return "mesh"
+        if norm_keys != keys:
+            return "frozen_norm"
+        for p, s, ks in zip(self.params_list, self.upd_state, keys):
+            for k in ks:
+                for v in (p[k], *s[k].values()):
+                    if v.dtype != torch.float32 or not v.is_contiguous():
+                        return "dtype"
+        return None
+
+    def _tail_coefficients(self, keys):
+        """The fused tail's leaves in order, as (layer index, name), with
+        each one's L2 coefficient as `_reg_penalty` applies it and its
+        learning-rate multiplier."""
+        at = [(i, k) for i, ks in enumerate(keys) for k in ks]
+        confs, mult = self._ordered_layer_confs(), self._lr_mult_tree()
+        l2 = [(getattr(confs[i], "l2", 0.0) or 0.0) if _regularizable(k) else 0.0
+              for i, k in at]
+        return at, l2, [mult[i][k] for i, k in at]
+
+    def _fused_tail(self, keys, norm_keys) -> bool:
+        """Whether this step's tail runs as the fused kernel: on a CUDA net
+        wherever `_tail_decline` finds no reason; a CUDA step that declines
+        is counted under its reason (into the capture's tally while a graph
+        captures). A CPU net always takes the per-leaf tail."""
+        if self.device.type != "cuda":
+            return False
+        reason = self._tail_decline(keys, norm_keys)
+        if reason is None:
+            return True
+        if self._tail_declines is not None:
+            self._tail_declines[reason] = self._tail_declines.get(reason, 0) + 1
+        else:
+            self._fit_obs()["updater_declined"][reason].inc()
+        return False
+
     def _step(self, loss_builder, states, data, lr, t, rng):
         """One optimizer step: the loss and its gradients by autograd, then
         the shared tail — the diagnostic, gradient normalization, per-leaf
@@ -478,17 +563,27 @@ class NetworkBase:
         step's `diag`: over the trainable leaves, and over every leaf
         while a sentinel is attached (`_norm_keys`), when autograd also
         takes the frozen leaves' gradients, for the norm only. With
-        `set_collect_stats` the step also leaves `self._last_stats`."""
+        `set_collect_stats` the step also leaves `self._last_stats`.
+
+        On the card the tail runs as ops/fused_updater's kernel wherever
+        `_fused_tail` allows: the loss is built without the trainable
+        layers' L2 terms (the builder's `l2_in_tail`), and the kernel folds
+        each L2 gradient in, as much of it as the builder's score passes
+        to the weights (`l2_grad_share`), steps every leaf and writes the
+        diagnostic with the L2 terms added to the score; elsewhere the
+        per-leaf tail below."""
         params = self.params_list
         keys = self._trainable_keys()
         norm_keys = self._norm_keys()
         leaves = [p[k] for p, ks in zip(params, norm_keys) for k in ks]
         plan = self._mesh_plan
+        fused = bool(leaves) and self._fused_tail(keys, norm_keys)
         for v in leaves:
             v.requires_grad_(True)
         try:
             with _pmesh.data_parallel_scope(None if plan is None else plan.mesh):
-                score, new_states = loss_builder(params, states, data, rng)
+                score, new_states = loss_builder(params, states, data, rng,
+                                                 l2_in_tail=fused)
             flat = iter(torch.autograd.grad(score, leaves, allow_unused=True)
                         if leaves else ())
         finally:
@@ -499,6 +594,14 @@ class NetworkBase:
         # bias, a VAE's decoder, outside pretraining) has a zero gradient
         raw = [{k: _zero_if_none(next(flat), p[k]) for k in ks}
                for p, ks in zip(params, norm_keys)]
+        if fused:
+            at, l2, mult = self._tail_coefficients(keys)
+            self._step_diag = _fused_updater.apply_updater(
+                self.updater_def, [params[i][k] for i, k in at],
+                [raw[i][k] for i, k in at], [self.upd_state[i][k] for i, k in at],
+                l2, mult, lr, t, score.float(), negate=not self.net_conf.minimize,
+                l2_share=_l2_grad_share(loss_builder, data))
+            return _detached(self._merge_states(states, new_states)), self._step_diag[0]
         if plan is not None and plan.n_data_shards > 1:
             # the data-parallel reduction, before the diagnostic: the
             # sentinel, the clipping and the updater see the global
@@ -823,15 +926,21 @@ class NetworkBase:
             t0 = time.perf_counter()
             graph = torch.cuda.CUDAGraph()
             side.wait_stream(cur)
-            with _fused_lstm.recording_launches(side) as lstm_tally, \
-                    _fused_conv_bn.recording_launches(side) as conv_tally, \
-                    _helpers.recording_events(side) as events, \
-                    torch.cuda.graph(graph, stream=side,
-                                     capture_error_mode="thread_local"):
-                run()
+            self._tail_declines = declines = {}
+            try:
+                with _fused_lstm.recording_launches(side) as lstm_tally, \
+                        _fused_conv_bn.recording_launches(side) as conv_tally, \
+                        _fused_updater.recording_launches(side) as upd_tally, \
+                        _helpers.recording_events(side) as events, \
+                        torch.cuda.graph(graph, stream=side,
+                                         capture_error_mode="thread_local"):
+                    run()
+            finally:
+                self._tail_declines = None
             cur.wait_stream(side)
             prog.graph = graph
             prog.lstm_launches, prog.conv_launches = lstm_tally, conv_tally
+            prog.updater_launches, prog.tail_declines = upd_tally, declines
             prog.events = events
             prog.addresses = self._state_addresses()
             prog.capture_seconds = time.perf_counter() - t0
@@ -845,7 +954,11 @@ class NetworkBase:
         graph holds, and the replay counters."""
         _fused_lstm.add_launches(prog.lstm_launches)
         _fused_conv_bn.add_launches(prog.conv_launches)
+        _fused_updater.add_launches(prog.updater_launches)
         _helpers.replay_events(prog.events)
+        declined = self._fit_obs()["updater_declined"]
+        for reason, n in prog.tail_declines.items():
+            declined[reason].inc(n)
         prog.replays += 1
         self._fit_obs()["graph_replays"].inc()
 
@@ -1079,6 +1192,13 @@ class NetworkBase:
                     "fit_graph_declined_total",
                     "fused fit groups run eagerly on the card instead of "
                     "from a CUDA graph", ("reason",)).labels("collective"),
+                "updater_declined": {
+                    r: reg.counter(
+                        "fit_updater_declined_total",
+                        "optimizer steps on the card that ran the per-leaf "
+                        "updater tail instead of the fused kernel",
+                        ("reason",)).labels(r)
+                    for r in UPDATER_DECLINE_REASONS},
                 "allreduce_bytes": reg.counter(
                     "allreduce_bytes_total",
                     "gradient bytes all-reduced by the data-parallel train "

@@ -34,77 +34,22 @@ versions also take f64 (math in f64), for gradient checks.
 
 from __future__ import annotations
 
-import contextlib
 import ctypes
-import threading
 from typing import Dict, Tuple
 
 import torch
 
 from deeplearning4j_tpu_torch.ops import cuda_build
+from deeplearning4j_tpu_torch.ops.launches import LaunchCounter
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
-_count_lock = threading.Lock()
-_LAUNCHES: Dict[str, int] = {"lstm_step": 0, "lstm_sequence": 0,
-                             "lstm_sequence_backward": 0}
-
-
-def launch_counts() -> Dict[str, int]:
-    """Kernel launches per wrapper since the last reset."""
-    with _count_lock:
-        return dict(_LAUNCHES)
-
-
-def reset_launch_counts() -> None:
-    with _count_lock:
-        for k in _LAUNCHES:
-            _LAUNCHES[k] = 0
-
-
-# a thread's launch tally while a CUDA graph captures, and the tallies of
-# the streams being captured (see `recording_launches`)
-_recording = threading.local()
-_stream_tallies: Dict[int, Dict[str, int]] = {}
-
-
-def _bump(name: str) -> None:
-    tally = getattr(_recording, "tally", None)
-    if tally is None and _stream_tallies:
-        tally = _stream_tallies.get(torch.cuda.current_stream().cuda_stream)
-    if tally is not None:
-        tally[name] = tally.get(name, 0) + 1
-        return
-    with _count_lock:
-        _LAUNCHES[name] += 1
-
-
-@contextlib.contextmanager
-def recording_launches(stream=None):
-    """While a CUDA graph captures on this thread, the wrappers' launches
-    go into the yielded dict (name -> launches) instead of the counts: a
-    capture records its kernels and launches none. With the capture's
-    `stream`, launches any thread makes on that stream are recorded too:
-    a captured backward runs on the autograd engine's thread. The graph's
-    owner adds the tally with `add_launches` on every replay, so
-    `launch_counts()` stays a count of launches."""
-    prev = getattr(_recording, "tally", None)
-    _recording.tally = tally = {}
-    if stream is not None:
-        _stream_tallies[stream.cuda_stream] = tally
-    try:
-        yield tally
-    finally:
-        _recording.tally = prev
-        if stream is not None:
-            _stream_tallies.pop(stream.cuda_stream, None)
-
-
-def add_launches(tally: Dict[str, int]) -> None:
-    """Add a recorded tally to the counts: one replay of a captured graph."""
-    with _count_lock:
-        for name, n in tally.items():
-            _LAUNCHES[name] += n
+_counter = LaunchCounter(("lstm_step", "lstm_sequence", "lstm_sequence_backward"))
+launch_counts = _counter.launch_counts
+reset_launch_counts = _counter.reset_launch_counts
+recording_launches = _counter.recording_launches
+add_launches = _counter.add_launches
+_bump = _counter.bump
 
 
 # -- plain versions -----------------------------------------------------------
