@@ -8514,6 +8514,140 @@ def updater_phase(torch, F, fu, metrics, netbase, resnet50_network, char_lstm_ne
     return rec
 
 
+# -- phase 20: the Granite-4.0-H hybrid and its SSD kernels ---------------------
+
+GRANITE_SHAPE = (1, 16384, 64, 64, 1, 128, 256)  # B, T, H, P, G, N, chunk
+GRANITE_TOL = 1e-2       # bf16 operands against the f32 plain version (as the card tests)
+GRANITE_FIT_BATCHES = 6  # three dispatches of two steps: warm-up, capture + replay, replay
+
+
+def granite_ssd_case(torch, fs, seed):
+    """The SSD kernels against the plain version at the published shape,
+    forward and backward, and each one's device time beside its bound:
+    (record, kernels-table row)."""
+    B, T, H, P, G, N, Q = GRANITE_SHAPE
+    g = torch.Generator(device="cuda").manual_seed(seed + 20)
+    x = torch.randn(B, T, H, P, device="cuda", generator=g).bfloat16()
+    dt = torch.nn.functional.softplus(torch.randn(B, T, H, device="cuda", generator=g) - 3.0)
+    A = -torch.exp(torch.rand(H, device="cuda", generator=g) * 2.7)
+    Bm = torch.randn(B, T, G, N, device="cuda", generator=g).bfloat16()
+    Cm = torch.randn(B, T, G, N, device="cuda", generator=g).bfloat16()
+    D = torch.randn(H, device="cuda", generator=g)
+    ins = (x, dt, A, Bm, Cm, D)
+    k = [t.clone().requires_grad_(True) for t in ins]
+    p = [t.clone().float().requires_grad_(True) for t in ins]
+    yk, yp = fs.ssd_scan(*k, Q), fs.ssd_chunked(*p, Q)
+    dy = torch.randn(yp.shape, device="cuda", generator=g)
+    gk = torch.autograd.grad((yk.float() * dy).sum(), k)
+    gp = torch.autograd.grad((yp * dy).sum(), p)
+    errs = {n: float((a.float() - b.float()).norm() / b.float().norm())
+            for n, a, b in zip(("y", "dx", "ddt", "dA", "dB", "dC", "dD"), (yk,) + gk,
+                               (yp,) + gp)}
+    del yk, yp, gk, gp, k
+    for n, e in errs.items():
+        check(e <= GRANITE_TOL, f"20a: SSD {n} {e:.3g} from the plain version")
+    l = fs.chunk_decay(dt, A, Q)
+    dyb = dy.bfloat16()
+    fwd = device_by_kernel(torch, lambda: fs.scan_forward(x, dt, l, Bm, Cm, D, Q), reps=5)
+    _, st, ll = fs.scan_forward(x, dt, l, Bm, Cm, D, Q)
+    bwd = device_by_kernel(torch, lambda: fs.scan_backward(x, dt, l, Bm, Cm, D, st.clone(),
+                                                           ll, dyb, Q), reps=5)
+
+    def plain():
+        y = fs.ssd_chunked(*p, Q)
+        torch.autograd.grad((y * dy).sum(), p)
+
+    plain_ms = device_ms(torch, plain, reps=2)
+    flops = B * T * H * ((Q + 1.0) * (N * G / H + P) + 4.0 * N * P)
+    nbytes = 2 * (2 * B * T * H * P + 2 * B * T * G * N) + 4 * B * T * H + 8 * H
+    f_ms = sum(v for n, v in fwd.items() if n.startswith("ssd_"))
+    b_ms = sum(v for n, v in bwd.items() if n.startswith("ssd_"))
+    fb_ms, fb_by = bound(nbytes, flops, BF16_FLOP_PER_S)
+    bb_ms, bb_by = bound(2 * nbytes, 2 * flops, BF16_FLOP_PER_S)
+    rec = {"errors": errs, "fwd_ms_by_kernel": fwd, "bwd_ms_by_kernel": bwd,
+           "fwd_ms": f_ms, "bwd_ms": b_ms, "plain_fwd_bwd_ms": plain_ms,
+           "fwd_bound_ms": fb_ms, "bwd_bound_ms": bb_ms, "bound_by": fb_by}
+    print(f"  20a: SSD at B,T,H,P,G,N,Q = {GRANITE_SHAPE}: largest rel gap "
+          f"{max(errs.values()):.3g} ({errs}); forward kernels {f_ms:.3f} ms (bound "
+          f"{fb_ms:.3f} ms by {fb_by}), backward kernels {b_ms:.3f} ms (bound {bb_ms:.3f} ms "
+          f"by {bb_by}); plain version forward + backward {opt(plain_ms, '.2f')} ms "
+          f"(profiler, device time)")
+    row = {"err_f32": None, "err_bf16": max(errs.values()), "ms": f_ms + b_ms,
+           "plain_ms": plain_ms, "bound_ms": fb_ms + bb_ms, "bound_by": fb_by,
+           "library_ms": None, "ms_source": "profiler",
+           "shape": dict(zip("BTHPGNQ", GRANITE_SHAPE))}
+    return rec, row
+
+
+def granite_fit_case(torch, fs, metrics, seed, card):
+    """The 10-layer Granite-4.0-H-Micro cut at published widths trained by
+    fit under set_fused_steps(2): the eager warm-up profiled for the spans,
+    then a capture and replays, with the SSD launches and the Adam steps
+    that take the per-leaf tail counted."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from deeplearning4j_tpu_torch.data import DataSet, ExistingDataSetIterator
+    from deeplearning4j_tpu_torch.models.granite_hybrid import granite4h_network
+
+    net = granite4h_network(num_hidden_layers=10, seed=seed, device="cuda")
+    net.set_fused_steps(2)
+    n_params = net.num_params()
+    g = torch.Generator(device="cuda").manual_seed(seed + 21)
+    w = 1.0 / torch.arange(1, 100353, device="cuda", dtype=torch.float32)
+    data = []
+    for _ in range(GRANITE_FIT_BATCHES):
+        ids = torch.multinomial(w[None], 16385, replacement=True, generator=g).cpu()
+        data.append(DataSet(ids[:, :-1], ids[:, 1:]))
+    declined = metrics.get_registry().counter("fit_updater_declined_total", "", ("reason",))
+    d0 = declined.labels("updater").value
+    fs.reset_launch_counts()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        net.fit(ExistingDataSetIterator(data[:2]), async_prefetch=False)
+        torch.cuda.synchronize()
+    names = {e.name for e in prof.events()}
+    spans = {s: s in names for s in ("ssd/scan_fwd", "ssd/scan_bwd", "attn/gqa")}
+    eager = fs.launch_counts()
+    fs.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    net.fit(ExistingDataSetIterator(data[2:]), async_prefetch=False)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    graphed = fs.launch_counts()
+    graphs = net.fit_graphs()
+    replays = sum(gr["replays"] for gr in graphs)
+    scores = [float(v) for v in net._fused_scores]
+    rec = {"params": n_params, "spans": spans, "eager_launches": eager,
+           "graphed_launches": graphed, "replays": replays,
+           "updater_declined": declined.labels("updater").value - d0, "scores": scores,
+           "peak_bytes": torch.cuda.max_memory_allocated(), "graphed_seconds": secs}
+    check(all(spans.values()), f"20b: spans missing from the eager dispatch's profile: {spans}")
+    check(eager == {n: 9 * 2 for n in fs.KERNELS}, f"20b: eager SSD launches {eager}")
+    check(replays == 2 and graphed == {n: 9 * 2 * replays for n in fs.KERNELS},
+          f"20b: {replays} replays, SSD launches {graphed}")
+    # every step, eager or replayed, takes the per-leaf tail: the fused
+    # kernel has no Adam (ops/fused_updater.py KINDS)
+    check(rec["updater_declined"] == GRANITE_FIT_BATCHES,
+          f"20b: {rec['updater_declined']} Adam steps counted under reason updater, "
+          f"expected {GRANITE_FIT_BATCHES}")
+    check(all(math.isfinite(s) for s in scores), f"20b: scores {scores}")
+    print(f"  20b: {n_params} parameters, spans {spans}; SSD launches eager {eager}, "
+          f"{replays} replays {graphed}; Adam steps on the per-leaf tail "
+          f"(fit_updater_declined_total{{reason=\"updater\"}}) {rec['updater_declined']}; "
+          f"scores {scores}; two graphed dispatches {secs:.2f} s, peak "
+          f"{rec['peak_bytes'] / 2**30:.1f} GiB, on {card}")
+    del net
+    torch.cuda.empty_cache()
+    return rec
+
+
+def granite_phase(torch, fs, metrics, seed, card):
+    """Phase 20; returns its record with the kernels-table row."""
+    ssd, row = granite_ssd_case(torch, fs, seed)
+    torch.cuda.empty_cache()
+    return {"ssd": ssd, "fit": granite_fit_case(torch, fs, metrics, seed, card), "row": row}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -8524,7 +8658,7 @@ def main(argv=None) -> int:
     ap.add_argument("--ckpt-dir", default=None, help="the child's checkpoint directory")
     ap.add_argument("--model-path", default=None, help="the server child's model zip")
     ap.add_argument("--port", type=int, default=None, help="the server child's port")
-    ap.add_argument("--only", choices=["18", "18a", "19"], default=None,
+    ap.add_argument("--only", choices=["18", "18a", "19", "20"], default=None,
                     help="build the kernels, then run this phase (or 18a, the sharded "
                          "serving, over every visible card) alone and print its JSON "
                          "line (not the result lines)")
@@ -8591,6 +8725,19 @@ def main(argv=None) -> int:
     if args.only == "19":
         p19 = updater_tail()
         print(json.dumps({"updater": {k: p19[k] for k in ("cases", "fits")}}))
+        return 0
+
+    def granite():
+        from deeplearning4j_tpu_torch.ops import fused_ssd
+
+        print("[20] the Granite-4.0-H hybrid: the SSD kernels at the published shape, and "
+              "the 10-layer cut trained graphed")
+        torch.cuda.empty_cache()
+        return granite_phase(torch, fused_ssd, metrics, args.seed, card)
+
+    if args.only == "20":
+        p20 = granite()
+        print(json.dumps({"granite": {k: p20[k] for k in ("ssd", "fit")}}))
         return 0
     if args.only is not None:
         p18 = gaps_phase(torch, F, LaunchCounts(fl, fcb), metrics, args.seed, card,
@@ -8754,6 +8901,8 @@ def main(argv=None) -> int:
     p19 = updater_tail()
     p19["launches_phases_2_18"] = earlier
     rows.update(p19["rows"])
+    p20 = granite()
+    rows["ssd_scan"] = p20["row"]
 
     # each main path's count, read just after it ran from zero
     by_path = {"output": sl["launches"], "serve": sv["launches"],
@@ -8771,7 +8920,9 @@ def main(argv=None) -> int:
                "recsys": p14["launches"],
                "ledger_serving": p14["ledger_serving"]["launches"],
                "observability": p15["launches"], "ui": p16["launches"],
-               **p17["launches"], **p18["launches"], "updater_tail": p19["launches"]}
+               **p17["launches"], **p18["launches"], "updater_tail": p19["launches"],
+               "granite": {"ssd_scan": sum(p20["fit"]["eager_launches"].values())
+                           + sum(p20["fit"]["graphed_launches"].values())}}
     main_launches = {name: sum(c.get(name, 0) for c in by_path.values())
                      for name in rows}
     meta = {
@@ -8796,6 +8947,8 @@ def main(argv=None) -> int:
                           "none (port-only: XLA fuses the JAX package's optimizer tail)"),
         "updater_finish": ("deeplearning4j_tpu_torch/csrc/updater_apply.cu",
                            "none (port-only: XLA fuses the JAX package's optimizer tail)"),
+        "ssd_scan": ("deeplearning4j_tpu_torch/csrc/ssd_scan.cu",
+                     "none (port-only: the JAX package has no state-space layer)"),
     }
     kernels = [{
         "name": name, "route": "cuda", "source": meta[name][0],
@@ -8828,6 +8981,7 @@ def main(argv=None) -> int:
               "phase17": p17,
               "phase18": p18,
               "phase19": {k: v for k, v in p19.items() if k != "rows"},
+              "phase20": {k: v for k, v in p20.items() if k != "row"},
               "build": {k: v["seconds"] for k, v in info.items()},
               "ptxas": {k: v["log"] for k, v in info.items() if k not in cuda_build.SOURCES},
               "seconds": time.perf_counter() - t_start}
@@ -8844,6 +8998,7 @@ def main(argv=None) -> int:
     print(json.dumps({"gaps": gaps_summary(p18, card)}))
     print(json.dumps({"updater": {k: p19[k] for k in ("cases", "fits",
                                                       "launches_phases_2_18")}}))
+    print(json.dumps({"granite": {k: p20[k] for k in ("ssd", "fit")}}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -101,7 +101,11 @@ from deeplearning4j_tpu_torch.nn.netbase import (
     _layer_seed,
     _slice_b_weight,
 )
-from deeplearning4j_tpu_torch.ops.losses import loss_value, masked_example_mean
+from deeplearning4j_tpu_torch.ops.losses import (
+    loss_value,
+    masked_example_mean,
+    tied_sparse_mcxent,
+)
 from deeplearning4j_tpu_torch.train.evaluation import (
     Evaluation,
     RegressionEvaluation,
@@ -268,6 +272,27 @@ def relu_fused_bn_vertices(conf: ComputationGraphConfiguration) -> Dict[str, str
     return out
 
 
+def tied_tables(conf: ComputationGraphConfiguration) -> Dict[str, str]:
+    """{TiedOutputLayer vertex: the SequenceEmbeddingLayer vertex whose W it
+    reads}, each checked: the table's rows are the head's outputs and its
+    width the head's input, so that one leaf serves both uses."""
+    out = {}
+    for name, v in conf.vertices.items():
+        if not (isinstance(v, LayerVertex) and isinstance(v.layer, L.TiedOutputLayer)):
+            continue
+        src = conf.vertices.get(v.layer.tied_to)
+        if not (isinstance(src, LayerVertex)
+                and isinstance(src.layer, L.SequenceEmbeddingLayer)):
+            raise ValueError(f"{name}: tied_to {v.layer.tied_to!r} is not a "
+                             "SequenceEmbeddingLayer vertex")
+        e, h = src.layer, v.layer
+        if h.n_out is not None and (h.n_out, h.n_in) != (e.n_in, e.n_out):
+            raise ValueError(f"{name}: [{h.n_in} -> {h.n_out}] does not fit the table "
+                             f"[{e.n_in}, {e.n_out}] of {v.layer.tied_to!r}")
+        out[name] = v.layer.tied_to
+    return out
+
+
 class ComputationGraph(NetworkBase):
     """DAG network. API mirrors the reference: init, fit, output, score,
     params/set_params. Runs on `device` ("cuda" when None; pass
@@ -288,6 +313,13 @@ class ComputationGraph(NetworkBase):
             n: i for i, n in enumerate(self.layer_vertex_names)}
         self._layer_confs: List[L.LayerConf] = [
             conf.vertices[n].layer for n in self.layer_vertex_names]
+        self._tied = tied_tables(conf)
+        # graph inputs of token ids: an integer batch there stays integer
+        self._id_inputs = frozenset(
+            n for n in conf.inputs
+            if any(isinstance(conf.vertices[c], LayerVertex)
+                   and isinstance(conf.vertices[c].layer, L.SequenceEmbeddingLayer)
+                   for c, ins in conf.vertex_inputs.items() if n in ins))
         self.relu_fused_bn = relu_fused_bn_vertices(conf)
         self._relu_passed = frozenset(self.relu_fused_bn.values())
         self._block_scan = None  # None = DL4J_BLOCK_SCAN decides
@@ -412,15 +444,19 @@ class ComputationGraph(NetworkBase):
                     training=training, rng=rng,
                     mask=sole_mask if x.dim() == 3 else None,
                     timesteps=timesteps, state=states[pidx],
-                    fuse_relu=training and name in self.relu_fused_bn)
+                    fuse_relu=training and name in self.relu_fused_bn,
+                    dtype=self.policy.compute_dtype)
+                # a tied head reads its embedding's parameters: one leaf
+                p = params[self._pidx[self._tied[name]]] if name in self._tied else params[pidx]
                 if (preout_outputs and name in conf.outputs
                         and isinstance(lc, _OUTPUT_LAYER_TYPES)):
                     x = apply_dropout(x, lc.dropout, ctx)
                     acts[name + "__features"] = x
-                    x = _preout_of_output_layer(lc, params[pidx], x)
+                    # a tied head's loss forms its logits itself, in chunks
+                    x = None if name in self._tied else _preout_of_output_layer(lc, p, x)
                     ns = None
                 else:
-                    x, ns = forward_layer(lc, params[pidx], x, ctx)
+                    x, ns = forward_layer(lc, p, x, ctx)
                 new_states[pidx] = ns
                 acts[name] = x
             r = first_unit_ends.get(pos)
@@ -446,12 +482,18 @@ class ComputationGraph(NetworkBase):
     def _merge_states(self, old, new):
         return [n if n is not None else o for o, n in zip(old, new)]
 
+    def _cast_inputs(self, xs):
+        """The inputs in the policy's compute dtype, except integer token
+        ids for a SequenceEmbeddingLayer (a bf16 id is not exact past 256)."""
+        return [x if name in self._id_inputs and not x.is_floating_point()
+                else self.policy.cast_input(x) for name, x in zip(self.conf.inputs, xs)]
+
     # -- loss ----------------------------------------------------------------
 
     def _loss(self, params, states, xs, ys, f_masks, l_masks, rng, training=True,
               note_key=None, l2_in_tail=False):
         conf = self.conf
-        xs = [self.policy.cast_input(x) for x in xs]
+        xs = self._cast_inputs(xs)
         acts, new_states = self._forward(
             params, states, xs, training=training, rng=rng,
             input_masks=f_masks, preout_outputs=True, note_key=note_key)
@@ -464,8 +506,16 @@ class ComputationGraph(NetworkBase):
                 continue
             lc = v.layer
             lm = l_masks[i] if l_masks is not None else None
-            per_ex = loss_value(lc.loss, ys[i], self.policy.cast_output(acts[name]),
-                                lc.activation, lm)
+            if name in self._tied:
+                if lc.loss != "sparse_mcxent" or lc.activation != "softmax":
+                    raise ValueError(f"{name}: a tied head trains by sparse_mcxent on "
+                                     f"softmax, not {lc.loss!r} on {lc.activation!r}")
+                per_ex = tied_sparse_mcxent(
+                    acts[name + "__features"], params[self._pidx[self._tied[name]]]["W"],
+                    ys[i], 1.0 / lc.logits_scaling, lm)
+            else:
+                per_ex = loss_value(lc.loss, ys[i], self.policy.cast_output(acts[name]),
+                                    lc.activation, lm)
             score = score + masked_example_mean(per_ex, lm)
             if isinstance(lc, L.CenterLossOutputLayer):
                 pidx = self._pidx[name]
@@ -675,7 +725,7 @@ class ComputationGraph(NetworkBase):
 
         def make_fn():
             def fwd(params, states, xs, masks):
-                xs = [self.policy.cast_input(x) for x in xs]
+                xs = self._cast_inputs(xs)
                 acts, _ = self._forward(params, states, xs, training=False,
                                         rng=None, input_masks=masks,
                                         note_key=("output",) + key)
@@ -705,7 +755,7 @@ class ComputationGraph(NetworkBase):
         with torch.no_grad():
             acts, _ = self._forward(
                 self.params_list, self.state_list,
-                [self.policy.cast_input(self._as_input(x)) for x in inputs],
+                self._cast_inputs([self._as_input(x) for x in inputs]),
                 training=False, rng=None)
         return acts
 
@@ -737,7 +787,7 @@ class ComputationGraph(NetworkBase):
         with torch.no_grad():
             acts, new_states = self._forward(
                 self.params_list, states,
-                [self.policy.cast_input(x) for x in xs],
+                self._cast_inputs(xs),
                 training=False, rng=None)
         merged = self._merge_states(states, new_states)
         self._rnn_carry = {i: merged[i] for i, lc in enumerate(self._layer_confs)

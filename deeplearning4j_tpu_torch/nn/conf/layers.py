@@ -468,3 +468,110 @@ class FrozenLayer(LayerConf):
 
     def has_params(self):
         return self.inner.has_params()
+
+
+# -- decoder language-model layers (Granite-4.0-H hybrid: models/granite_hybrid.py)
+# Capability beyond the reference, as SelfAttentionLayer is. Each maps
+# [b, t, n] to [b, t, n'] over the time axis and holds no recurrent carry.
+
+
+def _seq_size(it) -> int:
+    return it.size if isinstance(it, RecurrentInput) else it.arity()
+
+
+def _seq_out(it, n: int):
+    return RecurrentInput(n, it.timesteps if isinstance(it, RecurrentInput) else None)
+
+
+@dataclasses.dataclass(kw_only=True)
+class SequenceLayerConf(BaseLayerConf):
+    """A [b, t, n_in] -> [b, t, n_out] layer; n_out None keeps the width."""
+
+    n_in: Optional[int] = None
+    n_out: Optional[int] = None
+
+    def output_type(self, it):
+        return _seq_out(it, self.n_out if self.n_out is not None else self.n_in)
+
+    def infer_n_in(self, it) -> None:
+        if self.n_in is None:
+            self.n_in = _seq_size(it)
+
+
+@register_config("layer.sequence_embedding")
+@dataclasses.dataclass(kw_only=True)
+class SequenceEmbeddingLayer(SequenceLayerConf):
+    """Token-id lookup over a sequence: integer ids [b, t] -> [b, t, n_out]
+    rows of W [n_in (vocabulary), n_out], no bias. The recurrent input
+    type's size is the vocabulary."""
+
+
+@register_config("layer.rms_norm")
+@dataclasses.dataclass(kw_only=True)
+class RMSNormLayer(SequenceLayerConf):
+    """RMSNorm over the last axis (Zhang & Sennrich, arXiv:1910.07467):
+    x / sqrt(mean(x^2) + eps) * gamma, the statistic in f32."""
+
+    eps: float = 1e-5
+
+
+@register_config("layer.gated_mlp")
+@dataclasses.dataclass(kw_only=True)
+class GatedMLPLayer(SequenceLayerConf):
+    """Gated MLP (SwiGLU with activation silu; Shazeer, arXiv:2002.05202):
+    W_out^T (act(x W_in[:, :k]) * x W_in[:, k:]) with k = hidden_size, no
+    bias; the output keeps the input width."""
+
+    hidden_size: int = 0
+
+
+@register_config("layer.gqa_attention")
+@dataclasses.dataclass(kw_only=True)
+class GroupedQueryAttentionLayer(SequenceLayerConf):
+    """Grouped-query self-attention (Ainslie et al., arXiv:2305.13245):
+    n_heads query heads of head_dim share n_kv_heads key/value heads,
+    causal scores q k^T * score_scale (None: 1/sqrt(head_dim)), no
+    position encoding and no bias, then the output projection back to the
+    input width. Never builds a [t, t] score tensor: fused attention on
+    the card, query blocks on the CPU."""
+
+    n_heads: int = 32
+    n_kv_heads: int = 8
+    head_dim: int = 64
+    score_scale: Optional[float] = None
+
+
+@register_config("layer.mamba2")
+@dataclasses.dataclass(kw_only=True)
+class Mamba2Layer(SequenceLayerConf):
+    """Mamba-2 mixer (Dao & Gu, arXiv:2405.21060): in_proj to
+    [z | x B C | dt] (no bias), a causal depthwise conv of width d_conv
+    with bias on x B C then SiLU, dt = softplus(dt + dt_bias),
+    A = -exp(A_log), the SSD chunked scan over chunk_size steps with the
+    D x skip, the gated RMSNorm norm(y * SiLU(z)) and out_proj back to the
+    input width. The inner width is n_heads * head_dim."""
+
+    n_heads: int = 64
+    head_dim: int = 64
+    d_state: int = 128
+    n_groups: int = 1
+    d_conv: int = 4
+    chunk_size: int = 256
+    norm_eps: float = 1e-5
+
+
+@register_config("layer.tied_output")
+@dataclasses.dataclass(kw_only=True)
+class TiedOutputLayer(SequenceLayerConf):
+    """Decoder head that reads the embedding table of the vertex `tied_to`
+    (a SequenceEmbeddingLayer, W [n_out, n_in]) as its own weight, one
+    leaf for both uses: logits = x W^T / logits_scaling over [b, t, n_in],
+    trained by `loss` (sparse_mcxent: integer labels [b, t]). Holds no
+    parameters of its own."""
+
+    tied_to: str = ""
+    logits_scaling: float = 1.0
+    loss: str = "sparse_mcxent"
+
+    def has_params(self) -> bool:
+        return False

@@ -17,8 +17,10 @@ from deeplearning4j_tpu_torch.nn.layers import (  # noqa: E402,F401
     attention,
     conv,
     core,
+    lm,
     norm,
     rbm,
     recurrent,
     special,
+    ssm,
 )

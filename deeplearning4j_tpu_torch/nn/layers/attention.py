@@ -94,3 +94,68 @@ def attention_order(conf):
 
 register_layer(L.SelfAttentionLayer, attention_init, attention_forward,
                order_fn=attention_order)
+
+
+# -- grouped-query attention (config: GroupedQueryAttentionLayer) ------------
+
+def gqa_init(gen, conf: L.GroupedQueryAttentionLayer, dtype):
+    n, D = int(conf.n_in), int(conf.head_dim)
+    hq, hkv = int(conf.n_heads), int(conf.n_kv_heads)
+    if hq % hkv:
+        raise ValueError(f"n_heads {hq} must be a multiple of n_kv_heads {hkv}")
+
+    def mk(i, o):
+        return init_weights(gen, (i, o), i, o, conf.weight_init, conf.dist, dtype)
+
+    return {"Wq": mk(n, hq * D), "Wk": mk(n, hkv * D), "Wv": mk(n, hkv * D),
+            "Wo": mk(hq * D, n)}
+
+
+def blocked_causal_attention(q, k, v, scale: float, block: int = 128):
+    """Causal softmax attention over [B, H, T, D] in blocks of `block`
+    queries, each block's scores [B, H, block, keys so far] in f32 at
+    least: the same function as fused attention, with no [T, T] tensor."""
+    acc = torch.promote_types(q.dtype, torch.float32)
+    T = q.shape[2]
+    outs = []
+    for i in range(0, T, block):
+        j = min(i + block, T)
+        s = (q[:, :, i:j].to(acc) @ k[:, :, :j].to(acc).transpose(-1, -2)) * scale
+        rows = torch.arange(i, j, device=q.device)[:, None]
+        s = s.masked_fill(torch.arange(j, device=q.device)[None, :] > rows, float("-inf"))
+        outs.append((torch.softmax(s, dim=-1) @ v[:, :, :j].to(acc)).to(q.dtype))
+    return torch.cat(outs, dim=2)
+
+
+def gqa_core(q, k, v, scale: float):
+    """Causal attention of q [B, Hq, T, D] over k, v [B, Hkv, T, D], each
+    key head shared by Hq / Hkv query heads: PyTorch's fused attention on
+    the card, query blocks elsewhere."""
+    rep = q.shape[1] // k.shape[1]
+    if rep > 1:
+        k = k.repeat_interleave(rep, dim=1)
+        v = v.repeat_interleave(rep, dim=1)
+    if q.device.type == "cuda":
+        return torch.nn.functional.scaled_dot_product_attention(
+            q, k, v, is_causal=True, scale=scale)
+    return blocked_causal_attention(q, k, v, scale)
+
+
+def gqa_forward(conf: L.GroupedQueryAttentionLayer, params, x, ctx: LayerContext):
+    """x [b, t, n] -> [b, t, n]."""
+    from deeplearning4j_tpu_torch.utils import tracing
+
+    B, T, _ = x.shape
+    D, hq, hkv = int(conf.head_dim), int(conf.n_heads), int(conf.n_kv_heads)
+    dt = x.dtype
+    q = (x @ params["Wq"].to(dt)).view(B, T, hq, D).transpose(1, 2)
+    k = (x @ params["Wk"].to(dt)).view(B, T, hkv, D).transpose(1, 2)
+    v = (x @ params["Wv"].to(dt)).view(B, T, hkv, D).transpose(1, 2)
+    scale = conf.score_scale if conf.score_scale is not None else 1.0 / math.sqrt(D)
+    with tracing.span("attn/gqa"):
+        o = gqa_core(q, k, v, float(scale))
+    return o.transpose(1, 2).reshape(B, T, hq * D) @ params["Wo"].to(dt), None
+
+
+register_layer(L.GroupedQueryAttentionLayer, gqa_init, gqa_forward,
+               order_fn=lambda conf: ("Wq", "Wk", "Wv", "Wo"))

@@ -41,6 +41,9 @@ class LayerContext:
     # a tensor-parallel Dense layer's (role, mesh, axis): role "column" or
     # "row" (parallel/tensor.py); None when the layer is not split
     tp: Optional[tuple] = None
+    # the network's compute dtype, for a layer whose input carries none
+    # (integer token ids); None where the caller sets no policy
+    dtype: Optional[torch.dtype] = None
 
 
 def register_layer(conf_cls, init_fn, forward_fn, order_fn=None, state_fn=None):

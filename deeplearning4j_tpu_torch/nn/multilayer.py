@@ -79,7 +79,7 @@ from deeplearning4j_tpu_torch.train.updaters import schedule_lr, updater_from_co
 logger = logging.getLogger("deeplearning4j_tpu_torch")
 
 _OUTPUT_LAYER_TYPES = (L.OutputLayer, L.RnnOutputLayer, L.LossLayer,
-                       L.CenterLossOutputLayer)
+                       L.CenterLossOutputLayer, L.TiedOutputLayer)
 _PRETRAINABLE = (L.AutoEncoder, L.VariationalAutoencoder, L.RBM)
 
 

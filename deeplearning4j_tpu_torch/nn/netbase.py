@@ -64,6 +64,7 @@ from deeplearning4j_tpu_torch.nn.params import (
 )
 from deeplearning4j_tpu_torch.ops import fused_conv_bn as _fused_conv_bn
 from deeplearning4j_tpu_torch.ops import fused_lstm as _fused_lstm
+from deeplearning4j_tpu_torch.ops import fused_ssd as _fused_ssd
 from deeplearning4j_tpu_torch.ops import fused_updater as _fused_updater
 from deeplearning4j_tpu_torch.ops import helpers as _helpers
 from deeplearning4j_tpu_torch.ops.activations import sign_abs
@@ -220,6 +221,7 @@ class _Program:
         self.lstm_launches: Dict[str, int] = {}
         self.conv_launches: Dict[str, int] = {}
         self.updater_launches: Dict[str, int] = {}
+        self.ssd_launches: Dict[str, int] = {}
         self.tail_declines: Dict[str, int] = {}
         self.events: list = []
         self.addresses = None
@@ -931,6 +933,7 @@ class NetworkBase:
                 with _fused_lstm.recording_launches(side) as lstm_tally, \
                         _fused_conv_bn.recording_launches(side) as conv_tally, \
                         _fused_updater.recording_launches(side) as upd_tally, \
+                        _fused_ssd.recording_launches(side) as ssd_tally, \
                         _helpers.recording_events(side) as events, \
                         torch.cuda.graph(graph, stream=side,
                                          capture_error_mode="thread_local"):
@@ -941,6 +944,7 @@ class NetworkBase:
             prog.graph = graph
             prog.lstm_launches, prog.conv_launches = lstm_tally, conv_tally
             prog.updater_launches, prog.tail_declines = upd_tally, declines
+            prog.ssd_launches = ssd_tally
             prog.events = events
             prog.addresses = self._state_addresses()
             prog.capture_seconds = time.perf_counter() - t0
@@ -955,6 +959,7 @@ class NetworkBase:
         _fused_lstm.add_launches(prog.lstm_launches)
         _fused_conv_bn.add_launches(prog.conv_launches)
         _fused_updater.add_launches(prog.updater_launches)
+        _fused_ssd.add_launches(prog.ssd_launches)
         _helpers.replay_events(prog.events)
         declined = self._fit_obs()["updater_declined"]
         for reason, n in prog.tail_declines.items():

@@ -31,7 +31,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 SOURCES = ("lstm_step", "lstm_sequence", "lstm_sequence_bwd", "conv1x1_stats",
-           "conv_kxk_stats", "bn_apply", "bn_backward", "updater_apply")
+           "conv_kxk_stats", "bn_apply", "bn_backward", "updater_apply", "ssd_scan")
 _HEADERS = ("common.cuh", "conv_bn.cuh", "bn_stream.cuh", "lstm_cluster.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

@@ -127,6 +127,59 @@ def mcxent(labels, preout, activation, mask=None):
     return _reduce(-labels * logp, mask)
 
 
+class _TiedXent(torch.autograd.Function):
+    """Per-token cross-entropy of logits (x * scale) W^T against ids, in
+    chunks of `chunk` tokens: no [tokens, vocab] tensor outlives its chunk;
+    the backward computes each chunk's logits again."""
+
+    @staticmethod
+    def forward(ctx, x, W, ids, scale, chunk):
+        Wc = W.to(x.dtype)
+        out = torch.empty(x.shape[0], dtype=torch.float32, device=x.device)
+        for i in range(0, x.shape[0], chunk):
+            z = (x[i:i + chunk] * scale) @ Wc.T
+            out[i:i + chunk] = F.cross_entropy(z.float(), ids[i:i + chunk], reduction="none")
+        ctx.save_for_backward(x, W, ids)
+        ctx.scale, ctx.chunk = scale, chunk
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, W, ids = ctx.saved_tensors
+        scale, chunk = ctx.scale, ctx.chunk
+        Wc = W.to(x.dtype)
+        dx = torch.empty_like(x)
+        dW = torch.zeros(W.shape, dtype=torch.float32, device=W.device)
+        for i in range(0, x.shape[0], chunk):
+            xs = x[i:i + chunk] * scale
+            p = torch.softmax((xs @ Wc.T).float(), dim=-1)
+            rows = torch.arange(p.shape[0], device=p.device)
+            p[rows, ids[i:i + chunk]] -= 1.0
+            p = (p * g[i:i + chunk, None]).to(x.dtype)
+            dx[i:i + chunk] = (p @ Wc) * scale
+            dW += (p.T @ xs).float()
+        return dx, dW.to(W.dtype), None, None, None
+
+
+def tied_sparse_mcxent(x, W, labels, scale: float, mask=None, chunk: int = 4096):
+    """Multi-class cross-entropy against integer class ids (the loss
+    "sparse_mcxent" of a TiedOutputLayer) of the softmax logits
+    (x * scale) W^T, for features x [batch, time, n], the table W
+    [classes, n] and labels [batch, time] (any integer or integral float
+    dtype): per example the mean over its time steps (masked steps count
+    0), so that the network's mean over examples is the mean over every
+    token. The logits are formed and log-softmaxed in f32 a chunk of
+    tokens at a time: neither a [batch * time, classes] logit tensor nor a
+    one-hot label tensor is ever held whole (the backward forms each
+    chunk again)."""
+    ids = labels.long().reshape(-1)
+    per = _TiedXent.apply(x.reshape(-1, x.shape[-1]), W, ids, float(scale), int(chunk))
+    per = per.view(labels.shape)
+    if mask is not None:
+        per = per * mask.to(per.dtype).reshape(per.shape)
+    return per.mean(dim=tuple(range(1, per.dim()))) if per.dim() > 1 else per
+
+
 @_loss("negativeloglikelihood")
 def negativeloglikelihood(labels, preout, activation, mask=None):
     # reference LossNegativeLogLikelihood extends LossMCXENT

@@ -72,7 +72,37 @@ def _layer_forward_flops(conf, it) -> float:
     if isinstance(inner, (L.DenseLayer, L.OutputLayer, L.CenterLossOutputLayer,
                           L.AutoEncoder)):
         return 2.0 * inner.n_in * inner.n_out
+    if isinstance(inner, (L.Mamba2Layer, L.GroupedQueryAttentionLayer, L.GatedMLPLayer,
+                          L.TiedOutputLayer)):
+        return _sequence_layer_flops(inner, it.timesteps or 1)
     return 0.0  # embedding (a gather), pooling, normalization, ...
+
+
+def _sequence_layer_flops(inner, t: int) -> float:
+    """Forward FLOPs of a decoder layer over one sequence of t tokens: 2 x
+    the projections' multiply-adds; the SSD's (Q + 1)(N G/H + P) + 4NP a
+    head and token (the causal half of the intra-chunk [Q, Q] square, C B^T
+    once a group of heads; benchmark/counts/ssd_scan.py); causal
+    attention's q k^T and p v over (t + 1) / 2 keys a query on average;
+    the tied head's product. Conv, norms, gates and softmax are left out."""
+    n = int(inner.n_in)
+    if isinstance(inner, L.Mamba2Layer):
+        H, P, N = int(inner.n_heads), int(inner.head_dim), int(inner.d_state)
+        G = int(inner.n_groups)
+        d_inner = H * P
+        conv = d_inner + 2 * G * N
+        q = min(int(inner.chunk_size), t)
+        per_token = (2.0 * n * (d_inner + conv + H) + 2.0 * d_inner * n
+                     + H * ((q + 1.0) * (N * G / H + P) + 4.0 * N * P))
+        return per_token * t
+    if isinstance(inner, L.GroupedQueryAttentionLayer):
+        D, hq, hkv = int(inner.head_dim), int(inner.n_heads), int(inner.n_kv_heads)
+        proj = 2.0 * n * (hq + 2 * hkv) * D + 2.0 * hq * D * n
+        scores = 2.0 * 2.0 * hq * D * (t + 1) / 2.0
+        return (proj + scores) * t
+    if isinstance(inner, L.GatedMLPLayer):
+        return (2.0 * n * 2 * int(inner.hidden_size) + 2.0 * int(inner.hidden_size) * n) * t
+    return 2.0 * n * int(inner.n_out) * t  # TiedOutputLayer
 
 
 def graph_forward_flops(conf: ComputationGraphConfiguration) -> Optional[float]:

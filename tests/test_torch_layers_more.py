@@ -336,8 +336,16 @@ def test_rbm_forward_and_cd_stats(hidden, visible, k, sparsity):
         _close(tg[name], jg[name], GRAD)
 
 
+# the port's decoder layers, which the JAX package does not have
+# (models/granite_hybrid.py)
+PORT_ONLY_LAYERS = {"SequenceEmbeddingLayer", "RMSNormLayer", "GatedMLPLayer",
+                    "GroupedQueryAttentionLayer", "Mamba2Layer", "TiedOutputLayer"}
+
+
 def test_all_layer_confs_registered_with_the_jax_param_order():
     """Every layer conf the JAX package registers has an init and a
-    forward in the port."""
-    assert {c.__name__ for c in treg._INIT} == {c.__name__ for c in jreg._INIT}
-    assert {c.__name__ for c in treg._FORWARD} == {c.__name__ for c in jreg._FORWARD}
+    forward in the port; beyond them the port registers its decoder
+    layers only."""
+    assert {c.__name__ for c in treg._INIT} == {c.__name__ for c in jreg._INIT} | PORT_ONLY_LAYERS
+    assert ({c.__name__ for c in treg._FORWARD}
+            == {c.__name__ for c in jreg._FORWARD} | PORT_ONLY_LAYERS)
